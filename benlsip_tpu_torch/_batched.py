@@ -42,8 +42,12 @@ def sel(mask: Tensor, new: Tensor, old: Tensor) -> Tensor:
 
 
 def sel_tuple(mask: Tensor, new: T, old: T) -> T:
-    """Per-lane select of every field of two NamedTuples."""
-    return type(old)(*[sel(mask, n, o) for n, o in zip(new, old)])
+    """Per-lane select of every field of two NamedTuples; nested
+    NamedTuples are selected field by field and None fields stay None."""
+    return type(old)(*[
+        o if o is None else sel_tuple(mask, n, o) if isinstance(o, tuple) else sel(mask, n, o)
+        for n, o in zip(new, old)
+    ])
 
 
 def tree_map(fn, tree):

@@ -1,28 +1,39 @@
-"""Warm-start SQP polish and certification (PyTorch port of the range-space
-QR route of `benlsip_tpu/batch/polish.py`).
+"""Warm-start SQP polish and certification (PyTorch port of
+`benlsip_tpu/batch/polish.py`).
 
 At the f32 bulk solution the active set is identified and the point lies
 within ~sqrt(eps(f32)) of the optimum, so a few fixed-active-set
-Gauss-Newton SQP steps reach the f64 KKT region.  Each step solves
+Gauss-Newton SQP steps reach the f64 KKT region.  Each step solves the
+KKT system of  min ½‖J dx + r‖²  s.t.  E dx = -e,  dx_i = 0 (i fixed),
+E = [C; A], through one of two factorizations (`kkt_factorization`):
 
-    [ RJᵀRJ   (EZ)ᵀ ] [dx]   [rhs_x]       RJ = qr_r([JZ; D_fixed])
-    [  EZ       0   ] [dν] = [rhs_e]       Wᵀ = RJ⁻ᵀ(EZ)ᵀ = Qw Tw
+* "qr", range-space: RJ = qr_r([JZ; D_fixed]) and Wᵀ = RJ⁻ᵀ(EZ)ᵀ = Qw Tw
+  (`qr_r` at (B, d+n, n) and `thin_qr` at (B, n, p+m), the QR kernel's
+  shapes), O(κ(J)·eps) — the route for float32 factors;
+* "lu": the assembled (n+p+m)² KKT matrix
+  [[ZJᵀJZ + diag(fixed) + reg·Z, (EZ)ᵀ], [EZ, -dual_reg·I]] by LU,
+  O(κ(J)²·eps) — the float64 default.
 
-through its range-space QR factors (see the JAX module for the algebra).
-The factor phase runs in float32 — `qr_r` at (B, d+n, n) and `thin_qr` at
-(B, n, p+m), the QR kernel's shapes — and the chord phase iterates
-f64 residuals against the frozen f32 factors (mixed-precision iterative
-refinement).  Every lane is then certified with exact-projection
-criticality ‖P_Ω(x − ∇L) − x‖ and ‖c‖; uncertified lanes get re-polish
-rounds and then the full f64 refine (`fallback_full_refine`).
+`refactor_steps` factor-phase steps (the active set re-decided every step
+from the sign of the Lagrangian gradient) are followed by chord steps on
+the frozen factors in delta form: the right-hand side is the exact KKT
+residual in the working dtype and the solve runs in the factors' dtype, so
+f32 factors with f64 state are mixed-precision iterative refinement.
+Every lane is then certified with exact-projection criticality
+‖P_Ω(x − ∇L) − x‖ and ‖c‖; uncertified lanes get re-polish rounds and
+then the full f64 refine (`fallback_full_refine`).
 
-Not ported yet: the assembled-KKT LU route (`_factor_phase`,
-`_chord_phase`, `sqp_polish`, `sqp_polish_split`) and with it the
-all-f64 host certification.
+Three pipelines share these pieces (`polish_then_refine` routes them):
+`sqp_polish_fused` (f32 QR factors and f64 chord on the device the bulk
+ran on), `sqp_polish_split` (f32 factors there, f64 chord on the CPU) and
+`sqp_polish` (everything in one dtype on one device).  Every one of them
+runs at least one chord step: `refactor_steps` is clamped to
+`num_steps - 1` (the JAX package can run zero and then certifies the f32
+factor point).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,6 +45,25 @@ from ..solver.status import SOLVE_CONVERGED, SOLVE_MAX_OUTER
 from .vmap_solve import BatchedProblem, map_poly_fields
 
 Tensor = torch.Tensor
+_CPU = torch.device("cpu")
+
+
+def _split_steps(num_steps: int, refactor_steps: int) -> Tuple[int, int]:
+    """(factor-phase steps, chord steps) of a `num_steps` budget: at least
+    one of each."""
+    if num_steps < 2:
+        raise ValueError(f"num_steps={num_steps}: a polish needs a factor step and a chord step")
+    rs = min(max(refactor_steps, 1), num_steps - 1)
+    return rs, num_steps - rs
+
+
+def _resolve_kkt(kkt_factorization: str, dtype: torch.dtype) -> str:
+    """"auto": "qr" for float32 factors (no κ² headroom), "lu" for float64."""
+    if kkt_factorization not in ("auto", "lu", "qr"):
+        raise ValueError(f"kkt_factorization={kkt_factorization!r}: expected 'auto', 'lu' or 'qr'")
+    if kkt_factorization != "auto":
+        return kkt_factorization
+    return "qr" if dtype in (torch.float32, torch.bfloat16) else "lu"
 
 
 def _trisolve(R: Tensor, b: Tensor, upper: bool) -> Tensor:
@@ -41,42 +71,95 @@ def _trisolve(R: Tensor, b: Tensor, upper: bool) -> Tensor:
     return torch.linalg.solve_triangular(R, b.unsqueeze(-1), upper=upper).squeeze(-1)
 
 
-def _kkt_solve_qr(RJ: Tensor, Qw: Tensor, Tw: Tensor, rhs_x: Tensor, rhs_e: Tensor):
-    """Solve the GN KKT system through its range-space QR factors:
-    z₀ = RJ⁻ᵀ rhs_x, TwᵀTw dν = W z₀ − rhs_e, dx = RJ⁻¹(z₀ − Wᵀdν)."""
-    z0 = _trisolve(RJ.mT, rhs_x, upper=False)
-    if Tw.shape[-1] == 0:
-        return _trisolve(RJ, z0, upper=True), torch.zeros_like(rhs_e)
-    u = mtv(Qw, z0) - _trisolve(Tw.mT, rhs_e, upper=False)
-    dnu = _trisolve(Tw, u, upper=True)
-    t = z0 - mv(Qw, mv(Tw, dnu))
-    return _trisolve(RJ, t, upper=True), dnu
+def _cast_factors(F, device, dtype):
+    """Factors moved to device, their floating-point fields cast to dtype."""
+    return type(F)(*[a.to(device=device, dtype=dtype if a.is_floating_point() else a.dtype) for a in F])
 
 
-def _factor_phase_qr(fns, poly: Polyhedron, x0: Tensor, refactor_steps: int,
-                     active_tol: float, reg: float):
-    """Active-set settling + range-space QR factorization steps.
+class _QRFactors(NamedTuple):
+    """Range-space factors RJ (B, n, n), Qw (B, n, q), Tw (B, q, q)."""
+
+    RJ: Tensor
+    Qw: Tensor
+    Tw: Tensor
+
+    def solve(self, rhs_x: Tensor, rhs_e: Tensor):
+        """z₀ = RJ⁻ᵀ rhs_x, TwᵀTw dν = W z₀ − rhs_e, dx = RJ⁻¹(z₀ − Wᵀdν)."""
+        RJ, Qw, Tw = self
+        z0 = _trisolve(RJ.mT, rhs_x, upper=False)
+        if Tw.shape[-1] == 0:
+            return _trisolve(RJ, z0, upper=True), torch.zeros_like(rhs_e)
+        u = mtv(Qw, z0) - _trisolve(Tw.mT, rhs_e, upper=False)
+        dnu = _trisolve(Tw, u, upper=True)
+        t = z0 - mv(Qw, mv(Tw, dnu))
+        return _trisolve(RJ, t, upper=True), dnu
+
+
+class _LUFactors(NamedTuple):
+    """LU factors of the assembled KKT matrix, (B, n+q, n+q), and pivots."""
+
+    LU: Tensor
+    piv: Tensor
+
+    def solve(self, rhs_x: Tensor, rhs_e: Tensor):
+        rhs = torch.cat([rhs_x, rhs_e], dim=-1).unsqueeze(-1)
+        sol = torch.linalg.lu_solve(self.LU, self.piv, rhs).squeeze(-1)
+        n = rhs_x.shape[-1]
+        return sol[:, :n], sol[:, n:]
+
+
+def _factor_qr(JZ: Tensor, EZ: Tensor, fixed: Tensor, reg: float, dual_reg: float) -> _QRFactors:
+    """RJ = qr_r([JZ; D]) with D = diag(fixed ? 1 : sqrt(reg)), so RJᵀRJ is
+    the KKT matrix's H block, and Qw Tw = RJ⁻ᵀ(EZ)ᵀ (`dual_reg` is the LU
+    route's; the range-space solve needs none)."""
+    from ..ops.qr import qr_r, thin_qr
+
+    sreg = torch.sqrt(torch.tensor(reg, dtype=JZ.dtype, device=JZ.device))
+    dbot = torch.where(fixed, torch.ones((), dtype=JZ.dtype, device=JZ.device), sreg)
+    RJ = qr_r(torch.cat([JZ, torch.diag_embed(dbot)], dim=-2))        # (B, n, n)
+    Wt = torch.linalg.solve_triangular(RJ.mT, EZ.mT, upper=False)    # (B, n, q)
+    return _QRFactors(RJ, *thin_qr(Wt))
+
+
+def _factor_lu(JZ: Tensor, EZ: Tensor, fixed: Tensor, reg: float, dual_reg: float) -> _LUFactors:
+    """LU of [[JZᵀJZ + diag(fixed) + reg·Z, (EZ)ᵀ], [EZ, -dual_reg·I]]."""
+    dtype = JZ.dtype
+    q = EZ.shape[-2]
+    fx = fixed.to(dtype)
+    H = JZ.mT @ JZ + torch.diag_embed(fx + reg * (1.0 - fx))
+    dual = (-dual_reg * torch.eye(q, dtype=dtype, device=JZ.device)).expand(EZ.shape[0], q, q)
+    K = torch.cat([torch.cat([H, EZ.mT], dim=-1), torch.cat([EZ, dual], dim=-1)], dim=-2)
+    # No error check: a singular lane gives non-finite steps and fails its
+    # certificate, as LAPACK's getrf does in the JAX package.
+    LU, piv, _ = torch.linalg.lu_factor_ex(K)
+    return _LUFactors(LU, piv)
+
+
+_FACTOR = {"qr": _factor_qr, "lu": _factor_lu}
+
+
+def _factor_phase(fns, poly: Polyhedron, x0: Tensor, refactor_steps: int, active_tol: float,
+                  kkt: str, reg: float, dual_reg: float = 1e-14):
+    """Active-set settling + KKT factorization steps.
 
     Bounds within active_tol (relative) of the warm start are candidates;
     which are fixed is re-decided every step from the sign of the current
     Lagrangian gradient (the first step fixes every candidate).  Returns
-    (x, nu, RJ, Qw, Tw, free).
+    (x, nu, factors, free).
     """
-    from ..ops.qr import qr_r, thin_qr
-
     dtype = x0.dtype
     B, n = x0.shape
     A, b = poly.A, poly.b
     m = A.shape[-2]
     p = fns.nlconstraints(x0).shape[-1]
+    factor = _FACTOR[kkt]
 
     scale = 1.0 + torch.abs(x0)
     at_lo = torch.isfinite(poly.xl) & ((x0 - poly.xl) <= active_tol * scale)
     at_hi = torch.isfinite(poly.xu) & ((poly.xu - x0) <= active_tol * scale)
     x = torch.where(at_lo, poly.xl, torch.where(at_hi, poly.xu, x0))
     nu = torch.zeros((B, p + m), dtype=dtype, device=x0.device)
-    RJ = Qw = Tw = free = None
-    sreg = torch.sqrt(torch.tensor(reg, dtype=dtype, device=x0.device))
+    F = free = None
     for k in range(max(refactor_steps, 1)):
         r = fns.residuals(x)
         J = fns.jac_res(x)
@@ -88,17 +171,11 @@ def _factor_phase_qr(fns, poly: Polyhedron, x0: Tensor, refactor_steps: int,
         fixed = (at_lo | at_hi) if k == 0 else (keep_lo | keep_hi)
         free = (~fixed).to(dtype)
 
-        EZ = E * free.unsqueeze(-2)
-        JZ = J * free.unsqueeze(-2)
-        dbot = torch.where(fixed, torch.ones((), dtype=dtype, device=x0.device), sreg)
-        RJ = qr_r(torch.cat([JZ, torch.diag_embed(dbot)], dim=-2))       # (B, n, n)
-        Wt = torch.linalg.solve_triangular(RJ.mT, EZ.mT, upper=False)   # (B, n, p+m)
-        Qw, Tw = thin_qr(Wt)
-        rhs = -(free * mtv(J, r))
-        dx, dnu = _kkt_solve_qr(RJ, Qw, Tw, rhs, -e)
+        F = factor(J * free.unsqueeze(-2), E * free.unsqueeze(-2), fixed, reg, dual_reg)
+        dx, dnu = F.solve(-(free * mtv(J, r)), -e)
         x = torch.clamp(x + dx * free, poly.xl, poly.xu)
         nu = dnu
-    return x, nu, RJ, Qw, Tw, free
+    return x, nu, F, free
 
 
 def _certify(fns, poly: Polyhedron, x: Tensor, nu: Tensor, p: int, crit_tol: float, feas_tol: float):
@@ -117,8 +194,8 @@ def _certify(fns, poly: Polyhedron, x: Tensor, nu: Tensor, p: int, crit_tol: flo
     return x, y, converged, pix, feas, 0.5 * vdot(r, r)
 
 
-def _chord_phase_qr(fns, poly: Polyhedron, x: Tensor, nu: Tensor, RJ: Tensor, Qw: Tensor,
-                    Tw: Tensor, free: Tensor, chord_steps: int, crit_tol: float, feas_tol: float):
+def _chord_phase(fns, poly: Polyhedron, x: Tensor, nu: Tensor, F, free: Tensor,
+                 chord_steps: int, crit_tol: float, feas_tol: float):
     """Frozen-factor (chord) Newton steps in delta form + certification.
 
     The right-hand side is the exact KKT residual in the working dtype;
@@ -126,41 +203,111 @@ def _chord_phase_qr(fns, poly: Polyhedron, x: Tensor, nu: Tensor, RJ: Tensor, Qw
     state: mixed-precision iterative refinement)."""
     A, b = poly.A, poly.b
     p = nu.shape[-1] - A.shape[-2]
-    fdt = RJ.dtype
+    fdt = F[0].dtype
     for _ in range(chord_steps):
         r = fns.residuals(x)
         J = fns.jac_res(x)
         e = torch.cat([fns.nlconstraints(x), mv(A, x) - b], dim=-1)
         gL = mtv(J, r) + mtv(torch.cat([fns.jac_nlcons(x), A], dim=-2), nu)
-        dx, dnu = _kkt_solve_qr(RJ, Qw, Tw, (-(free * gL)).to(fdt), (-e).to(fdt))
+        dx, dnu = F.solve((-(free * gL)).to(fdt), (-e).to(fdt))
         x = torch.clamp(x + dx.to(x.dtype) * free, poly.xl, poly.xu)
         nu = nu + dnu.to(nu.dtype)
     return _certify(fns, poly, x, nu, p, crit_tol, feas_tol)
 
 
-def _polish_round(bp32, theta32, bp64, theta64, X64: Tensor, rs: int, num_steps: int,
-                  active_tol: float, reg: float, crit_tol: float, feas_tol: float):
-    """One polish pass over a (sub-)batch: f32 QR factor phase, f64 chord
-    phase and certification."""
-    B, n = X64.shape
-    dev = X64.device
-    poly32 = bp32.polyhedron(n, torch.float32, B, dev)
-    poly64 = bp64.polyhedron(n, torch.float64, B, dev)
-    fns32 = bp32.instance_fns(theta32)
-    fns64 = bp64.instance_fns(theta64)
-    x, nu, RJ, Qw, Tw, free = _factor_phase_qr(
-        fns32, poly32, X64.to(torch.float32), rs, active_tol, reg
-    )
-    # Snap fixed coordinates from the f32-rounded image of their bound to
-    # the f64 bound, so the certificate sees no ~eps(f32) face offset.
-    x64 = x.to(torch.float64)
+def _snap_fixed(x64: Tensor, free: Tensor, poly64: Polyhedron) -> Tensor:
+    """Fixed coordinates arrive on the f32-rounded image of their bound:
+    snap them to the f64 bound, so the certificate sees no ~eps(f32) face
+    offset."""
     fixedm = free == 0
     lo_near = torch.abs(x64 - poly64.xl) <= torch.abs(poly64.xu - x64)
     x64 = torch.where(fixedm & torch.isfinite(poly64.xl) & lo_near, poly64.xl, x64)
-    x64 = torch.where(fixedm & torch.isfinite(poly64.xu) & ~lo_near, poly64.xu, x64)
-    return _chord_phase_qr(
-        fns64, poly64, x64, nu.to(torch.float64), RJ, Qw, Tw, free.to(torch.float64),
-        num_steps - rs, crit_tol, feas_tol,
+    return torch.where(fixedm & torch.isfinite(poly64.xu) & ~lo_near, poly64.xu, x64)
+
+
+def _f32_factor_then_f64_chord(bp32, theta32, X32: Tensor, bp64, theta64, dev, rs: int, chord: int,
+                               kkt: str, active_tol: float, reg: float, dual_reg: float,
+                               crit_tol: float, feas_tol: float, promote: bool):
+    """The factor phase in float32 on X32's device, then the chord phase and
+    certificate in float64 on `dev`, where bp64/theta64 live (the CPU for
+    the split polish, X32's own device for the fused one).  `promote`
+    casts the factors to float64 (the split polish); otherwise they stay
+    float32."""
+    B, n = X32.shape
+    poly32 = bp32.polyhedron(n, torch.float32, B, X32.device)
+    x, nu, F, free = _factor_phase(
+        bp32.instance_fns(theta32), poly32, X32.to(torch.float32), rs, active_tol, kkt, reg, dual_reg
+    )
+    poly64 = bp64.polyhedron(n, torch.float64, B, dev)
+    f64 = lambda t: t.to(device=dev, dtype=torch.float64)
+    F = _cast_factors(F, dev, torch.float64 if promote else torch.float32)
+    return _chord_phase(
+        bp64.instance_fns(theta64), poly64, _snap_fixed(f64(x), f64(free), poly64), f64(nu), F,
+        f64(free), chord, crit_tol, feas_tol,
+    )
+
+
+def sqp_polish(
+    bp: BatchedProblem,
+    theta,
+    X0: Tensor,
+    options: SolverOptions = SolverOptions(),
+    num_steps: int = 3,
+    active_tol: float = 1e-4,
+    reg: float = 0.0,
+    dual_reg: float = 1e-14,
+    refactor_steps: int = 2,
+    kkt_factorization: str = "auto",
+):
+    """Fixed-active-set SQP polish of warm starts X0 (B, n), factors and
+    chord in X0's dtype on X0's device (bp/theta already there).
+
+    Returns (X, Y, converged, pix, feas, objective); `converged` is the
+    per-lane certification mask.
+    """
+    rs, chord = _split_steps(num_steps, refactor_steps)
+    B, n = X0.shape
+    opts = options.resolve_tols(X0.dtype)
+    poly = bp.polyhedron(n, X0.dtype, B, X0.device)
+    fns = bp.instance_fns(theta)
+    kkt = _resolve_kkt(kkt_factorization, X0.dtype)
+    x, nu, F, free = _factor_phase(fns, poly, X0, rs, active_tol, kkt, reg, dual_reg)
+    return _chord_phase(fns, poly, x, nu, F, free, chord, float(opts.crit_tol), float(opts.feas_tol))
+
+
+def sqp_polish_split(
+    bp32: BatchedProblem,
+    theta32,
+    X32: Tensor,
+    bp64: BatchedProblem,
+    theta64,
+    options: SolverOptions = SolverOptions(),
+    num_steps: int = 5,
+    active_tol: float = 1e-4,
+    reg: float = 0.0,
+    dual_reg: float = 1e-14,
+    refactor_steps: int = 2,
+    kkt_factorization: str = "auto",
+):
+    """Device-factored polish: the f32 factor phase where X32 lives (the
+    card after the bulk), the f64 chord phase and certificate on the CPU
+    with the factors promoted to f64 — the JAX package's host
+    certification at n ≥ 64.  The O(dn² + n³) factor work stays on the
+    device; the CPU pays O(dn + n²) per chord step.  "auto" factors by the
+    range-space QR (`_resolve_kkt` on float32).
+
+    bp64/theta64 are the f64 master data (moved to the CPU here).  Returns
+    (X, Y, converged, pix, feas, objective) in f64 on the CPU.
+    """
+    from .refine import _cast_problem, _cast_tree
+
+    rs, chord = _split_steps(num_steps, refactor_steps)
+    opts = options.resolve_tols(torch.float64)
+    theta_h = _cast_tree(tree_map(lambda a: a.to(_CPU), theta64), torch.float64)
+    return _f32_factor_then_f64_chord(
+        bp32, theta32, X32, _cast_problem(bp64, torch.float64, _CPU), theta_h, _CPU, rs, chord,
+        _resolve_kkt(kkt_factorization, X32.dtype), active_tol, reg, dual_reg,
+        float(opts.crit_tol), float(opts.feas_tol), promote=True,
     )
 
 
@@ -195,13 +342,17 @@ def sqp_polish_fused(
     straggler is left without its re-polish.  All inputs live on X32's
     device.  Returns (X, Y, converged, pix, feas, objective) in f64.
     """
+    rs, chord = _split_steps(num_steps, refactor_steps)
     opts = options.resolve_tols(torch.float64)
-    rs = min(max(refactor_steps, 1), num_steps)
-    args = (rs, num_steps, active_tol, reg, float(opts.crit_tol), float(opts.feas_tol))
+    dev = X32.device
 
-    x, y, ok, pix, feas, obj = _polish_round(
-        bp32, theta32, bp64, theta64, X32.to(torch.float64), *args
-    )
+    def polish_round(b32, t32, b64, t64, x64):
+        return _f32_factor_then_f64_chord(
+            b32, t32, x64, b64, t64, dev, rs, chord, "qr", active_tol, reg, 0.0,
+            float(opts.crit_tol), float(opts.feas_tol), promote=False,
+        )
+
+    x, y, ok, pix, feas, obj = polish_round(bp32, theta32, bp64, theta64, X32.to(torch.float64))
     att = torch.zeros_like(ok, dtype=torch.int32)
     K = max(straggler_bucket, 1)
     while True:
@@ -213,7 +364,7 @@ def sqp_polish_fused(
         idx = torch.sort(score, descending=True, stable=True).indices[: min(K, n_elig)]
         bp32_k, th32_k = _take_batched(bp32, theta32, idx)
         bp64_k, th64_k = _take_batched(bp64, theta64, idx)
-        nx, ny, nok, npix, nfeas, nobj = _polish_round(bp32_k, th32_k, bp64_k, th64_k, x[idx], *args)
+        nx, ny, nok, npix, nfeas, nobj = polish_round(bp32_k, th32_k, bp64_k, th64_k, x[idx])
         x[idx], y[idx], ok[idx] = nx, ny, nok
         pix[idx], feas[idx], obj[idx] = npix, nfeas, nobj
         att[idx] += 1
@@ -235,35 +386,66 @@ def polish_then_refine(
     num_steps: int = 3,
     active_tol: float = 1e-4,
     chunk: int = 512,
+    device=None,
     rounds: int = 2,
     refactor_steps: int = 2,
     bp32: Optional[BatchedProblem] = None,
     theta32=None,
+    split: str = "auto",
+    kkt_factorization: str = "auto",
     straggler_bucket: int = 64,
 ) -> Tuple[Tensor, Tensor, SolveInfo]:
-    """f64 certification phase on X32's device: fused SQP polish (f32 QR
-    factors, f64 chord steps, exact-projection certificate, re-polish
-    rounds) + full-refine fallback for the lanes still uncertified.
+    """f64 certification phase: SQP polish, re-polish rounds and the
+    full-refine fallback for the lanes still uncertified.
 
-    `bp32`/`theta32` are the bulk phase's float32 working set on the same
-    device.  Returns f64 (X, Y, SolveInfo).
+    `device=None` certifies on X32's device: the fused polish
+    (`sqp_polish_fused`) when the bulk phase's float32 working set
+    `bp32`/`theta32` (on X32's device) is given and `split` is not "off",
+    else the all-f64 `sqp_polish` there.  `device="cpu"` is the host
+    certification: the split polish (`sqp_polish_split`: f32 factors where
+    X32 lives, f64 chord on the CPU) when `bp32`/`theta32` are given and
+    `split` is "on", or "auto" with n ≥ 64; else the all-f64 `sqp_polish`
+    on the CPU.  Outside the fused polish, uncertified lanes get up to
+    `rounds - 1` re-polishes through `sqp_polish`.  The fallback refine
+    runs where the certification ran.  `kkt_factorization` applies to the
+    split and all-f64 polishes ("auto": QR for f32 factors, LU for f64).
+    Returns f64 (X, Y, SolveInfo) on the certification's device.
     """
-    if bp32 is None or theta32 is None:
-        raise NotImplementedError(
-            "the all-f64 polish (sqp_polish, the host certification route) is not ported yet; "
-            "pass the bulk phase's float32 working set as bp32/theta32"
-        )
     from .refine import _cast_problem, _cast_tree
 
-    dev = X32.device
+    if split not in ("auto", "on", "off"):
+        raise ValueError(f"split={split!r}: expected 'auto', 'on' or 'off'")
+    host = device is not None
+    if host and torch.device(device).type != "cpu":
+        raise ValueError(f"device={device!r}: None (X32's device) or 'cpu' (host certification)")
+    dev = _CPU if host else X32.device
     theta64 = _cast_tree(tree_map(lambda a: a.to(dev), theta), torch.float64)
     bp64 = _cast_problem(bp, torch.float64, dev)
-    X, Y, ok, pix, feas, obj = sqp_polish_fused(
-        bp32, theta32, X32, bp64, theta64, options,
-        num_steps=num_steps, active_tol=active_tol,
-        refactor_steps=refactor_steps, rounds=rounds,
-        straggler_bucket=straggler_bucket,
-    )
+    have32 = bp32 is not None and theta32 is not None
+    kw = dict(num_steps=num_steps, active_tol=active_tol, refactor_steps=refactor_steps)
+
+    if have32 and not host and split != "off":
+        X, Y, ok, pix, feas, obj = sqp_polish_fused(
+            bp32, theta32, X32, bp64, theta64, options, rounds=rounds,
+            straggler_bucket=straggler_bucket, **kw,
+        )
+    else:
+        kw["kkt_factorization"] = kkt_factorization
+        if have32 and host and (split == "on" or (split == "auto" and X32.shape[-1] >= 64)):
+            out = sqp_polish_split(bp32, theta32, X32, bp64, theta64, options, **kw)
+        else:
+            out = sqp_polish(bp64, theta64, X32.to(device=dev, dtype=torch.float64), options, **kw)
+        X, Y, ok, pix, feas, obj = out
+        # Re-polish only the uncertified lanes; the re-polished state is
+        # taken certified or not, so a further round starts from it.
+        for _ in range(rounds - 1):
+            if bool(ok.all()):
+                break
+            idx = _gather_uncertified(ok)
+            bp_r, theta_r = _take_batched(bp64, theta64, idx)
+            new = sqp_polish(bp_r, theta_r, X[idx], options, **kw)
+            for t, t_new in zip(out, new):
+                t[idx] = t_new
     B = X.shape[0]
     opts = options.resolve_tols(torch.float64)
     zeros_i = torch.zeros((B,), dtype=torch.int32, device=dev)

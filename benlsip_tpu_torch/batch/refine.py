@@ -5,16 +5,20 @@ port of `solve_mixed_precision` and `refine_f64` in
 1. bulk phase — the full TRALCNLLS iteration in float32, to a loose
    criticality tolerance (it only has to identify the active set and land
    in the polish's Newton basin);
-2. certification — the fused SQP polish (float32 QR factors, float64
-   chord steps, exact-projection certificate) with the full f64 refine as
-   the fallback for the lanes it cannot certify.
+2. certification — the SQP polish (float32 factors, float64 chord steps,
+   exact-projection certificate) with the full f64 refine as the fallback
+   for the lanes it cannot certify.
 
-Everything runs on the device the data are on, the f64 fallback included:
-the H100 has native float64, so the JAX package's `refine_device="cpu"`
-(chosen for a TPU that emulates f64) has no counterpart here.  The
-scheduling knobs of the JAX pipeline keep their parameters; "auto"
-resolves to the plain path and an explicit non-default value raises
-`NotImplementedError` until its route is ported.
+`certify="auto"` (or "device") certifies on the device the data are on,
+the f64 fallback included: the H100 has native float64, so the JAX
+package's TPU thresholds and `refine_device="cpu"` (chosen for a TPU that
+emulates f64) have no counterpart here.  `certify="host"` is the JAX host
+certification on request: the f64 chord phase and the fallback run on the
+CPU (for n ≥ 64 after f32 factors on the device, `batch/polish.py`), and
+the results come back on the CPU.  The scheduling knobs of the JAX
+pipeline keep their parameters; "auto" resolves to the plain path and an
+explicit non-default value raises `NotImplementedError` until its route is
+ported.
 """
 from __future__ import annotations
 
@@ -88,10 +92,12 @@ def solve_mixed_precision(
     """f32 bulk solve + f64 certification on X0's device; returns f64
     (X, Y, SolveInfo).
 
-    certify: "auto" or "device" (the fused device certification); "host"
-    is not ported.  polish=False refines every instance with the full f64
-    solver instead.  bulk_crit_tol relaxes the bulk phase's criticality
-    tolerance (None: the f32 floor); bulk_max_inner caps its inner
+    certify: "auto" or "device" certifies on X0's device; "host" runs the
+    f64 chord phase and the fallback on the CPU and returns CPU tensors
+    (see the module docstring).  polish=False refines every instance with
+    the full f64 solver instead, on the certification's device.
+    bulk_crit_tol relaxes the bulk phase's criticality tolerance (None:
+    the f32 floor); bulk_max_inner caps its inner
     iterations ("auto": 8 for n ≤ 8).  fuse, bulk_compact,
     sort_by_difficulty and pipeline_overlap keep the JAX signature; only
     their plain settings are ported, as is only a float32 bulk_dtype.
@@ -100,8 +106,9 @@ def solve_mixed_precision(
     _require_plain("bulk_compact", bulk_compact, None)
     _require_plain("sort_by_difficulty", sort_by_difficulty, False)
     _require_plain("pipeline_overlap", pipeline_overlap, False)
-    if certify not in ("auto", "device"):
-        raise NotImplementedError(f"solve_mixed_precision(certify={certify!r}): not ported yet")
+    if certify not in ("auto", "device", "host"):
+        raise ValueError(f"certify={certify!r}: expected 'auto', 'device' or 'host'")
+    host = certify == "host"
     if bulk_dtype != torch.float32:
         raise NotImplementedError(f"solve_mixed_precision(bulk_dtype={bulk_dtype}): not ported yet")
 
@@ -128,6 +135,6 @@ def solve_mixed_precision(
 
         return polish_then_refine(
             bp, theta, X32, options, num_steps=polish_steps, chunk=chunk,
-            bp32=bp32, theta32=theta32,
+            device="cpu" if host else None, bp32=bp32, theta32=theta32,
         )
-    return refine_f64(bp, theta, X32, options, chunk=chunk)
+    return refine_f64(bp, theta, X32.cpu() if host else X32, options, chunk=chunk)

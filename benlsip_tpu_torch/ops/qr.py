@@ -1,5 +1,5 @@
 """QR factorizations for the Gauss-Newton algebra (PyTorch port of
-`thin_qr` and `qr_r` in `benlsip_tpu/ops/qr.py`).
+`benlsip_tpu/ops/qr.py`).
 
 Dispatch follows the JAX gate (`ops/qr.py:31-40` there): batched float32
 matrices with 0 < N ≤ 16 columns and N ≤ D ≤ 2048 rows go to the
@@ -8,12 +8,19 @@ its plain PyTorch version on a CPU tensor), everything else to
 `torch.linalg.qr`.  The two routes differ in sign conventions (MGS gives R
 a positive diagonal, Householder need not); every consumer here uses the
 factors in sign-invariant combinations (RᵀR, Q·T).
+
+CholeskyQR2 (`cholqr2_r`, `cholqr2i_r`) builds the same R from Gram
+matrices: its (n, n) Choleskys are at n ≥ 64 in the solver, where the JAX
+package goes to XLA, so they use `ops/cholesky.chol_linalg` (NaN on
+failure, never an exception), not the small-matrix kernel.  Inputs are
+batched (B, d, n).
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels import batched_linalg as kern
+from .cholesky import chol_linalg
 
 Tensor = torch.Tensor
 
@@ -39,3 +46,87 @@ def qr_r(S: Tensor) -> Tensor:
     if _kernel_eligible(S):
         return kern.batched_thin_qr(S.contiguous())[1]
     return torch.linalg.qr(S, mode="r")[1]
+
+
+def _chol_upper(G: Tensor) -> Tensor:
+    """Upper-triangular R with RᵀR = G (transpose of the lower Cholesky);
+    all-NaN in a lane whose G is not positive definite."""
+    return chol_linalg(G).mT
+
+
+def _nan_lanes(R: Tensor) -> Tensor:
+    return torch.isnan(R).any(-1, keepdim=True).any(-2, keepdim=True)
+
+
+def _rescued_chol_upper(G: Tensor) -> Tensor:
+    """Cholesky of a Gram matrix with the shift rescue for κ(S) ≳ 1/√eps:
+    a lane whose factor breaks down is refactored as G + σI with
+    σ = 2 n eps tr(G).  The shift perturbs only the conditioning of the
+    CholeskyQR2 transforms, never the final product R₂R₁ (see the JAX
+    function).  The shifted factor is computed only when a lane needs it."""
+    n = G.shape[-1]
+    R = _chol_upper(G)
+    bad = _nan_lanes(R)
+    if not bool(bad.any()):
+        return R
+    tr = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+    sigma = 2.0 * n * torch.finfo(G.dtype).eps * tr
+    eye = torch.eye(n, dtype=G.dtype, device=G.device)
+    return torch.where(bad, _chol_upper(G + sigma * eye), R)
+
+
+def _explicit_r2(S: Tensor, R1: Tensor) -> Tensor:
+    """Explicit second pass: W = S R₁⁻¹, R₂ = chol(WᵀW) (a Gram, PSD at any κ)."""
+    W = torch.linalg.solve_triangular(R1, S, upper=True, left=False)
+    return _rescued_chol_upper(W.mT @ W)
+
+
+def cholqr2_r(S: Tensor) -> Tensor:
+    """R factor of S (B, d, n) via CholeskyQR2: G = SᵀS, R₁ = chol(G),
+    W = S R₁⁻¹, R₂ = chol(WᵀW), R = R₂R₁.  RᵀR = SᵀS to working precision
+    at any κ (shift rescue)."""
+    R1 = _rescued_chol_upper(S.mT @ S)
+    return _explicit_r2(S, R1) @ R1
+
+
+def _implicit_refine_r2(G: Tensor, R1: Tensor):
+    """Implicit second-pass factor from the formed Gram:
+    R₂ = chol(R₁⁻ᵀ G R₁⁻¹).  Returns (R₂, bad): a lane whose refinement
+    Cholesky broke down gets R₂ = I (R = R₁) and is flagged in `bad` (B, 1, 1)."""
+    T = torch.linalg.solve_triangular(R1.mT, G, upper=False)
+    G2 = torch.linalg.solve_triangular(R1, T, upper=True, left=False)
+    G2 = 0.5 * (G2 + G2.mT)
+    R2 = _chol_upper(G2)
+    bad = _nan_lanes(R2)
+    eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
+    return torch.where(bad, eye, R2), bad
+
+
+def _implicit_refine_upper(G: Tensor, R1: Tensor) -> Tensor:
+    """Second CholeskyQR2 pass from the formed Gram alone: R with RᵀR = G
+    (R = R₁ in a lane whose refinement breaks down)."""
+    R2, _ = _implicit_refine_r2(G, R1)
+    return R2 @ R1
+
+
+def rescue_broken_refinement(R2: Tensor, bad: Tensor, S: Tensor, R1: Tensor) -> Tensor:
+    """Replace R₂ by the explicit pass on S in the lanes flagged `bad` (B, 1, 1)
+    only; healthy lanes keep their implicit factor (the JAX `lax.cond`
+    under `vmap`, a per-instance select).  Skipped when no lane is bad."""
+    lanes = torch.nonzero(bad.reshape(-1)).squeeze(-1)
+    if lanes.numel() == 0:
+        return R2
+    R2 = R2.clone()
+    R2[lanes] = _explicit_r2(S[lanes], R1[lanes])
+    return R2
+
+
+def cholqr2i_r(S: Tensor) -> Tensor:
+    """R factor of S (B, d, n) via CholeskyQR2 with the implicit refinement
+    pass (one pass over S, then n³-class work); a lane whose implicit
+    refinement breaks down (κ(S)²·eps ≳ 1) is rescued through the explicit
+    pass."""
+    G = S.mT @ S
+    R1 = _rescued_chol_upper(G)
+    R2, bad = _implicit_refine_r2(G, R1)
+    return rescue_broken_refinement(R2, bad, S, R1) @ R1

@@ -1,8 +1,9 @@
-"""Problem-family generators (PyTorch port of `exp_fit_family` in
+"""Problem-family generators (PyTorch port of `exp_fit_family`,
+`dense_quadratic_family` and `ill_conditioned_family` in
 `benlsip_tpu/problems/generators.py`).
 
-The data come from the same numpy recipe as the JAX generator, so theta,
-the constraint data and X0 are bit-identical for the same (B, d, seed).
+The data come from the same numpy recipe as the JAX generators, so theta,
+the constraint data and X0 are bit-identical for the same arguments.
 """
 from __future__ import annotations
 
@@ -63,3 +64,93 @@ def exp_fit_family(
     if with_constraints:
         X0[:, 2] = theta["y"][:, 0] - X0[:, 0]   # start feasible w.r.t. a + c = y0
     return bp, theta, X0
+
+
+def _shared_linear_problem(J: np.ndarray, A: np.ndarray, b: np.ndarray, bound: float, kw: dict) -> BatchedProblem:
+    """r(x) = J x - y with J shared by every instance.
+
+    J is closed over, not per-instance theta, and cast to the working
+    dtype and device inside the callables, so the f32 bulk and the f64
+    certification (on the card or the CPU) evaluate the same master data.
+    Under `torch.func.vmap` the Jacobian comes back as a stride-0 expand
+    of J, (B, d, n) without a copy.
+    """
+    Jt = torch.as_tensor(J, **kw)
+
+    def residuals(x, th):
+        return Jt.to(device=x.device, dtype=x.dtype) @ x - th["y"]
+
+    def jac_res(x, th):
+        return Jt.to(device=x.device, dtype=x.dtype)
+
+    n = J.shape[1]
+    return BatchedProblem(
+        residuals=residuals,
+        jac_res=jac_res,
+        A=torch.as_tensor(A, **kw),
+        b=torch.as_tensor(b, **kw),
+        xl=torch.full((n,), -bound, **kw),
+        xu=torch.full((n,), bound, **kw),
+    )
+
+
+def dense_quadratic_family(
+    B: int,
+    n: int = 64,
+    d: int = 256,
+    m: int = 4,
+    seed: int = 0,
+    dtype: torch.dtype = torch.float64,
+    device=None,
+) -> Tuple[BatchedProblem, dict, Tensor]:
+    """Medium dense linear least squares with polyhedral constraints
+    (BASELINE config 3 shape): r(x) = J x - y with a shared random J,
+    per-instance targets, shared linear equalities Ax = b and box bounds
+    ±0.8 that bind for ~20% of the coordinates.  Returns
+    (BatchedProblem, theta, X0) on `device`.
+    """
+    rng = np.random.default_rng(seed)
+    J = rng.standard_normal((d, n)) / np.sqrt(d)
+    A = rng.standard_normal((m, n)) / np.sqrt(n)
+    x_true = rng.standard_normal((B, n))
+    y = x_true @ J.T + 0.01 * rng.standard_normal((B, d))
+    b = x_true[0] @ A.T   # shared rhs: every instance projects onto the same plane
+
+    kw = {"dtype": dtype, "device": device}
+    bp = _shared_linear_problem(J, A, b, 0.8, kw)
+    # Feasible start: zero projected onto {Ax = b} (bounds hold at 0).
+    x0 = np.clip(A.T @ np.linalg.solve(A @ A.T, b), -0.79, 0.79)
+    X0 = torch.as_tensor(np.broadcast_to(x0, (B, n)).copy(), **kw)
+    return bp, {"y": torch.as_tensor(y, **kw)}, X0
+
+
+def ill_conditioned_family(
+    B: int,
+    n: int = 96,
+    d: int = 384,
+    m: int = 3,
+    kappa: float = 1e4,
+    seed: int = 0,
+    dtype: torch.dtype = torch.float64,
+    device=None,
+) -> Tuple[BatchedProblem, dict, Tensor]:
+    """Config-3 shape with a controlled Jacobian condition number: J has
+    singular values kappa^(-i/(n-1)), the regime where the normal
+    equations lose κ² in f32 and the orthogonal routes do not.  Targets are
+    consistent (y = J x_true + 1e-6 noise), bounds ±3.
+    """
+    rng = np.random.default_rng(seed)
+    U, _ = np.linalg.qr(rng.standard_normal((d, n)))
+    V, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    sv = kappa ** (-np.arange(n) / (n - 1))
+    J = (U * sv[None, :]) @ V.T
+    A = rng.standard_normal((m, n)) / np.sqrt(n)
+    x_true = rng.standard_normal((B, n))
+    y = x_true @ J.T + 1e-6 * rng.standard_normal((B, d))
+    b = x_true[0] @ A.T
+
+    kw = {"dtype": dtype, "device": device}
+    bp = _shared_linear_problem(J, A, b, 3.0, kw)
+    x0 = np.clip(A.T @ np.linalg.solve(A @ A.T, b), -2.9, 2.9)
+    X0 = torch.as_tensor(np.broadcast_to(x0, (B, n)).copy(), **kw)
+    return bp, {"y": torch.as_tensor(y, **kw)}, X0

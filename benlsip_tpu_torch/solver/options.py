@@ -17,13 +17,12 @@ from typing import Optional
 import torch
 
 # Non-default values of these fields select routes the port does not have
-# yet (sharded blocked mode, materialized Gram operators, linear-residual
-# caches, host iteration logs, reduced-precision matmuls).
+# yet (sharded blocked mode and its operator layouts, host iteration logs,
+# reduced-precision matmuls).
 _UNPORTED_DEFAULTS = {
     "spmd_axis": None,
     "gram_layout": "replicated",
     "reduce_schedule": "xla",
-    "linear_residuals": False,
     "verbose": False,
     "matmul_precision": "highest",
 }
@@ -77,7 +76,7 @@ class SolverOptions:
     # Knobs absent in the reference
     matmul_precision: str = "highest"  # "highest" = true f32 matmuls (TF32 off)
     project_x0: bool = True
-    gram_hessian: str = "auto"         # "on" is not ported; "auto" may resolve on
+    gram_hessian: str = "auto"
     gn_factorization: str = "auto"
     linear_residuals: bool = False
     tr_factor: float = 0.1
@@ -96,11 +95,6 @@ class SolverOptions:
                     f"SolverOptions.{name}={getattr(self, name)!r}: this route is not "
                     f"ported to benlsip_tpu_torch yet (only {default!r})"
                 )
-        if self.gram_hessian == "on":
-            raise NotImplementedError(
-                "SolverOptions.gram_hessian='on': the materialized-operator route "
-                "is not ported to benlsip_tpu_torch yet"
-            )
 
     def resolve_tols(self, dtype: torch.dtype) -> "SolverOptions":
         """Fill None tolerances with sqrt(eps(dtype))."""

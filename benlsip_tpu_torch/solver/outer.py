@@ -19,7 +19,7 @@ from ..ops.constraints import Polyhedron
 from .multipliers import least_squares_multipliers
 from .options import SolverOptions
 from .status import SOLVE_CONVERGED, SOLVE_MAX_OUTER, SOLVE_STALLED
-from .subproblem import solve_subproblem
+from .subproblem import linear_gram_cache, solve_subproblem
 
 Tensor = torch.Tensor
 
@@ -100,13 +100,16 @@ def outer_done(c: OuterCarry, opts: SolverOptions) -> Tensor:
 
 
 def outer_body(fns, poly: Polyhedron, opts: SolverOptions, atol: float, c: OuterCarry,
-               active: Optional[Tensor] = None) -> OuterCarry:
-    """One outer AL iteration for every lane (`active` restricts the inner loops)."""
+               active: Optional[Tensor] = None, gram_cache: Optional[dict] = None) -> OuterCarry:
+    """One outer AL iteration for every lane (`active` restricts the inner
+    loops; `gram_cache` is the once-per-solve `linear_gram_cache`)."""
     # Tolerance floors: never demand more than the final tolerances.
     omega_eff = torch.clamp_min(c.omega, opts.crit_tol)
     eta_eff = torch.clamp_min(c.eta, opts.feas_tol)
 
-    sub = solve_subproblem(fns, poly, c.x, c.y, c.mu, omega_eff, opts, atol, active=active)
+    sub = solve_subproblem(
+        fns, poly, c.x, c.y, c.mu, omega_eff, opts, atol, active=active, **(gram_cache or {})
+    )
     feas = norm(sub.cx)
 
     accept = feas <= eta_eff
@@ -169,9 +172,11 @@ def solve_fixed_point(fns, poly: Polyhedron, x0: Tensor, opts: SolverOptions,
     atol = default_atol(dtype)
 
     c = outer_init(fns, poly, x0, opts, y0)
+    # Constant-J problems: one JᵀJ product for the whole solve.
+    gram_cache = linear_gram_cache(fns, c.x, opts)
     run = ~outer_done(c, opts)
     while bool(run.any()):
-        c = sel_tuple(run, outer_body(fns, poly, opts, atol, c, active=run), c)
+        c = sel_tuple(run, outer_body(fns, poly, opts, atol, c, active=run, gram_cache=gram_cache), c)
         run = run & ~outer_done(c, opts)
     # At a critical exit return the converged multiplier y + mu·c.
     y_final = sel(c.critical, c.y + c.mu.unsqueeze(-1) * c.cx, c.y)

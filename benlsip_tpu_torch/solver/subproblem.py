@@ -5,7 +5,9 @@ to criticality tolerance omega with trust-region steps from `inner_step`.
 Batched: every lane runs its own trust-region loop; a lane stops updating
 when its own predicate is false, and the Jacobian refresh on acceptance is
 computed for the running lanes and selected per lane (the JAX `lax.cond`
-under `vmap`).
+under `vmap`).  When the Jacobian is tall the Hessian operator is
+materialized once per refresh (`resolve_operator_route`) and the carry
+holds it.
 """
 from __future__ import annotations
 
@@ -14,7 +16,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from .._batched import full, norm, sel, sel_tuple
-from ..ops.al import AlHessian, al_gradient, evaluate_al, new_point
+from ..ops.al import (
+    AlHessian,
+    al_gradient,
+    evaluate_al,
+    gram_j,
+    new_point,
+    with_gram,
+    with_r_factor,
+    with_r_factor_cholqr2,
+)
 from ..ops.constraints import Polyhedron
 from ..ops.polyproject import projection_polyhedron
 from .inner import inner_step
@@ -47,8 +58,7 @@ class _TRCarry(NamedTuple):
     cx: Tensor
     mx: Tensor
     g: Tensor
-    J: Tensor
-    C: Tensor
+    H: AlHessian
     delta: Tensor
     pix: Tensor
     crit_lam: Tensor
@@ -71,44 +81,75 @@ class SubproblemResult(NamedTuple):
 
 
 def resolve_operator_route(opts: SolverOptions, n: int, d_plus_p: int, dtype: torch.dtype):
-    """Shape/dtype-based operator route: (use_op, fact).  Only the
-    matrix-free route (use_op False) is ported; a resolution that would
-    materialize an (n, n) operator raises."""
+    """Shape/dtype-based operator route: (use_op, fact) — whether an (n, n)
+    operator is materialized, and the resolved gn_factorization
+    ("normal" / "qr" / "cholqr2")."""
+    if opts.spmd_axis is not None:
+        raise NotImplementedError("operator routes under spmd_axis wait for dist/")
     use_op = opts.gram_hessian == "on" or (
         opts.gram_hessian == "auto" and n >= 64 and d_plus_p >= 2 * n
     )
     fact = opts.gn_factorization
     if fact == "auto":
         if dtype in (torch.float32, torch.bfloat16):
+            # κ² eats the f32 budget: the orthogonal route, GEMM-shaped
+            # CholeskyQR2 at large n, the MGS kernel behind qr_r at small n.
             fact = "cholqr2" if n >= 64 else "qr"
         else:
             fact = "normal"
-    if use_op:
-        raise NotImplementedError(
-            f"materialized Gauss-Newton operator ({fact}) at n={n}: not ported to "
-            "benlsip_tpu_torch yet (only the matrix-free route)"
-        )
     return use_op, fact
+
+
+def linear_gram_cache(fns, x0: Tensor, opts: SolverOptions) -> dict:
+    """Constant-Jacobian JᵀJ cache for `opts.linear_residuals`, computed once
+    per solve and handed to every subproblem as `Gj`; {} when the option is
+    off or the route has nothing to cache (matrix-free, Householder QR)."""
+    if not opts.linear_residuals:
+        return {}
+    J0 = fns.jac_res(x0)
+    d_plus_p = J0.shape[-2] + fns.nlconstraints(x0).shape[-1]
+    use_op, fact = resolve_operator_route(opts, x0.shape[-1], d_plus_p, x0.dtype)
+    if not use_op or fact == "qr":
+        return {}
+    return {"Gj": gram_j(J0)}
+
+
+def _materializer(use_op: bool, fact: str, Gj: Optional[Tensor]):
+    if not use_op:
+        return lambda H: H
+    if fact == "qr":
+        return with_r_factor
+    if fact == "cholqr2":
+        return lambda H: with_r_factor_cholqr2(H, Gj=Gj)
+    return lambda H: with_gram(H, Gj=Gj)
 
 
 def solve_subproblem(
     fns, poly: Polyhedron, x0: Tensor, y: Tensor, mu: Tensor, omega_tol: Tensor,
     opts: SolverOptions, atol: float, active: Optional[Tensor] = None,
+    Gj: Optional[Tensor] = None,
 ) -> SubproblemResult:
     """Batched trust-region subproblem solve from x0 (B, n).
 
     `active` (B,) restricts the loop to the lanes an enclosing loop still
-    runs; other lanes return their start point.
+    runs; other lanes return their start point.  `Gj` is the once-per-solve
+    JᵀJ cache of `linear_gram_cache` (computed here when the option asks
+    for it and none is given).
     """
     dtype = x0.dtype
     B, n = x0.shape
     rx0, cx0, _, mx0, g0, H0 = new_point(x0, y, mu, fns)
-    resolve_operator_route(opts, n, rx0.shape[-1] + cx0.shape[-1], dtype)
+    use_op, fact = resolve_operator_route(opts, n, rx0.shape[-1] + cx0.shape[-1], dtype)
+    lin = opts.linear_residuals and use_op and fact != "qr"
+    if lin and Gj is None:
+        Gj = gram_j(H0.J)
+    materialize = _materializer(use_op, fact, Gj if lin else None)
+    H0 = materialize(H0)
     delta0 = initial_tr(g0, opts.tr_factor)
     inf = full(B, float("inf"), mx0)
     zero_i = full(B, 0, mx0, torch.int32)
     c = _TRCarry(
-        x=x0, rx=rx0, cx=cx0, mx=mx0, g=g0, J=H0.J, C=H0.C, delta=delta0,
+        x=x0, rx=rx0, cx=cx0, mx=mx0, g=g0, H=H0, delta=delta0,
         pix=inf,
         crit_lam=torch.zeros_like(poly.b),
         best_pix=inf,
@@ -123,8 +164,7 @@ def solve_subproblem(
         return (~c.solved) & (c.k <= opts.max_inner_iter) & (c.stall < opts.stall_window)
 
     def body(c: _TRCarry, act: Tensor) -> _TRCarry:
-        H = AlHessian(c.J, c.C, mu)
-        s, pred, _aset, istats = inner_step(c.x, c.g, H, poly, c.delta, opts, atol, active=act)
+        s, pred, _aset, istats = inner_step(c.x, c.g, c.H, poly, c.delta, opts, atol, active=act)
         x_next = c.x + s
         rx_next, cx_next, mx_next = evaluate_al(x_next, y, mu, fns)
         ared = mx_next - c.mx
@@ -137,16 +177,17 @@ def solve_subproblem(
         rho = torch.where(rho_noisy, 0.5 * (opts.eta1 + opts.eta2), rho)
         accept = rho > opts.eta1
 
-        # Derivatives only on acceptance: evaluated for the running lanes
-        # and selected per lane.
-        Jn = fns.jac_res(x_next)
-        Cn = fns.jac_nlcons(x_next)
-        y_bar = y + mu.unsqueeze(-1) * cx_next
-        gn = al_gradient(Jn, Cn, rx_next, y_bar)
-
-        g = sel(accept, gn, c.g)
-        J = sel(accept, Jn, c.J)
-        C = sel(accept, Cn, c.C)
+        # Derivatives (and the materialized operator) only on acceptance:
+        # evaluated for the whole batch when a running lane accepts, the
+        # other lanes keeping their Jacobians, and selected per lane.
+        g, H = c.g, c.H
+        upd = accept & act
+        if bool(upd.any()):
+            Jn = sel(upd, fns.jac_res(x_next), c.H.J)
+            Cn = sel(upd, fns.jac_nlcons(x_next), c.H.C)
+            y_bar = y + mu.unsqueeze(-1) * cx_next
+            g = sel(upd, al_gradient(Jn, Cn, rx_next, y_bar), c.g)
+            H = sel_tuple(upd, materialize(AlHessian(Jn, Cn, mu)), c.H)
         x = sel(accept, x_next, c.x)
         rx = sel(accept, rx_next, c.rx)
         cx = sel(accept, cx_next, c.cx)
@@ -159,7 +200,7 @@ def solve_subproblem(
         best_pix = torch.minimum(pix, c.best_pix)
         stall = torch.where(improved, 0, c.stall + 1)
         return _TRCarry(
-            x, rx, cx, mx, g, J, C, delta, pix, crit_lam, best_pix, stall, c.k + 1,
+            x, rx, cx, mx, g, H, delta, pix, crit_lam, best_pix, stall, c.k + 1,
             c.minor_total + istats.minor_iters, c.cg_total + istats.cg_iters, solved,
         )
 

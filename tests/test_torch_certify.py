@@ -16,6 +16,7 @@ import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from benlsip_tpu.batch.polish import sqp_polish_fused as j_polish
@@ -24,8 +25,9 @@ from benlsip_tpu.batch.refine import solve_mixed_precision as j_mixed
 from benlsip_tpu.batch.vmap_solve import solve_batched_chunked as j_solve
 from benlsip_tpu.problems.generators import exp_fit_family as j_exp_fit
 from benlsip_tpu.solver.options import SolverOptions as JOptions
-from benlsip_tpu_torch.batch.polish import polish_then_refine, sqp_polish_fused
+from benlsip_tpu_torch.batch.polish import polish_then_refine, sqp_polish, sqp_polish_fused, sqp_polish_split
 from benlsip_tpu_torch.batch.refine import _cast_problem, _cast_tree, solve_mixed_precision
+from benlsip_tpu_torch.batch.vmap_solve import solve_batched_chunked
 from benlsip_tpu_torch.problems.generators import exp_fit_family
 from benlsip_tpu_torch.solver.options import SolverOptions
 
@@ -123,3 +125,28 @@ def test_slice_matches_jax():
     np.testing.assert_allclose(Xt.numpy(), np.asarray(Xj), rtol=0, atol=1e-7)
     # TF32 is switched off where the pipeline starts.
     assert torch.backends.cuda.matmul.allow_tf32 is False and torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.mark.parametrize("polisher", ["fused", "split", "all_f64"])
+def test_polish_always_runs_a_chord_step(polisher):
+    # refactor_steps ≥ num_steps is clamped to num_steps - 1: the
+    # certificate is taken after at least one f64 chord step, never at the
+    # f32 factor point, so refactor_steps = num_steps = 3 gives exactly the
+    # refactor_steps = 2 result.  A budget of one step has no room for both.
+    B = 8
+    bp, th, X0 = exp_fit_family(B, d=16, seed=3)
+    bp32, th32 = _f32(bp, th)
+    X32, _, _ = solve_batched_chunked(
+        bp32, th32, X0.float(), SolverOptions(crit_tol=1e-2, max_outer_iter=40, max_inner_iter=8), chunk=B)
+    opts = SolverOptions(**OPTS)
+    run = {
+        "fused": lambda **k: sqp_polish_fused(bp32, th32, X32, bp, th, opts, **k),
+        "split": lambda **k: sqp_polish_split(bp32, th32, X32, bp, th, opts, **k),
+        "all_f64": lambda **k: sqp_polish(bp, th, X32.double(), opts, **k),
+    }[polisher]
+    X3, _, ok3, *_ = run(num_steps=3, refactor_steps=3)
+    X2, _, ok2, *_ = run(num_steps=3, refactor_steps=2)
+    torch.testing.assert_close(X3, X2, rtol=0, atol=0)
+    assert torch.equal(ok3, ok2) and bool(ok2.any())
+    with pytest.raises(ValueError):
+        run(num_steps=1, refactor_steps=1)

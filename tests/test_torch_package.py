@@ -1,6 +1,7 @@
 """Package hygiene of the PyTorch port: it never imports jax, its options
 table matches the JAX package's field by field, knobs whose route is not
-ported raise instead of silently running another path, and the interop
+ported raise instead of silently running another path (and the ported
+operator knobs are accepted), and the interop
 helpers carry data across."""
 import dataclasses
 import os
@@ -14,7 +15,6 @@ import torch
 
 import benlsip_tpu
 from benlsip_tpu_torch.batch.refine import solve_mixed_precision
-from benlsip_tpu_torch.batch.polish import polish_then_refine
 from benlsip_tpu_torch.interop import info_to_numpy, problem_from_numpy, theta_from_numpy
 from benlsip_tpu_torch.problems.generators import exp_fit_family, _exp_fit_residuals
 from benlsip_tpu_torch.solver.options import SolverOptions
@@ -75,7 +75,7 @@ def test_options_match_jax_field_by_field():
 
 @pytest.mark.parametrize("knob", [
     {"spmd_axis": "x"}, {"gram_layout": "sharded"}, {"reduce_schedule": "ring"},
-    {"linear_residuals": True}, {"gram_hessian": "on"}, {"verbose": True},
+    {"spmd_axis": "rows"}, {"matmul_precision": "high"}, {"verbose": True},
     {"matmul_precision": "default"},
 ])
 def test_unported_option_raises(knob):
@@ -83,9 +83,17 @@ def test_unported_option_raises(knob):
         SolverOptions(**knob)
 
 
+@pytest.mark.parametrize("knob", [
+    {"linear_residuals": True}, {"gram_hessian": "on"}, {"gram_hessian": "off"},
+    {"gn_factorization": "cholqr2"},
+])
+def test_ported_operator_option_accepted(knob):
+    assert getattr(SolverOptions(**knob), next(iter(knob))) == next(iter(knob.values()))
+
+
 @pytest.mark.parametrize("kw", [
     {"fuse": True}, {"bulk_compact": 2}, {"sort_by_difficulty": True},
-    {"pipeline_overlap": True}, {"certify": "host"}, {"bulk_dtype": torch.bfloat16},
+    {"pipeline_overlap": True}, {"bulk_compact": 4}, {"bulk_dtype": torch.bfloat16},
 ])
 def test_unported_pipeline_knob_raises(kw):
     bp, th, X0 = exp_fit_family(2, d=8, seed=0)
@@ -94,11 +102,15 @@ def test_unported_pipeline_knob_raises(kw):
 
 
 def test_unported_routes_raise():
-    bp, th, X0 = exp_fit_family(2, d=8, seed=0)
+    # The row-sharded operator layout waits for dist/; every replicated
+    # operator route resolves.
+    from benlsip_tpu_torch.ops.al import AlHessian, with_r_factor_cholqr2
+
+    H = AlHessian(torch.ones(2, 8, 3), torch.zeros(2, 0, 3), torch.ones(2))
     with pytest.raises(NotImplementedError):
-        polish_then_refine(bp, th, X0.float(), SolverOptions())    # all-f64 host polish
-    with pytest.raises(NotImplementedError):
-        resolve_operator_route(SolverOptions(), n=64, d_plus_p=256, dtype=torch.float32)
+        with_r_factor_cholqr2(H, layout="sharded")
+    assert resolve_operator_route(SolverOptions(), n=64, d_plus_p=256, dtype=torch.float32) == (True, "cholqr2")
+    assert resolve_operator_route(SolverOptions(), n=64, d_plus_p=256, dtype=torch.float64) == (True, "normal")
     assert resolve_operator_route(SolverOptions(), n=3, d_plus_p=32, dtype=torch.float32) == (False, "qr")
     assert resolve_operator_route(SolverOptions(), n=3, d_plus_p=32, dtype=torch.float64) == (False, "normal")
 
