@@ -5,7 +5,8 @@ At the f32 bulk solution the active set is identified and the point lies
 within ~sqrt(eps(f32)) of the optimum, so a few fixed-active-set
 Gauss-Newton SQP steps reach the f64 KKT region.  Each step solves the
 KKT system of  min ½‖J dx + r‖²  s.t.  E dx = -e,  dx_i = 0 (i fixed),
-E = [C; A], through one of two factorizations (`kkt_factorization`):
+E = [C; A], through one of two factorizations (`sqp_polish`'s
+`kkt_factorization`; "auto" picks by the factors' dtype):
 
 * "qr", range-space: RJ = qr_r([JZ; D_fixed]) and Wᵀ = RJ⁻ᵀ(EZ)ᵀ = Qw Tw
   (`qr_r` at (B, d+n, n) and `thin_qr` at (B, n, p+m), the QR kernel's
@@ -287,14 +288,13 @@ def sqp_polish_split(
     reg: float = 0.0,
     dual_reg: float = 1e-14,
     refactor_steps: int = 2,
-    kkt_factorization: str = "auto",
 ):
     """Device-factored polish: the f32 factor phase where X32 lives (the
     card after the bulk), the f64 chord phase and certificate on the CPU
     with the factors promoted to f64 — the JAX package's host
     certification at n ≥ 64.  The O(dn² + n³) factor work stays on the
-    device; the CPU pays O(dn + n²) per chord step.  "auto" factors by the
-    range-space QR (`_resolve_kkt` on float32).
+    device; the CPU pays O(dn + n²) per chord step.  Float32 factors use
+    the range-space QR (`_resolve_kkt`).
 
     bp64/theta64 are the f64 master data (moved to the CPU here).  Returns
     (X, Y, converged, pix, feas, objective) in f64 on the CPU.
@@ -306,7 +306,7 @@ def sqp_polish_split(
     theta_h = _cast_tree(tree_map(lambda a: a.to(_CPU), theta64), torch.float64)
     return _f32_factor_then_f64_chord(
         bp32, theta32, X32, _cast_problem(bp64, torch.float64, _CPU), theta_h, _CPU, rs, chord,
-        _resolve_kkt(kkt_factorization, X32.dtype), active_tol, reg, dual_reg,
+        _resolve_kkt("auto", X32.dtype), active_tol, reg, dual_reg,
         float(opts.crit_tol), float(opts.feas_tol), promote=True,
     )
 
@@ -391,30 +391,24 @@ def polish_then_refine(
     refactor_steps: int = 2,
     bp32: Optional[BatchedProblem] = None,
     theta32=None,
-    split: str = "auto",
-    kkt_factorization: str = "auto",
     straggler_bucket: int = 64,
 ) -> Tuple[Tensor, Tensor, SolveInfo]:
     """f64 certification phase: SQP polish, re-polish rounds and the
     full-refine fallback for the lanes still uncertified.
 
-    `device=None` certifies on X32's device: the fused polish
-    (`sqp_polish_fused`) when the bulk phase's float32 working set
-    `bp32`/`theta32` (on X32's device) is given and `split` is not "off",
-    else the all-f64 `sqp_polish` there.  `device="cpu"` is the host
+    The route follows from the inputs.  `device=None` certifies on X32's
+    device: the fused polish (`sqp_polish_fused`) when the bulk phase's
+    float32 working set `bp32`/`theta32` (on X32's device) is given, else
+    the all-f64 `sqp_polish` there.  `device="cpu"` is the host
     certification: the split polish (`sqp_polish_split`: f32 factors where
     X32 lives, f64 chord on the CPU) when `bp32`/`theta32` are given and
-    `split` is "on", or "auto" with n ≥ 64; else the all-f64 `sqp_polish`
-    on the CPU.  Outside the fused polish, uncertified lanes get up to
-    `rounds - 1` re-polishes through `sqp_polish`.  The fallback refine
-    runs where the certification ran.  `kkt_factorization` applies to the
-    split and all-f64 polishes ("auto": QR for f32 factors, LU for f64).
+    n ≥ 64, else the all-f64 `sqp_polish` on the CPU.  Outside the fused
+    polish, uncertified lanes get up to `rounds - 1` re-polishes through
+    `sqp_polish`.  The fallback refine runs where the certification ran.
     Returns f64 (X, Y, SolveInfo) on the certification's device.
     """
     from .refine import _cast_problem, _cast_tree
 
-    if split not in ("auto", "on", "off"):
-        raise ValueError(f"split={split!r}: expected 'auto', 'on' or 'off'")
     host = device is not None
     if host and torch.device(device).type != "cpu":
         raise ValueError(f"device={device!r}: None (X32's device) or 'cpu' (host certification)")
@@ -424,14 +418,13 @@ def polish_then_refine(
     have32 = bp32 is not None and theta32 is not None
     kw = dict(num_steps=num_steps, active_tol=active_tol, refactor_steps=refactor_steps)
 
-    if have32 and not host and split != "off":
+    if have32 and not host:
         X, Y, ok, pix, feas, obj = sqp_polish_fused(
             bp32, theta32, X32, bp64, theta64, options, rounds=rounds,
             straggler_bucket=straggler_bucket, **kw,
         )
     else:
-        kw["kkt_factorization"] = kkt_factorization
-        if have32 and host and (split == "on" or (split == "auto" and X32.shape[-1] >= 64)):
+        if have32 and X32.shape[-1] >= 64:
             out = sqp_polish_split(bp32, theta32, X32, bp64, theta64, options, **kw)
         else:
             out = sqp_polish(bp64, theta64, X32.to(device=dev, dtype=torch.float64), options, **kw)

@@ -78,23 +78,14 @@ def with_r_factor(H: AlHessian) -> AlHessian:
     return AlHessian(H.J, H.C, H.mu, R=qr_r(_stacked(H)))
 
 
-def with_r_factor_cholqr2(H: AlHessian, layout: str = "replicated",
-                          Gj: Optional[Tensor] = None) -> AlHessian:
+def with_r_factor_cholqr2(H: AlHessian, Gj: Optional[Tensor] = None) -> AlHessian:
     """Materialize R with RᵀR = JᵀJ + mu CᵀC by CholeskyQR2 with the
     implicit refinement pass from the formed Gram (`Gj` skips the JᵀJ
     product); a lane whose implicit refinement breaks down is rescued
     through the explicit pass on S = [J; sqrt(mu) C], that lane only."""
-    from .qr import _implicit_refine_r2, _rescued_chol_upper, rescue_broken_refinement
+    from .qr import cholqr2i_r
 
-    if layout != "replicated":
-        raise NotImplementedError(
-            f"with_r_factor_cholqr2(layout={layout!r}): the row-sharded layout waits for dist/"
-        )
-    G = with_gram(H, Gj).G
-    R1 = _rescued_chol_upper(G)
-    R2, bad = _implicit_refine_r2(G, R1)
-    R2 = rescue_broken_refinement(R2, bad, _stacked(H), R1)
-    return AlHessian(H.J, H.C, H.mu, R=R2 @ R1)
+    return AlHessian(H.J, H.C, H.mu, R=cholqr2i_r(_stacked(H), with_gram(H, Gj).G))
 
 
 def hv(H: AlHessian, v: Tensor) -> Tensor:

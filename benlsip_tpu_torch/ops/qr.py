@@ -9,13 +9,15 @@ its plain PyTorch version on a CPU tensor), everything else to
 a positive diagonal, Householder need not); every consumer here uses the
 factors in sign-invariant combinations (RᵀR, Q·T).
 
-CholeskyQR2 (`cholqr2_r`, `cholqr2i_r`) builds the same R from Gram
-matrices: its (n, n) Choleskys are at n ≥ 64 in the solver, where the JAX
+CholeskyQR2 (`cholqr2i_r`) builds the same R from the Gram matrix: its
+(n, n) Choleskys are at n ≥ 64 in the solver, where the JAX
 package goes to XLA, so they use `ops/cholesky.chol_linalg` (NaN on
 failure, never an exception), not the small-matrix kernel.  Inputs are
 batched (B, d, n).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -81,14 +83,6 @@ def _explicit_r2(S: Tensor, R1: Tensor) -> Tensor:
     return _rescued_chol_upper(W.mT @ W)
 
 
-def cholqr2_r(S: Tensor) -> Tensor:
-    """R factor of S (B, d, n) via CholeskyQR2: G = SᵀS, R₁ = chol(G),
-    W = S R₁⁻¹, R₂ = chol(WᵀW), R = R₂R₁.  RᵀR = SᵀS to working precision
-    at any κ (shift rescue)."""
-    R1 = _rescued_chol_upper(S.mT @ S)
-    return _explicit_r2(S, R1) @ R1
-
-
 def _implicit_refine_r2(G: Tensor, R1: Tensor):
     """Implicit second-pass factor from the formed Gram:
     R₂ = chol(R₁⁻ᵀ G R₁⁻¹).  Returns (R₂, bad): a lane whose refinement
@@ -100,13 +94,6 @@ def _implicit_refine_r2(G: Tensor, R1: Tensor):
     bad = _nan_lanes(R2)
     eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
     return torch.where(bad, eye, R2), bad
-
-
-def _implicit_refine_upper(G: Tensor, R1: Tensor) -> Tensor:
-    """Second CholeskyQR2 pass from the formed Gram alone: R with RᵀR = G
-    (R = R₁ in a lane whose refinement breaks down)."""
-    R2, _ = _implicit_refine_r2(G, R1)
-    return R2 @ R1
 
 
 def rescue_broken_refinement(R2: Tensor, bad: Tensor, S: Tensor, R1: Tensor) -> Tensor:
@@ -121,12 +108,13 @@ def rescue_broken_refinement(R2: Tensor, bad: Tensor, S: Tensor, R1: Tensor) -> 
     return R2
 
 
-def cholqr2i_r(S: Tensor) -> Tensor:
+def cholqr2i_r(S: Tensor, G: Optional[Tensor] = None) -> Tensor:
     """R factor of S (B, d, n) via CholeskyQR2 with the implicit refinement
-    pass (one pass over S, then n³-class work); a lane whose implicit
-    refinement breaks down (κ(S)²·eps ≳ 1) is rescued through the explicit
-    pass."""
-    G = S.mT @ S
+    pass from the Gram G = SᵀS (formed here unless given): R₁ = chol(G),
+    R₂ = chol(R₁⁻ᵀ G R₁⁻¹), R = R₂R₁.  A lane whose implicit refinement
+    breaks down (κ(S)²·eps ≳ 1) is rescued through the explicit pass on S."""
+    if G is None:
+        G = S.mT @ S
     R1 = _rescued_chol_upper(G)
     R2, bad = _implicit_refine_r2(G, R1)
     return rescue_broken_refinement(R2, bad, S, R1) @ R1

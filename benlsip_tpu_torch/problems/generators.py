@@ -1,6 +1,5 @@
-"""Problem-family generators (PyTorch port of `exp_fit_family`,
-`dense_quadratic_family` and `ill_conditioned_family` in
-`benlsip_tpu/problems/generators.py`).
+"""Problem-family generators (PyTorch port of `exp_fit_family` and
+`dense_quadratic_family` in `benlsip_tpu/problems/generators.py`).
 
 The data come from the same numpy recipe as the JAX generators, so theta,
 the constraint data and X0 are bit-identical for the same arguments.
@@ -71,17 +70,22 @@ def _shared_linear_problem(J: np.ndarray, A: np.ndarray, b: np.ndarray, bound: f
 
     J is closed over, not per-instance theta, and cast to the working
     dtype and device inside the callables, so the f32 bulk and the f64
-    certification (on the card or the CPU) evaluate the same master data.
-    Under `torch.func.vmap` the Jacobian comes back as a stride-0 expand
-    of J, (B, d, n) without a copy.
+    certification (on the card or the CPU) evaluate the same master data;
+    each cast is made once per (device, dtype) and kept.  Under
+    `torch.func.vmap` the Jacobian comes back as a stride-0 expand of J,
+    (B, d, n) without a copy.
     """
     Jt = torch.as_tensor(J, **kw)
-
-    def residuals(x, th):
-        return Jt.to(device=x.device, dtype=x.dtype) @ x - th["y"]
+    casts = {(Jt.device, Jt.dtype): Jt}
 
     def jac_res(x, th):
-        return Jt.to(device=x.device, dtype=x.dtype)
+        key = (x.device, x.dtype)
+        if key not in casts:
+            casts[key] = Jt.to(device=x.device, dtype=x.dtype)
+        return casts[key]
+
+    def residuals(x, th):
+        return jac_res(x, th) @ x - th["y"]
 
     n = J.shape[1]
     return BatchedProblem(
@@ -120,37 +124,5 @@ def dense_quadratic_family(
     bp = _shared_linear_problem(J, A, b, 0.8, kw)
     # Feasible start: zero projected onto {Ax = b} (bounds hold at 0).
     x0 = np.clip(A.T @ np.linalg.solve(A @ A.T, b), -0.79, 0.79)
-    X0 = torch.as_tensor(np.broadcast_to(x0, (B, n)).copy(), **kw)
-    return bp, {"y": torch.as_tensor(y, **kw)}, X0
-
-
-def ill_conditioned_family(
-    B: int,
-    n: int = 96,
-    d: int = 384,
-    m: int = 3,
-    kappa: float = 1e4,
-    seed: int = 0,
-    dtype: torch.dtype = torch.float64,
-    device=None,
-) -> Tuple[BatchedProblem, dict, Tensor]:
-    """Config-3 shape with a controlled Jacobian condition number: J has
-    singular values kappa^(-i/(n-1)), the regime where the normal
-    equations lose κ² in f32 and the orthogonal routes do not.  Targets are
-    consistent (y = J x_true + 1e-6 noise), bounds ±3.
-    """
-    rng = np.random.default_rng(seed)
-    U, _ = np.linalg.qr(rng.standard_normal((d, n)))
-    V, _ = np.linalg.qr(rng.standard_normal((n, n)))
-    sv = kappa ** (-np.arange(n) / (n - 1))
-    J = (U * sv[None, :]) @ V.T
-    A = rng.standard_normal((m, n)) / np.sqrt(n)
-    x_true = rng.standard_normal((B, n))
-    y = x_true @ J.T + 1e-6 * rng.standard_normal((B, d))
-    b = x_true[0] @ A.T
-
-    kw = {"dtype": dtype, "device": device}
-    bp = _shared_linear_problem(J, A, b, 3.0, kw)
-    x0 = np.clip(A.T @ np.linalg.solve(A @ A.T, b), -2.9, 2.9)
     X0 = torch.as_tensor(np.broadcast_to(x0, (B, n)).copy(), **kw)
     return bp, {"y": torch.as_tensor(y, **kw)}, X0

@@ -7,10 +7,12 @@ when its own predicate is false, and the Jacobian refresh on acceptance is
 computed for the running lanes and selected per lane (the JAX `lax.cond`
 under `vmap`).  When the Jacobian is tall the Hessian operator is
 materialized once per refresh (`resolve_operator_route`) and the carry
-holds it.
+holds it; `OPERATOR_BUILDS` counts those builds by route, so a caller can
+see which operator a run really built.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import NamedTuple, Optional
 
 import torch
@@ -32,6 +34,14 @@ from .inner import inner_step
 from .options import SolverOptions
 
 Tensor = torch.Tensor
+
+# Materialized-operator builds per (gn_factorization, dtype name) since the
+# last `reset_operator_builds()`; the matrix-free route builds nothing.
+OPERATOR_BUILDS: Counter = Counter()
+
+
+def reset_operator_builds() -> None:
+    OPERATOR_BUILDS.clear()
 
 
 def initial_tr(g: Tensor, tr_factor: float = 0.1) -> Tensor:
@@ -118,10 +128,17 @@ def _materializer(use_op: bool, fact: str, Gj: Optional[Tensor]):
     if not use_op:
         return lambda H: H
     if fact == "qr":
-        return with_r_factor
-    if fact == "cholqr2":
-        return lambda H: with_r_factor_cholqr2(H, Gj=Gj)
-    return lambda H: with_gram(H, Gj=Gj)
+        build = with_r_factor
+    elif fact == "cholqr2":
+        build = lambda H: with_r_factor_cholqr2(H, Gj=Gj)
+    else:
+        build = lambda H: with_gram(H, Gj=Gj)
+
+    def materialize(H: AlHessian) -> AlHessian:
+        OPERATOR_BUILDS[(fact, str(H.J.dtype).removeprefix("torch."))] += 1
+        return build(H)
+
+    return materialize
 
 
 def solve_subproblem(

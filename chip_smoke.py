@@ -20,7 +20,8 @@ Phases (any failure raises and the script exits non-zero):
 5. the config-3 path: `solve_mixed_precision` on
    `dense_quadratic_family(64, n=192, d=1024, m=6, seed=3)` on cuda:0 (the
    materialized CholeskyQR2 operator in the bulk, the fused
-   certification), launch counts read around the cold run; 64/64 must
+   certification), launch counts and the solver's operator builds read
+   around the cold run (every float32 build must be CholeskyQR2); 64/64 must
    certify at max(pix) ≤ 1.49e-8 cold and warm, `certify="host"` (f64
    chord phase on the CPU) must certify 64/64 too, the oracle must agree
    on all 64, and a batch of 8 must agree with the port's CPU run; the warm
@@ -313,22 +314,24 @@ def phase_config3(kern) -> dict:
     from benlsip_tpu_torch.batch.refine import _cast_problem, _cast_tree, solve_mixed_precision
     from benlsip_tpu_torch.batch.vmap_solve import solve_batched_chunked
     from benlsip_tpu_torch.problems.generators import dense_quadratic_family
+    from benlsip_tpu_torch.solver import subproblem
     from benlsip_tpu_torch.solver.options import SolverOptions
-    from benlsip_tpu_torch.solver.subproblem import resolve_operator_route
 
     dev = torch.device("cuda:0")
     B, n, d, m = 64, 192, 1024, 6
     opts = SolverOptions(max_outer_iter=30, max_inner_iter=100)
-    route = resolve_operator_route(opts, n, d, torch.float32)
-    print(f"config 3: bulk operator route (materialized, factorization) = {route}")
-    if route != (True, "cholqr2"):
-        raise AssertionError(f"config 3: the bulk must take the CholeskyQR2 operator, got {route}")
     bp, theta, X0 = dense_quadratic_family(B, n=n, d=d, m=m, seed=3, dtype=torch.float64, device=dev)
     run = lambda certify: solve_mixed_precision(bp, theta, X0, opts, chunk=B, certify=certify)
 
     kern.reset_launches()
+    subproblem.reset_operator_builds()
     (X, Y, info), cold = _walled(lambda: run("auto"))
     launches = dict(kern.LAUNCHES)
+    builds = {f"{fact}/{dt}": k for (fact, dt), k in subproblem.OPERATOR_BUILDS.items()}
+    print(f"config 3: operator builds in the cold run (factorization/dtype: count) = {builds}")
+    bulk_builds = {k: v for k, v in builds.items() if k.endswith("/float32")}
+    if list(bulk_builds) != ["cholqr2/float32"] or bulk_builds["cholqr2/float32"] <= 0:
+        raise AssertionError(f"config 3: the bulk must build only the CholeskyQR2 operator, built {builds}")
     (X2, _, info2), warm = _walled(lambda: run("auto"))
     print(f"config 3, B={B}: certified {int(info.converged.sum())}/{B}, max pix {float(info.pix.max()):.3e}, "
           f"cold {cold:.3f} s, warm {warm:.3f} s, launches {launches}")

@@ -33,6 +33,7 @@ from benlsip_tpu_torch.batch.refine import _cast_problem, _cast_tree, solve_mixe
 from benlsip_tpu_torch.batch.vmap_solve import solve_batched_chunked
 from benlsip_tpu_torch.problems import generators as tgen
 from benlsip_tpu_torch.solver.options import SolverOptions
+from benlsip_tpu_torch.solver.subproblem import OPERATOR_BUILDS, reset_operator_builds
 
 torch.set_num_threads(2)
 OPTS = dict(max_outer_iter=30, max_inner_iter=100)
@@ -40,24 +41,22 @@ SMALL = dict(n=96, d=384, m=3, seed=5)
 
 
 @pytest.mark.parametrize("dtype", ["f64", "f32"])
-@pytest.mark.parametrize("family,kw", [
-    ("dense_quadratic_family", dict(B=6, n=70, d=150, m=4, seed=3)),
-    ("ill_conditioned_family", dict(B=5, n=40, d=90, m=3, kappa=1e3, seed=2)),
-])
-def test_generator_bit_identical(family, kw, dtype):
+def test_generator_bit_identical(dtype):
+    kw = dict(B=6, n=70, d=150, m=4, seed=3)
     jd, td = (jnp.float64, torch.float64) if dtype == "f64" else (jnp.float32, torch.float32)
-    bp_j, th_j, X0_j = getattr(jgen, family)(dtype=jd, **kw)
-    bp_t, th_t, X0_t = getattr(tgen, family)(dtype=td, **kw)
+    bp_j, th_j, X0_j = jgen.dense_quadratic_family(dtype=jd, **kw)
+    bp_t, th_t, X0_t = tgen.dense_quadratic_family(dtype=td, **kw)
     np.testing.assert_array_equal(th_t["y"].numpy(), np.asarray(th_j["y"]))
     np.testing.assert_array_equal(X0_t.numpy(), np.asarray(X0_j))
     for f in ("A", "b", "xl", "xu"):
         np.testing.assert_array_equal(getattr(bp_t, f).numpy(), np.asarray(getattr(bp_j, f)))
     assert bp_t.poly_batched == bp_j.poly_batched is False
-    # The shared J is cast to the caller's dtype inside the callables, and
-    # the batched Jacobian is a stride-0 expand of it.
+    # The shared J is cast to the caller's dtype inside the callables, once
+    # per dtype, and the batched Jacobian is a stride-0 expand of it.
     fns = bp_t.instance_fns(th_t)
     J = fns.jac_res(X0_t.float())
     assert J.dtype == torch.float32 and J.shape == (kw["B"], kw["d"], kw["n"]) and J.stride(0) == 0
+    assert fns.jac_res(X0_t.float() + 1).data_ptr() == J.data_ptr()
     i0 = {k: v[0] for k, v in th_j.items()}
     np.testing.assert_array_equal(J[0].numpy(), np.asarray(bp_j.jac_res(X0_j[0].astype(jnp.float32), i0)))
     # Residuals are products: equal up to the matmuls' summation order.
@@ -75,7 +74,10 @@ def test_solve_batched_matches_jax(fact, lin):
     bp_t, th_t, X0_t = tgen.dense_quadratic_family(4, **SMALL)
     kw = dict(gn_factorization=fact, linear_residuals=lin, **OPTS)
     Xj, _, ij = j_solve(bp_j, th_j, X0_j, JOptions(**kw), chunk=4)
+    reset_operator_builds()
     Xt, _, it = solve_batched_chunked(bp_t, th_t, X0_t, SolverOptions(**kw), chunk=4)
+    # Every subproblem materialized the requested operator, and no other.
+    assert set(OPERATOR_BUILDS) == {(fact, "float64")} and OPERATOR_BUILDS[(fact, "float64")] > 0
     np.testing.assert_array_equal(it.status.numpy(), np.asarray(ij.status))
     assert bool(it.converged.all())
     np.testing.assert_allclose(Xt.numpy(), np.asarray(Xj), rtol=0, atol=1e-7)
@@ -113,18 +115,17 @@ def test_sqp_polish_matches_jax(kkt):
     _assert_polish_agrees(out_t, out_j)
 
 
-@pytest.mark.parametrize("kkt", ["qr", "lu"])
-def test_split_polish_matches_jax(kkt):
-    # f32 factors where X32 lives, f64 chord steps on the CPU.
+def test_split_polish_matches_jax():
+    # f32 range-space QR factors where X32 lives, f64 chord steps on the CPU.
     bp_j, th_j, bp_t, th_t, X32 = _both(8)
     cast = lambda a: a.astype(jnp.float32)
     bp32_j = dataclasses.replace(bp_j, A=cast(bp_j.A), b=cast(bp_j.b), xl=cast(bp_j.xl), xu=cast(bp_j.xu))
-    kw = dict(num_steps=5, kkt_factorization=kkt)
     out_j = jpolish.sqp_polish_split(
-        bp32_j, j_cast(th_j, jnp.float32), jnp.asarray(X32), bp_j, th_j, JOptions(**OPTS), **kw)
+        bp32_j, j_cast(th_j, jnp.float32), jnp.asarray(X32), bp_j, th_j, JOptions(**OPTS),
+        num_steps=5, kkt_factorization="qr")
     out_t = tpolish.sqp_polish_split(
         _cast_problem(bp_t, torch.float32, "cpu"), _cast_tree(th_t, torch.float32), torch.from_numpy(X32),
-        bp_t, th_t, SolverOptions(**OPTS), **kw)
+        bp_t, th_t, SolverOptions(**OPTS), num_steps=5)
     assert out_t[0].dtype == torch.float64 and out_t[0].device.type == "cpu"
     _assert_polish_agrees(out_t, out_j)
 
@@ -148,22 +149,20 @@ def test_mixed_precision_matches_jax(certify):
 
 
 ROUTES = [
-    # (device, split, family, with the f32 working set) -> polisher
-    (None, "auto", "dense", True, "sqp_polish_fused"),
-    (None, "off", "dense", True, "sqp_polish"),
-    (None, "auto", "dense", False, "sqp_polish"),
-    ("cpu", "auto", "dense", True, "sqp_polish_split"),
-    ("cpu", "off", "dense", True, "sqp_polish"),
-    ("cpu", "auto", "exp_fit", True, "sqp_polish"),
-    ("cpu", "on", "exp_fit", True, "sqp_polish_split"),
+    # (device, family, with the f32 working set) -> polisher
+    (None, "dense", True, "sqp_polish_fused"),
+    (None, "dense", False, "sqp_polish"),
+    ("cpu", "dense", True, "sqp_polish_split"),
+    ("cpu", "dense", False, "sqp_polish"),
+    ("cpu", "exp_fit", True, "sqp_polish"),
 ]
 
 
-@pytest.mark.parametrize("device,split,family,with32,want", ROUTES)
-def test_polish_then_refine_routes(device, split, family, with32, want, monkeypatch):
-    # The JAX routing, with certify="device" on whatever device X32 is on:
-    # fused on X32's device, split or all-f64 polish on the CPU for the
-    # host certification (split by default at n ≥ 64).
+@pytest.mark.parametrize("device,family,with32,want", ROUTES)
+def test_polish_then_refine_routes(device, family, with32, want, monkeypatch):
+    # The route follows from the inputs, as the JAX defaults route: fused on
+    # X32's device; for the host certification the split polish at n ≥ 64
+    # with the f32 working set, else the all-f64 polish on the CPU.
     calls = []
     for name in ("sqp_polish_fused", "sqp_polish_split", "sqp_polish"):
         orig = getattr(tpolish, name)
@@ -178,7 +177,7 @@ def test_polish_then_refine_routes(device, split, family, with32, want, monkeypa
             SolverOptions(crit_tol=1e-2, max_outer_iter=40, max_inner_iter=8), chunk=8)
     kw = dict(bp32=_cast_problem(bp, torch.float32, "cpu"), theta32=_cast_tree(th, torch.float32)) if with32 else {}
     X, Y, info = tpolish.polish_then_refine(
-        bp, th, X32, SolverOptions(**OPTS), num_steps=5, device=device, split=split, **kw)
+        bp, th, X32, SolverOptions(**OPTS), num_steps=5, device=device, **kw)
     assert calls[0] == want and set(calls[1:]) <= {"sqp_polish"}, calls
     assert bool(info.converged.all()) and float(info.pix.max()) <= 1.5e-8
 
@@ -187,8 +186,6 @@ def test_polish_argument_checks():
     bp, th, X0 = tgen.exp_fit_family(2, d=8, seed=0)
     with pytest.raises(ValueError):
         tpolish.polish_then_refine(bp, th, X0.float(), device="cuda:0")
-    with pytest.raises(ValueError):
-        tpolish.polish_then_refine(bp, th, X0.float(), split="maybe")
     with pytest.raises(ValueError):
         tpolish.sqp_polish(bp, th, X0, kkt_factorization="cholesky")
     with pytest.raises(ValueError):

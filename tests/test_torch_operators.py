@@ -39,24 +39,24 @@ def _conditioned(rng, d, n, kappa):
     return (U * np.logspace(0, -np.log10(kappa), n)) @ V.T
 
 
-def _gram_only(qr):
-    """R from the formed Gram alone: R₁ = chol(G), then the implicit pass."""
-    def r_factor(S):
-        G = S.mT @ S if isinstance(S, torch.Tensor) else S.T @ S
-        return qr._implicit_refine_upper(G, qr._rescued_chol_upper(G))
-    return r_factor
+def _jax_gram_only(S):
+    """JAX's R from the formed Gram alone: R₁ = chol(G), then the implicit pass."""
+    G = S.T @ S
+    return jqr._implicit_refine_upper(G, jqr._rescued_chol_upper(G))
 
 
 @pytest.mark.parametrize("dtype", ["f64", "f32"])
 @pytest.mark.parametrize("name", ["cholqr2_r", "cholqr2i_r", "implicit_refine_upper"])
 def test_cholqr2_matches_jax(name, dtype):
+    # The port's one CholeskyQR2 (`cholqr2i_r`, with its Gram formed or
+    # given) against each JAX variant: R with a positive diagonal is unique.
     npd, tol = (np.float64, 1e-10) if dtype == "f64" else (np.float32, 1e-5)
     S = (np.random.default_rng(3).standard_normal((4, 80, 12)) / np.sqrt(80)).astype(npd)
-    t_fn, j_fn = (_gram_only(tqr), _gram_only(jqr)) if name == "implicit_refine_upper" else (
-        getattr(tqr, name), getattr(jqr, name))
-    R_t = t_fn(torch.from_numpy(S))
+    St = torch.from_numpy(S)
+    R_t = tqr.cholqr2i_r(St, St.mT @ St) if name == "implicit_refine_upper" else tqr.cholqr2i_r(St)
+    j_fn = _jax_gram_only if name == "implicit_refine_upper" else getattr(jqr, name)
     R_j = jax.vmap(j_fn)(jnp.asarray(S))
-    assert R_t.dtype == torch.from_numpy(S).dtype and R_t.shape == (4, 12, 12)
+    assert R_t.dtype == St.dtype and R_t.shape == (4, 12, 12)
     np.testing.assert_allclose(R_t.numpy(), np.asarray(R_j), rtol=tol, atol=tol)
     assert (torch.diagonal(R_t, dim1=-2, dim2=-1) > 0).all()
 

@@ -75,8 +75,7 @@ def test_options_match_jax_field_by_field():
 
 @pytest.mark.parametrize("knob", [
     {"spmd_axis": "x"}, {"gram_layout": "sharded"}, {"reduce_schedule": "ring"},
-    {"spmd_axis": "rows"}, {"matmul_precision": "high"}, {"verbose": True},
-    {"matmul_precision": "default"},
+    {"verbose": True}, {"matmul_precision": "default"},
 ])
 def test_unported_option_raises(knob):
     with pytest.raises(NotImplementedError):
@@ -93,7 +92,7 @@ def test_ported_operator_option_accepted(knob):
 
 @pytest.mark.parametrize("kw", [
     {"fuse": True}, {"bulk_compact": 2}, {"sort_by_difficulty": True},
-    {"pipeline_overlap": True}, {"bulk_compact": 4}, {"bulk_dtype": torch.bfloat16},
+    {"pipeline_overlap": True}, {"bulk_dtype": torch.bfloat16},
 ])
 def test_unported_pipeline_knob_raises(kw):
     bp, th, X0 = exp_fit_family(2, d=8, seed=0)
@@ -102,13 +101,12 @@ def test_unported_pipeline_knob_raises(kw):
 
 
 def test_unported_routes_raise():
-    # The row-sharded operator layout waits for dist/; every replicated
-    # operator route resolves.
-    from benlsip_tpu_torch.ops.al import AlHessian, with_r_factor_cholqr2
+    # bf16 dispatch of the kernels is not ported; every replicated operator
+    # route resolves.
+    from benlsip_tpu_torch.ops.qr import qr_r
 
-    H = AlHessian(torch.ones(2, 8, 3), torch.zeros(2, 0, 3), torch.ones(2))
     with pytest.raises(NotImplementedError):
-        with_r_factor_cholqr2(H, layout="sharded")
+        qr_r(torch.ones(2, 8, 3, dtype=torch.bfloat16))
     assert resolve_operator_route(SolverOptions(), n=64, d_plus_p=256, dtype=torch.float32) == (True, "cholqr2")
     assert resolve_operator_route(SolverOptions(), n=64, d_plus_p=256, dtype=torch.float64) == (True, "normal")
     assert resolve_operator_route(SolverOptions(), n=3, d_plus_p=32, dtype=torch.float32) == (False, "qr")
