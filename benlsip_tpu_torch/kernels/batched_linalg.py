@@ -7,6 +7,14 @@ CUDA C++ twins of the three Pallas TPU kernels of
 * `batched_cho_solve` ← `batched_cho_solve` / `_cho_solve_kernel` (:101, :119)
 * `batched_thin_qr`   ← `batched_thin_qr` / `_mgs_qr_kernel`     (:147, :170)
 
+and the two fused kernels that redesign the first two for a card where
+nothing fuses their neighbours, one launch per call site:
+
+* `masked_aat_cholesky`: L = chol(A Z Aᵀ + reg·I), the Cholesky kernel
+  with the masked Gram product in front of it;
+* `project_tangent`: Z r − Z Aᵀ (L Lᵀ)⁻¹ A Z r, the solve kernel with
+  the mask and both products with A around it.
+
 Each wrapper keeps the JAX package's public layout — (B, M, M), (B, M) and
 (B, D, N), row-major — and none of the TPU's batch-last transposes or lane
 padding.  On a CUDA tensor it launches its kernel (or raises); on a CPU
@@ -14,7 +22,8 @@ tensor it runs the plain PyTorch version beside it, which computes the
 same algorithm in the same order with batched torch ops.  There is no
 fallback from a failed build or launch to the plain version.
 
-The sources in `csrc/` are compiled with nvcc for sm_90a into one shared
+The sources in `csrc/` are compiled with nvcc for sm_90a (one nvcc per
+source, all started together) and linked into one shared
 library with a plain C interface on first use, into `_build/` keyed on a
 hash of the sources and flags, and loaded with ctypes.  Each wrapper adds
 one to its entry of `LAUNCHES` when it launches its kernel, and nowhere
@@ -28,6 +37,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import torch
@@ -36,18 +46,22 @@ Tensor = torch.Tensor
 
 MAX_DIM = 16        # largest M (Cholesky, solve) and N (QR) the kernels take
 MAX_QR_ROWS = 2048  # largest D the QR kernel takes (the JAX gate's bound)
+MAX_FUSED_N = MAX_QR_ROWS  # largest n the fused kernels take
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # No --use_fast_math: the NaN-on-non-SPD contract needs IEEE sqrt.
 # --fmad=false keeps every multiply and add separately rounded, as the
 # plain versions' elementwise torch ops are.
+NVCC_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *NVCC_ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"batched_cholesky": 0, "batched_cho_solve": 0, "batched_thin_qr": 0}
+LAUNCHES = {
+    "batched_cholesky": 0, "batched_cho_solve": 0, "batched_thin_qr": 0,
+    "masked_aat_cholesky": 0, "project_tangent": 0,
+}
 
 
 def reset_launches() -> None:
@@ -85,15 +99,21 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbenlsip_kernels_{h.hexdigest()[:16]}.so"
 
 
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "benlsip_cholesky": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "benlsip_cho_solve": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "benlsip_thin_qr": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "benlsip_cholesky": [_PTR, _PTR, _INT, _INT, _PTR],
+    "benlsip_cho_solve": [_PTR] * 3 + [_INT, _INT, _PTR],
+    "benlsip_thin_qr": [_PTR] * 3 + [_INT] * 3 + [_PTR],
+    # A, its batch stride, mask, mask_is_fixed, reg, L, B, M, n, stream
+    "benlsip_masked_aat_cholesky": [_PTR, ctypes.c_longlong, _PTR, _INT, ctypes.c_double, _PTR] + [_INT] * 3 + [_PTR],
+    # A, its batch stride, L, fixed, r, out, B, M, n, unmasked_output, stream
+    "benlsip_project_tangent": [_PTR, ctypes.c_longlong] + [_PTR] * 4 + [_INT] * 4 + [_PTR],
 }
 
 
 def build() -> Path:
-    """Compile `csrc/*.cu` with nvcc if the library for these sources is missing.
+    """Compile `csrc/*.cu` with nvcc if the library for these sources is missing:
+    one nvcc per source, all started together, then one link.
 
     The ptxas report (registers, spills per kernel) is kept beside the
     library as `<name>.log`.
@@ -102,13 +122,26 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(Path(tmp) / f"{src.stem}.o")]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        link = [nvcc, *NVCC_ARCH, "-shared", "-o", str(Path(tmp) / out.name), *[cmd[-1] for cmd, _ in jobs]]
+        report, failed = [], []
+        for cmd, proc in jobs:   # wait for every compile, so none outlives a failure
+            stdout, stderr = proc.communicate()
+            report.append(stdout + stderr)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{stderr}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(link)}\n{proc.stderr}")
+        out.with_suffix(".log").write_text("".join(report))
+        os.replace(Path(tmp) / out.name, out)
     return out
 
 
@@ -126,19 +159,28 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(base: str, dtype: torch.dtype):
+    return getattr(load_library(), f"{base}_{'f32' if dtype == torch.float32 else 'f64'}")
+
+
 def _launch(name: str, base: str, t: Tensor, *args) -> None:
-    lib = load_library()
-    fn = getattr(lib, f"{base}_{'f32' if t.dtype == torch.float32 else 'f64'}")
-    with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        rc = fn(*args, stream)
+    fn = _kernel_fn(base, t.dtype)
+    if t.device.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(t.device):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        msg = lib.benlsip_error_string(rc).decode()
+        msg = load_library().benlsip_error_string(rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} (cudaError {rc})")
     LAUNCHES[name] += 1
 
 
-def _require_cuda(name: str, *ts: Tensor) -> None:
+def _require_cuda(name: str, *ts: Tensor, strided: tuple = ()) -> None:
+    """Raise unless every tensor is float32/float64 on one CUDA device and
+    contiguous; the tensors in `strided` are exempt from the last check."""
+    ts = strided + ts
     for t in ts:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: tensor on {t.device}; the kernel runs on CUDA tensors only")
@@ -146,8 +188,8 @@ def _require_cuda(name: str, *ts: Tensor) -> None:
             raise NotImplementedError(f"{name}: bf16 is not ported yet")
         if t.dtype not in (torch.float32, torch.float64):
             raise TypeError(f"{name}: dtype {t.dtype} (the kernel takes float32 or float64)")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: the kernel needs contiguous row-major tensors")
+    if not all(t.is_contiguous() for t in ts[len(strided):]):
+        raise ValueError(f"{name}: the kernel needs contiguous row-major tensors")
     if any(t.dtype != ts[0].dtype or t.device != ts[0].device for t in ts):
         raise ValueError(f"{name}: all tensors must share dtype and device")
 
@@ -290,3 +332,103 @@ def batched_thin_qr(A: Tensor):
     R = torch.empty((B, N, N), dtype=A.dtype, device=A.device)
     _launch("batched_thin_qr", "benlsip_thin_qr", A, A.data_ptr(), Q.data_ptr(), R.data_ptr(), B, D, N)
     return Q, R
+
+
+# ---------------------------------------------------------------------------
+# Fused call sites: masked Gram + Cholesky, masked tangent projection
+# ---------------------------------------------------------------------------
+
+
+def has_row_major_blocks(A: Tensor) -> bool:
+    """True when every (m, n) block of A (B, m, n) is row-major contiguous,
+    whatever the batch stride: a stride-0 expand of one matrix qualifies."""
+    _, m, n = A.shape
+    return (n == 1 or A.stride(2) == 1) and (m == 1 or A.stride(1) == n)
+
+
+def _fused_args(name: str, A: Tensor, mask: Tensor, *rest: Tensor) -> int:
+    """Check the operands of a fused kernel; returns A's batch stride in
+    elements (0 for a batch that shares one matrix)."""
+    B, M, n = A.shape
+    _require_cuda(name, *rest, strided=(A,))
+    if mask.dtype != torch.bool or mask.device != A.device or not mask.is_contiguous():
+        raise ValueError(f"{name}: the mask must be a contiguous bool tensor on {A.device}")
+    if not has_row_major_blocks(A):
+        raise ValueError(f"{name}: A needs row-major (m, n) blocks, got strides {A.stride()}")
+    if not (0 < M <= MAX_DIM and 0 < n <= MAX_FUSED_N):
+        raise ValueError(f"{name}: need 0 < m <= {MAX_DIM} and 0 < n <= {MAX_FUSED_N}, got m={M}, n={n}")
+    return A.stride(0) if B > 1 else 0
+
+
+def masked_aat(A: Tensor, free: Tensor) -> Tensor:
+    """A Z Aᵀ with Z = diag(free): (B, m, n), (B, n) -> (B, m, m)."""
+    Af = A * free.to(A.dtype).unsqueeze(-2)
+    return Af @ A.mT
+
+
+def masked_aat_cholesky_plain(A: Tensor, mask: Tensor, reg: float = 0.0, mask_is_fixed: bool = False) -> Tensor:
+    """Plain PyTorch twin of the fused factor kernel: the masked product,
+    the jitter, then the plain Cholesky."""
+    K = masked_aat(A, ~mask if mask_is_fixed else mask)
+    if reg:
+        K = K + reg * torch.eye(A.shape[-2], dtype=A.dtype, device=A.device)
+    return batched_cholesky_plain(K)
+
+
+def masked_aat_cholesky(A: Tensor, mask: Tensor, reg: float = 0.0, mask_is_fixed: bool = False) -> Tensor:
+    """Lower factor of A Z Aᵀ + reg·I for a batch: A (B, m, n), bool mask
+    (B, n) of the free columns (of the fixed ones with `mask_is_fixed`)
+    -> L (B, m, m).  A may share one matrix across the batch (stride 0)."""
+    if A.ndim != 3 or mask.shape != A.shape[::2]:
+        raise ValueError(f"masked_aat_cholesky: expected (B, m, n) and (B, n), got {tuple(A.shape)}, {tuple(mask.shape)}")
+    B, M, _ = A.shape
+    if B == 0 or M == 0:
+        return torch.zeros((B, M, M), dtype=A.dtype, device=A.device)
+    if _on_cpu(A):
+        return masked_aat_cholesky_plain(A, mask, reg, mask_is_fixed)
+    stride = _fused_args("masked_aat_cholesky", A, mask)
+    L = torch.empty((B, M, M), dtype=A.dtype, device=A.device)
+    _launch(
+        "masked_aat_cholesky", "benlsip_masked_aat_cholesky", A,
+        A.data_ptr(), stride, mask.data_ptr(), int(mask_is_fixed), float(reg), L.data_ptr(), B, M, A.shape[2],
+    )
+    return L
+
+
+def project_tangent_plain(A: Tensor, L: Tensor, fixed: Tensor, r: Tensor, unmasked_output: bool = False) -> Tensor:
+    """Plain PyTorch twin of the fused projection kernel: mask, A Z r, the
+    plain Cholesky solve, Aᵀw, mask, subtract."""
+    free = ~fixed
+    rz = torch.where(free, r, 0.0)
+    w = batched_cho_solve_plain(L, (A @ rz.unsqueeze(-1)).squeeze(-1))
+    atw = (A.mT @ w.unsqueeze(-1)).squeeze(-1)
+    if unmasked_output:
+        return r - atw
+    return rz - torch.where(free, atw, 0.0)
+
+
+def project_tangent(A: Tensor, L: Tensor, fixed: Tensor, r: Tensor, unmasked_output: bool = False) -> Tensor:
+    """Z r − Z Aᵀ w with w = (L Lᵀ)⁻¹ A Z r and Z = diag(¬fixed), for a
+    batch: A (B, m, n), L (B, m, m), bool fixed (B, n), r (B, n) -> (B, n).
+    With `unmasked_output` it returns r − Aᵀ w for the same w.  A may share
+    one matrix across the batch (stride 0)."""
+    if A.ndim != 3 or L.shape != A.shape[:2] + A.shape[1:2] or r.shape != A.shape[::2] or fixed.shape != r.shape:
+        raise ValueError(
+            "project_tangent: expected (B, m, n), (B, m, m), (B, n), (B, n), got "
+            f"{tuple(A.shape)}, {tuple(L.shape)}, {tuple(fixed.shape)}, {tuple(r.shape)}"
+        )
+    B, M, n = A.shape
+    if M == 0:
+        raise ValueError("project_tangent: m = 0 has no factor to solve with")
+    if B == 0 or n == 0:
+        return torch.zeros_like(r)
+    if _on_cpu(A):
+        return project_tangent_plain(A, L, fixed, r, unmasked_output)
+    stride = _fused_args("project_tangent", A, fixed, L, r)
+    out = torch.empty_like(r)
+    _launch(
+        "project_tangent", "benlsip_project_tangent", A,
+        A.data_ptr(), stride, L.data_ptr(), fixed.data_ptr(), r.data_ptr(), out.data_ptr(),
+        B, M, n, int(unmasked_output),
+    )
+    return out

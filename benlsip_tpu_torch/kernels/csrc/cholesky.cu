@@ -21,8 +21,7 @@
 namespace {
 
 using benlsip::kThreads;
-
-__host__ __device__ constexpr int tri(int i, int j) { return i * (i + 1) / 2 + j; }
+using benlsip::tri;
 
 template <typename T, int M>
 __global__ void __launch_bounds__(kThreads)

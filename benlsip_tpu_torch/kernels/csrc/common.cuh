@@ -24,4 +24,20 @@ inline int blocks_for(int work, int per_block) {
   return (work + per_block - 1) / per_block;
 }
 
+// Warps per block of the one-warp-per-instance kernels: small blocks, so
+// that a batch of 64 instances still spreads over 16 SMs.
+constexpr int kWarpsPerBlock = 4;
+
+// Index of entry (i, j), j <= i, of a lower triangle packed by rows.
+__host__ __device__ constexpr int tri(int i, int j) { return i * (i + 1) / 2 + j; }
+
+// Sum of v over the 32 lanes of a full warp; every lane gets the same bits
+// (each butterfly step adds the same two values in both lanes of a pair).
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) v += __shfl_xor_sync(0xffffffffu, v, offset);
+  return v;
+}
+
 }  // namespace benlsip

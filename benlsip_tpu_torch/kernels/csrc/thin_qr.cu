@@ -24,14 +24,8 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) v += __shfl_xor_sync(0xffffffffu, v, offset);
-  return v;
-}
+using benlsip::kWarpsPerBlock;
+using benlsip::warp_sum;
 
 template <typename T>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)

@@ -9,11 +9,19 @@ reference's augmented ÃÃᵀ factorization.  Dispatch follows the JAX gate
 on a CPU tensor the kernel wrapper runs its plain PyTorch version), and
 everything else — float64, larger M — goes to `torch.linalg`, exactly
 where the JAX package goes to XLA.
+
+Eager PyTorch fuses nothing around a kernel, so the two call sites of the
+active-set machinery are kernels as a whole: `factor_masked_aat` /
+`factor_unfixed_aat` (mask, A Z Aᵀ, jitter, Cholesky) and
+`masked_projection` (mask, A Z r, solve, Aᵀw, mask, subtract) each take
+one launch for an eligible batch with n ≤ 2048, and read a batch-shared A
+(a stride-0 expand) in place.
 """
 from __future__ import annotations
 
 import torch
 
+from .._batched import mtv, mv
 from ..kernels import batched_linalg as kern
 
 Tensor = torch.Tensor
@@ -50,21 +58,39 @@ def _tri_solve_pair(L: Tensor, b: Tensor) -> Tensor:
     return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
 
-def masked_aat(A: Tensor, free: Tensor) -> Tensor:
-    """A Z Aᵀ with Z = diag(free): (B, m, n), (B, n) -> (B, m, m)."""
-    Af = A * free.to(A.dtype).unsqueeze(-2)
-    return Af @ A.mT
+masked_aat = kern.masked_aat
 
 
-def factor_masked_aat(A: Tensor, free: Tensor, reg: float = 0.0) -> Tensor:
-    """Lower Cholesky factor of A Z Aᵀ (+ reg·I), batched."""
+def _fused_eligible(A: Tensor) -> bool:
+    """Whether the call sites on A (B, m, n) go to the fused kernels."""
+    return A.ndim == 3 and _kernel_eligible(A.shape[-2], A.dtype) and 0 < A.shape[-1] <= kern.MAX_FUSED_N
+
+
+def _row_major_blocks(A: Tensor) -> Tensor:
+    """A as the fused kernels read it; a batch-shared A stays a stride-0 view."""
+    return A if kern.has_row_major_blocks(A) else A.contiguous()
+
+
+def _factor(A: Tensor, mask: Tensor, reg: float, mask_is_fixed: bool) -> Tensor:
     B, m, _ = A.shape
     if m == 0:
         return torch.zeros((B, 0, 0), dtype=A.dtype, device=A.device)
-    K = masked_aat(A, free)
+    if _fused_eligible(A):
+        return kern.masked_aat_cholesky(_row_major_blocks(A), mask.contiguous(), reg, mask_is_fixed)
+    K = masked_aat(A, ~mask if mask_is_fixed else mask)
     if reg:
         K = K + reg * torch.eye(m, dtype=A.dtype, device=A.device)
     return cholesky(K)
+
+
+def factor_masked_aat(A: Tensor, free: Tensor, reg: float = 0.0) -> Tensor:
+    """Lower Cholesky factor of A Z Aᵀ (+ reg·I), Z = diag(free), batched."""
+    return _factor(A, free, reg, mask_is_fixed=False)
+
+
+def factor_unfixed_aat(A: Tensor, fixed: Tensor, reg: float = 0.0) -> Tensor:
+    """`factor_masked_aat(A, ~fixed, reg)` without the launch for the negation."""
+    return _factor(A, fixed, reg, mask_is_fixed=True)
 
 
 def cho_solve_lower(L: Tensor, b: Tensor) -> Tensor:
@@ -79,3 +105,19 @@ def cho_solve_lower(L: Tensor, b: Tensor) -> Tensor:
             return kern.batched_cho_solve(L.contiguous(), b.contiguous())
         return _tri_solve_pair(L, b.unsqueeze(-1)).squeeze(-1)
     return _tri_solve_pair(L, b)
+
+
+def masked_projection(A: Tensor, L: Tensor, fixed: Tensor, r: Tensor, unmasked_output: bool = False) -> Tensor:
+    """Z r − Z Aᵀ w with w = (L Lᵀ)⁻¹ A Z r and Z = diag(¬fixed), m > 0;
+    with `unmasked_output`, r − Aᵀ w for the same w (the projection
+    multipliers of the coupled binding test)."""
+    if _fused_eligible(A):
+        return kern.project_tangent(
+            _row_major_blocks(A), L.contiguous(), fixed.contiguous(), r.contiguous(), unmasked_output
+        )
+    free = ~fixed
+    rz = torch.where(free, r, 0.0)
+    w = cho_solve_lower(L, mv(A, rz))
+    if unmasked_output:
+        return r - mtv(A, w)
+    return rz - torch.where(free, mtv(A, w), 0.0)

@@ -13,8 +13,8 @@ from typing import NamedTuple
 
 import torch
 
-from .._batched import mtv, mv, norm
-from .cholesky import cho_solve_lower, factor_masked_aat
+from .._batched import mv, norm
+from .cholesky import factor_unfixed_aat, masked_projection
 
 Tensor = torch.Tensor
 
@@ -42,7 +42,7 @@ def nb_fix(aset: ActiveSet) -> Tensor:
 
 def make_active_set(poly: Polyhedron, fixed: Tensor, reg: float = 0.0) -> ActiveSet:
     """ActiveSet for mask `fixed`, refreshing the factorization."""
-    return ActiveSet(fixed=fixed, chol=factor_masked_aat(poly.A, ~fixed, reg=reg))
+    return ActiveSet(fixed=fixed, chol=factor_unfixed_aat(poly.A, fixed, reg=reg))
 
 
 def no_active_set(poly: Polyhedron, reg: float = 0.0) -> ActiveSet:
@@ -91,10 +91,8 @@ def binding_bounds_coupled(
 
     fixed = active
     for _ in range(passes):
-        free = ~fixed
-        L = factor_masked_aat(poly.A, free, reg=reg)
-        w = cho_solve_lower(L, mv(poly.A, torch.where(free, r, 0.0)))
-        sigma = r - mtv(poly.A, w)
+        L = factor_unfixed_aat(poly.A, fixed, reg=reg)
+        sigma = masked_projection(poly.A, L, fixed, r, unmasked_output=True)
         # NaN guard: a rank-deficient A Z Aᵀ makes sigma NaN; release nothing then.
         release = ((at_lo & (sigma > 0)) | (at_hi & (sigma < 0))) & torch.isfinite(sigma)
         fixed = active & ~(release & ~pinned)

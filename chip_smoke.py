@@ -8,9 +8,16 @@ Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi); TF32 is off;
 2. build the CUDA kernels of benlsip_tpu_torch from csrc/ (nvcc, sm_90a);
-3. each kernel against its plain PyTorch version on the card, in float32,
-   at both paths' shapes and the kernel tests' shapes, with the NaN,
-   positive-diagonal and empty-batch checks, and the warm time of both;
+3. each of the five kernels against its plain PyTorch version on the card,
+   in float32, at both paths' shapes and the kernel tests' shapes, with
+   the NaN, positive-diagonal, empty-batch and refused-operand checks; the
+   two fused kernels also with a batch-shared (stride-0) A, ragged n,
+   degenerate lanes and reg > 0, and against the call site they replace;
+   then, taken in turns inside this one process (plain, kernel, library,
+   library, kernel, plain; CUDA events over 200 calls), the time of every
+   kernel, of its plain version and of the one PyTorch call that computes
+   the same function (for a fused kernel: of the call site it replaces,
+   with the old kernel inside), beside the bound computed from the shapes;
 4. the config-2 path: `solve_mixed_precision` on
    `exp_fit_family(1024, d=32, seed=42)` (float64 master data) on cuda:0,
    with every kernel's launch count read around that run; 1024/1024 must
@@ -30,35 +37,43 @@ Phases (any failure raises and the script exits non-zero):
    certification, and the device's busy share and kernel count from
    torch.profiler.
 
-It imports nothing of JAX: the oracle module is loaded by file path.
-The last two lines are the kernels' JSON record (launch counts per path)
-and the result JSON.
+It imports nothing of JAX and nothing of the JAX package: the KKT oracle
+is the port's own copy.  The last two lines are the kernels' JSON record
+(launch counts per path, times, bounds) and the result JSON.
 """
 from __future__ import annotations
 
-import importlib.util
 import json
 import math
 import subprocess
 import sys
 import time
-from pathlib import Path
-
 import numpy as np
 import torch
-
-ROOT = Path(__file__).resolve().parent
-ORACLE_PATH = ROOT / "benlsip_tpu" / "baselines" / "kkt_oracle.py"
 
 # Kernel vs plain version in float32.  Cholesky and the solve run the same
 # operations in the same order with every product and sum separately
 # rounded on both sides, so they should agree to the last bit; QR sums its
 # dot products in another order (warp shuffles vs torch's reduction), a
 # float32 rounding difference of O(sqrt(D)·eps).
+# The fused kernels sum their dot products over n by warp shuffles too, so
+# their atol scales with sqrt(n) times the largest row norm of A (factor) or
+# with sqrt(n)·max|r| (projection); NaN patterns must be equal exactly.
 KERNEL_RTOL = 1e-5
 KERNEL_ATOL = 1e-5
 CERT_PIX = math.sqrt(np.finfo(np.float64).eps)   # 1.49e-8: f64 KKT grade
 SMALL_ATOL = 1e-7                                # card vs CPU run of the port
+
+# Published peaks of the H100 SXM, for the bounds: device memory rate and
+# the float32 rate outside the tensor cores (no kernel here uses them).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+# The kernels on each path; `batched_cholesky` runs there inside
+# `masked_aat_cholesky`, which holds its body.
+PATH_KERNELS = ("masked_aat_cholesky", "project_tangent", "batched_cho_solve", "batched_thin_qr")
+# Device kernels of one warm run before the fused call sites (H100 80GB HBM3, 700 W).
+DEVICE_KERNELS_BEFORE = {"config 2": "76,582-76,924", "config 3": "18,924"}
 
 
 def _sync():
@@ -77,6 +92,54 @@ def _cuda_ms(fn, reps: int = 200, warm: int = 10) -> float:
     end.record()
     _sync()
     return start.elapsed_time(end) / reps
+
+
+def _in_turns(fns: dict) -> dict:
+    """Warm per-call time of each function, taken in turns (first to last,
+    then last to first) inside this process; the mean of the two."""
+    order = list(fns)
+    total = dict.fromkeys(order, 0.0)
+    for name in order + order[::-1]:
+        total[name] += _cuda_ms(fns[name])
+    return {name: t / 2 for name, t in total.items()}
+
+
+def _bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the float32 peak, whichever is larger."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    ms = max(t_bytes, t_ops) * 1e3
+    return {"bound_ms": ms, "bound_us": ms * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(n_bytes), "flops": int(flops)}
+
+
+def _check_same_nan(name: str, got: torch.Tensor, want: torch.Tensor, atol: float) -> float:
+    """NaN patterns equal exactly; the rest close."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError(f"{name}: NaN pattern differs from the plain version's")
+    ok = ~torch.isnan(want)
+    return _check_close(name, got[ok], want[ok], atol=atol)
+
+
+def old_factor_site(kern, A, fixed, reg=0.0):
+    """`factor_masked_aat` as it ran before the fused kernel: mask, cast,
+    multiply, bmm, jitter, the Cholesky kernel."""
+    free = ~fixed
+    K = (A * free.to(A.dtype).unsqueeze(-2)) @ A.mT
+    if reg:
+        K = K + reg * torch.eye(A.shape[-2], dtype=A.dtype, device=A.device)
+    return kern.batched_cholesky(K.contiguous())
+
+
+def old_project_site(kern, A, L, fixed, r):
+    """`project_tangent` as it ran before the fused kernel: mask, bmm, the
+    solve kernel, bmm, mask, subtract."""
+    free = ~fixed
+    rz = torch.where(free, r, 0.0)
+    w = kern.batched_cho_solve(L.contiguous(), (A @ rz.unsqueeze(-1)).squeeze(-1).contiguous())
+    return rz - torch.where(free, (A.mT @ w.unsqueeze(-1)).squeeze(-1), 0.0)
 
 
 def _check_close(name: str, got: torch.Tensor, want: torch.Tensor, atol: float = KERNEL_ATOL) -> float:
@@ -109,12 +172,19 @@ def phase_build(kern) -> float:
     print(f"build: {lib_path.name} in {dt:.2f} s")
     log = lib_path.with_suffix(".log")
     if log.exists():
-        fn = "?"
+        # ptxas report: the most registers of any instantiation of each
+        # kernel, and every instantiation that spills.
+        regs, entry = {}, "?"
         for line in log.read_text().splitlines():
-            if "Function properties for" in line:
-                fn = line.split("Function properties for")[-1].strip()
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "Used" in line and "registers" in line:
+                family = next((k for k in ("masked_aat_cholesky", "project_tangent", "cholesky", "cho_solve", "mgs_qr")
+                               if k in entry), entry)
+                regs[family] = max(regs.get(family, 0), int(line.split("Used")[1].split("registers")[0]))
             elif "spill" in line and ("0 bytes spill stores" not in line or "0 bytes spill loads" not in line):
-                print(f"ptxas: {fn}: {line.strip()}")
+                print(f"ptxas: {entry}: {line.strip()}")
+        print(f"ptxas: most registers per thread by kernel: {regs}")
     return dt
 
 
@@ -129,22 +199,19 @@ def phase_kernels(kern) -> dict:
         K = A @ np.transpose(A, (0, 2, 1)) + M * np.eye(M)
         return torch.as_tensor(K, dtype=f32, device=dev)
 
-    rec = {k: {"max_abs_err": 0.0} for k in ("batched_cholesky", "batched_cho_solve", "batched_thin_qr")}
+    rec = {k: {"max_abs_err": 0.0} for k in kern.LAUNCHES}
+
+    def worst(name, err):
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
 
     for B, M in ((1024, 1), (1024, 2), (1024, 3), (1024, 5), (64, 6), (1024, 8), (1024, 16)):
         K = spd(B, M)
         L = kern.batched_cholesky(K)
-        rec["batched_cholesky"]["max_abs_err"] = max(
-            rec["batched_cholesky"]["max_abs_err"],
-            _check_close(f"cholesky {B}x{M}x{M}", L, kern.batched_cholesky_plain(K)),
-        )
+        worst("batched_cholesky", _check_close(f"cholesky {B}x{M}x{M}", L, kern.batched_cholesky_plain(K)))
         b = torch.as_tensor(rng.standard_normal((B, M)), dtype=f32, device=dev)
         x = kern.batched_cho_solve(L, b)
         xp = kern.batched_cho_solve_plain(L, b)
-        rec["batched_cho_solve"]["max_abs_err"] = max(
-            rec["batched_cho_solve"]["max_abs_err"],
-            _check_close(f"cho_solve {B}x{M}", x, xp, atol=KERNEL_ATOL * float(xp.abs().max())),
-        )
+        worst("batched_cho_solve", _check_close(f"cho_solve {B}x{M}", x, xp, atol=KERNEL_ATOL * float(xp.abs().max())))
     # NaN on a non-SPD pivot, no clamping; other instances stay finite.
     K = spd(1024, 3)
     K[5, 2, 2] = -50.0
@@ -158,11 +225,10 @@ def phase_kernels(kern) -> dict:
         A = torch.as_tensor(rng.standard_normal((B, D, N)), dtype=f32, device=dev)
         Q, R = kern.batched_thin_qr(A)
         Qp, Rp = kern.batched_thin_qr_plain(A)
-        err = max(
+        worst("batched_thin_qr", max(
             _check_close(f"qr Q {B}x{D}x{N}", Q, Qp),
             _check_close(f"qr R {B}x{D}x{N}", R, Rp, atol=KERNEL_ATOL * math.sqrt(D)),
-        )
-        rec["batched_thin_qr"]["max_abs_err"] = max(rec["batched_thin_qr"]["max_abs_err"], err)
+        ))
         if not (torch.diagonal(R, dim1=1, dim2=2) > 0).all() or torch.tril(R, -1).abs().max() != 0:
             raise AssertionError("qr: R must be upper triangular with a positive diagonal")
         if not torch.allclose(Q @ R, A, rtol=1e-4, atol=1e-4):
@@ -187,41 +253,192 @@ def phase_kernels(kern) -> dict:
         raise AssertionError("cholesky: a non-contiguous input must raise")
     _sync()
 
-    # Warm times at each path's shapes.  Config 2: the bulk factors and
-    # solves at the chunk width (512, M = m = 1), the certification's QR at
-    # B = 1024.  Config 3: factors and solves at (64, M = m = 6), the
-    # polish's thin_qr(Wᵀ) at (64, n = 192, m = 6).
-    K1, K6 = spd(512, 1), spd(64, 6)
-    L1, L6 = kern.batched_cholesky(K1), kern.batched_cholesky(K6)
-    b1 = torch.as_tensor(rng.standard_normal((512, 1)), dtype=f32, device=dev)
-    b6 = torch.as_tensor(rng.standard_normal((64, 6)), dtype=f32, device=dev)
-    S = torch.as_tensor(rng.standard_normal((1024, 35, 3)), dtype=f32, device=dev)
-    W = torch.as_tensor(rng.standard_normal((1024, 3, 1)), dtype=f32, device=dev)
-    W3 = torch.as_tensor(rng.standard_normal((64, 192, 6)), dtype=f32, device=dev)
-    timings = {
-        "batched_cholesky": (("512x1x1", K1), ("64x6x6", K6)),
-        "batched_cho_solve": (("512x1", (L1, b1)), ("64x6", (L6, b6))),
-        "batched_thin_qr": (("1024x35x3", S), ("64x192x6", W3)),
-    }
-    for name, shapes in timings.items():
-        k_fn, p_fn = getattr(kern, name), getattr(kern, name + "_plain")
-        for suffix, (shape, args) in zip(("", "_config3"), shapes):
-            args = args if isinstance(args, tuple) else (args,)
-            rec[name]["ms" + suffix] = _cuda_ms(lambda: k_fn(*args))
-            rec[name]["plain_ms" + suffix] = _cuda_ms(lambda: p_fn(*args))
-            print(f"{name} {shape}: kernel {rec[name]['ms' + suffix]:.4f} ms, "
-                  f"plain {rec[name]['plain_ms' + suffix]:.4f} ms")
+    _check_fused(kern, rng, worst)
+    _sync()
+    for name in rec:
         print(f"{name}: max abs err {rec[name]['max_abs_err']:.3e} over every checked shape")
-    ms_w, pl_w = _cuda_ms(lambda: kern.batched_thin_qr(W)), _cuda_ms(lambda: kern.batched_thin_qr_plain(W))
-    print(f"batched_thin_qr 1024x3x1: kernel {ms_w:.4f} ms, plain {pl_w:.4f} ms")
+    _time_kernels(kern, rng, rec)
     return rec
 
 
-def _load_oracle():
-    spec = importlib.util.spec_from_file_location("kkt_oracle", ORACLE_PATH)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+def _fused_case(rng, B, m, n, shared, dev):
+    """Operands of the fused kernels: A (a stride-0 expand of one matrix
+    when shared), a mask whose first min(n - 1, 4m) columns stay free (a
+    well-conditioned A Z Aᵀ), r, and two degenerate lanes: the last is all
+    fixed, the one before has one free column under m equalities and
+    entries of A in {±1, ±2}, so that its sums are exact in any order and
+    its NaN pattern does not hang on rounding."""
+    ints = lambda shape: rng.choice([-2.0, -1.0, 1.0, 2.0], shape)
+    if shared:
+        A = torch.as_tensor(ints((m, n)), dtype=torch.float32, device=dev).expand(B, m, n)
+    else:
+        A_np = rng.standard_normal((B, m, n))
+        A_np[B - 2] = ints((m, n))
+        A = torch.as_tensor(A_np, dtype=torch.float32, device=dev)
+    fixed = rng.random((B, n)) < 0.3
+    fixed[:, : min(n - 1, 4 * m)] = False
+    fixed[B - 2] = True
+    fixed[B - 2, 1] = False
+    fixed[B - 1] = True
+    r = torch.as_tensor(rng.standard_normal((B, n)), dtype=torch.float32, device=dev)
+    return A, torch.as_tensor(fixed, device=dev), r
+
+
+def _check_fused(kern, rng, worst) -> None:
+    """The two fused kernels against their plain versions and against the
+    call sites they replace."""
+    dev = torch.device("cuda:0")
+    cases = [(512, 1, 3, False), (64, 6, 192, True), (64, 6, 192, False)]
+    cases += [(130, m, n, shared) for m in (2, 3, 5, 8, 16) for n, shared in ((37, False), (200, True))]
+    for B, m, n, shared in cases:
+        A, fixed, r = _fused_case(rng, B, m, n, shared, dev)
+        if shared and A.stride(0) != 0:
+            raise AssertionError("the shared A must reach the kernels as a stride-0 view")
+        tag = f"{B}x{m}x{n}{' shared' if shared else ''}"
+        row = float(torch.linalg.vector_norm(A, dim=-1).max())
+        for reg in (0.0, 1e-3):
+            L = kern.masked_aat_cholesky(A, fixed, reg, mask_is_fixed=True)
+            Lp = kern.masked_aat_cholesky_plain(A, fixed, reg, mask_is_fixed=True)
+            atol = KERNEL_ATOL * math.sqrt(n) * row
+            worst("masked_aat_cholesky", _check_same_nan(f"masked_aat_cholesky {tag} reg={reg}", L, Lp, atol))
+            _check_same_nan(f"masked_aat_cholesky {tag} vs its old call site", L, old_factor_site(kern, A, fixed, reg), atol)
+            L_free = kern.masked_aat_cholesky(A, ~fixed, reg)
+            if not (torch.equal(torch.isnan(L), torch.isnan(L_free)) and torch.equal(L.nan_to_num(), L_free.nan_to_num())):
+                raise AssertionError(f"masked_aat_cholesky {tag}: the free-mask and fixed-mask entries disagree")
+            if torch.triu(L, 1).abs().max() != 0:
+                raise AssertionError(f"masked_aat_cholesky {tag}: entries above the diagonal must be zero")
+        # reg = 0 from here on: the last two lanes are degenerate.
+        L = kern.masked_aat_cholesky(A, fixed, 0.0, mask_is_fixed=True)
+        if m >= 3 and not (torch.isnan(L[B - 2, 2, 1]) and torch.isnan(L[B - 1, 1, 0]) and torch.isfinite(L[: B - 2]).all()):
+            raise AssertionError(f"masked_aat_cholesky {tag}: NaN must stay in the degenerate lanes")
+        atol = KERNEL_ATOL * math.sqrt(n) * float(r.abs().max())
+        for unmasked in (False, True):
+            P = kern.project_tangent(A, L, fixed, r, unmasked_output=unmasked)
+            Pp = kern.project_tangent_plain(A, L, fixed, r, unmasked_output=unmasked)
+            worst("project_tangent", _check_same_nan(f"project_tangent {tag} unmasked={unmasked}", P, Pp, atol))
+        P = kern.project_tangent(A, L, fixed, r)
+        _check_same_nan(f"project_tangent {tag} vs its old call site", P, old_project_site(kern, A, L, fixed, r), atol)
+        if P[fixed].abs().max() != 0 or not torch.isfinite(P[: B - 2]).all():
+            raise AssertionError(f"project_tangent {tag}: fixed entries must be 0 and regular lanes finite")
+        if m >= 3 and not torch.isnan(P[B - 2, 1]):
+            raise AssertionError(f"project_tangent {tag}: a NaN factor must give a NaN row")
+
+    # Empty batch: no launch.  Refused operands: a non-contiguous r, a
+    # column-major A, a float mask.
+    before = dict(kern.LAUNCHES)
+    z = lambda *shape, **kw: torch.zeros(shape, device=dev, **kw)
+    shapes = (
+        kern.masked_aat_cholesky(z(0, 3, 5), z(0, 5, dtype=torch.bool)).shape,
+        kern.project_tangent(z(0, 3, 5), z(0, 3, 3), z(0, 5, dtype=torch.bool), z(0, 5)).shape,
+    )
+    if shapes != ((0, 3, 3), (0, 5)) or kern.LAUNCHES != before:
+        raise AssertionError(f"fused kernels, empty batch: shapes {shapes}, launches {kern.LAUNCHES} vs {before}")
+    A, fixed, r = _fused_case(rng, 8, 3, 10, False, dev)
+    L = kern.masked_aat_cholesky(A, fixed, 0.0, mask_is_fixed=True)
+    refused = (
+        lambda: kern.project_tangent(A, L, fixed, torch.stack([r, r], dim=-1)[..., 0]),
+        lambda: kern.project_tangent(A.mT.contiguous().mT, L, fixed, r),
+        lambda: kern.masked_aat_cholesky(A.mT.contiguous().mT, fixed),
+        lambda: kern.masked_aat_cholesky(A, fixed.float()),
+    )
+    for i, call in enumerate(refused):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"fused kernels: refused operand {i} was accepted")
+
+
+def _time_kernels(kern, rng, rec) -> None:
+    """Times at each path's shapes, in turns, with bounds and library calls.
+
+    Config 2: the bulk factors and projects at the chunk width
+    (512, m = 1, n = 3) with a per-instance A, the certification's QR runs
+    at B = 1024.  Config 3: (64, m = 6, n = 192) with one A shared by the
+    batch (a stride-0 expand), the polish's thin_qr(Wᵀ) at (64, 192, 6)."""
+    dev = torch.device("cuda:0")
+    f32 = torch.float32
+    paths = {}
+    for suffix, (B, m, n, shared, qr_shape) in {
+        "": (512, 1, 3, False, (1024, 35, 3)), "_config3": (64, 6, 192, True, (64, 192, 6)),
+    }.items():
+        A, fixed, r = _fused_case(rng, B, m, n, shared, dev)
+        fixed[B - 2:] = fixed[0]     # no degenerate lanes in the timed batch
+        if shared:                    # a generic shared matrix, as the path has
+            A = torch.as_tensor(rng.standard_normal((m, n)), dtype=f32, device=dev).expand(B, m, n)
+        L = kern.masked_aat_cholesky(A, fixed, 0.0, mask_is_fixed=True)
+        K = (L @ L.mT).contiguous()
+        b = torch.as_tensor(rng.standard_normal((B, m)), dtype=f32, device=dev)
+        S = torch.as_tensor(rng.standard_normal(qr_shape), dtype=f32, device=dev)
+        n_free = int((~fixed).sum())
+        a_bytes = (1 if shared else B) * m * n * 4
+        Bq, D, N = qr_shape
+        paths[suffix] = {
+            "batched_cholesky": dict(
+                shape=f"{B}x{m}x{m}", kernel=lambda K=K: kern.batched_cholesky(K),
+                plain=lambda K=K: kern.batched_cholesky_plain(K), library=lambda K=K: torch.linalg.cholesky_ex(K),
+                bound=_bound(2 * B * m * m * 4, B * m ** 3 / 3)),
+            "batched_cho_solve": dict(
+                shape=f"{B}x{m}", kernel=lambda L=L, b=b: kern.batched_cho_solve(L, b),
+                plain=lambda L=L, b=b: kern.batched_cho_solve_plain(L, b),
+                library=lambda L=L, b=b: torch.cholesky_solve(b.unsqueeze(-1), L),
+                bound=_bound(B * (m * m + 2 * m) * 4, 2 * B * m * m)),
+            "batched_thin_qr": dict(
+                shape="x".join(map(str, qr_shape)), kernel=lambda S=S: kern.batched_thin_qr(S),
+                plain=lambda S=S: kern.batched_thin_qr_plain(S), library=lambda S=S: torch.linalg.qr(S, mode="reduced"),
+                bound=_bound(Bq * (2 * D * N + N * N) * 4, 2 * Bq * D * N * N)),
+            "masked_aat_cholesky": dict(
+                shape=f"{B}x{m}x{n}{' shared A' if shared else ''}",
+                kernel=lambda A=A, fixed=fixed: kern.masked_aat_cholesky(A, fixed, 0.0, mask_is_fixed=True),
+                plain=lambda A=A, fixed=fixed: kern.masked_aat_cholesky_plain(A, fixed, 0.0, mask_is_fixed=True),
+                old_site=lambda A=A, fixed=fixed: old_factor_site(kern, A, fixed),
+                bound=_bound(a_bytes + B * n + B * m * m * 4, m * (m + 1) * n_free + B * m ** 3 / 3)),
+            "project_tangent": dict(
+                shape=f"{B}x{m}x{n}{' shared A' if shared else ''}",
+                kernel=lambda A=A, L=L, fixed=fixed, r=r: kern.project_tangent(A, L, fixed, r),
+                plain=lambda A=A, L=L, fixed=fixed, r=r: kern.project_tangent_plain(A, L, fixed, r),
+                old_site=lambda A=A, L=L, fixed=fixed, r=r: old_project_site(kern, A, L, fixed, r),
+                bound=_bound(a_bytes + B * m * m * 4 + B * n + 2 * B * n * 4, 4 * m * n_free + 2 * B * m * m)),
+        }
+    for name in rec:
+        for suffix, cases in paths.items():
+            case = cases[name]
+            yard = "library" if "library" in case else "old_site"
+            t = _in_turns({"plain": case["plain"], "kernel": case["kernel"], yard: case[yard]})
+            rec[name].update({
+                "ms" + suffix: t["kernel"], "plain_ms" + suffix: t["plain"],
+                "library_ms" + suffix: t.get("library"),
+                **{k + suffix: case["bound"][k] for k in ("bound_ms", "bound_us", "bound_by")},
+            })
+            if yard == "old_site":
+                rec[name]["old_site_ms" + suffix] = t["old_site"]
+            print(f"{name} {case['shape']}: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+                  f"{yard.replace('_', ' ')} {t[yard]:.4f} ms, bound {case['bound']['bound_us']:.4f} us "
+                  f"({case['bound']['bound_by']}: {case['bound']['bytes']} B, {case['bound']['flops']} flop)")
+    W = torch.as_tensor(rng.standard_normal((1024, 3, 1)), dtype=f32, device=dev)
+    t = _in_turns({"plain": lambda: kern.batched_thin_qr_plain(W), "kernel": lambda: kern.batched_thin_qr(W),
+                   "library": lambda: torch.linalg.qr(W, mode="reduced")})
+    print(f"batched_thin_qr 1024x3x1: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, library {t['library']:.4f} ms")
+
+
+def _check_launched(tag: str, launches: dict) -> None:
+    """Every kernel of the path was launched in the run just made."""
+    for name in PATH_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{tag}: kernel {name} was not launched on this path")
+
+
+def _oracle_agreement(tag: str, points) -> int:
+    """How many of the points pass the port's numpy KKT oracle; verdicts of
+    its fully-active branch (lsq_linear convergence unchecked) are flagged."""
+    from benlsip_tpu_torch.baselines.kkt_oracle import kkt_check_point
+
+    verdicts = [kkt_check_point(*p) for p in points]
+    flagged = sum(bool(v.get("degenerate_all_active")) for v in verdicts)
+    agree = sum(v["ok"] for v in verdicts)
+    print(f"{tag} oracle: {agree}/{len(verdicts)} instances pass the numpy KKT check "
+          f"({flagged} verdicts from the fully-active branch)")
+    return agree
 
 
 def phase_slice(kern) -> dict:
@@ -259,12 +476,9 @@ def phase_slice(kern) -> dict:
         raise AssertionError(f"slice: {n_cert}/{B} certified, max pix {pix_max:.3e} (need {B} at ≤ {CERT_PIX:.3e})")
     if not torch.equal(info2.converged, info.converged) or float((X2 - X).abs().max()) > SMALL_ATOL:
         raise AssertionError("slice: the warm run disagrees with the cold run")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"slice: kernel {name} was not launched on the config-2 path")
+    _check_launched("config 2", launches)
 
     # Independent first-principles KKT oracle on 128 sampled instances.
-    oracle = _load_oracle()
     fns = bp.instance_fns(theta)
     r = fns.residuals(X).cpu().numpy()
     J = fns.jac_res(X).cpu().numpy()
@@ -273,10 +487,9 @@ def phase_slice(kern) -> dict:
     b_rhs = bp.b.cpu().numpy()
     xl, xu = bp.xl.cpu().numpy(), bp.xu.cpu().numpy()
     sample = np.random.default_rng(0).choice(B, size=128, replace=False)
-    agree = sum(
-        oracle.kkt_check_point(Xh[i], r[i], J[i], None, None, A, b_rhs[i], xl, xu)["ok"] for i in sample
+    agree = _oracle_agreement(
+        "config 2", [(Xh[i], r[i], J[i], None, None, A, b_rhs[i], xl, xu) for i in sample]
     )
-    print(f"config 2 oracle: {agree}/128 sampled instances pass the numpy KKT check")
     if agree != 128:
         raise AssertionError(f"oracle agrees on {agree}/128")
 
@@ -339,9 +552,7 @@ def phase_config3(kern) -> dict:
     _check_certified("config 3 warm", X2, info2, B, n)
     if not torch.equal(info2.converged, info.converged) or float((X2 - X).abs().max()) > SMALL_ATOL:
         raise AssertionError("config 3: the warm run disagrees with the cold run")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"config 3: kernel {name} was not launched on the config-3 path")
+    _check_launched("config 3", launches)
 
     # Host certification (f32 factors on the card, f64 chord on the CPU).
     (Xh, _, info_h), host_cold = _walled(lambda: run("host"))
@@ -357,15 +568,13 @@ def phase_config3(kern) -> dict:
     print(f"config 3 split: warm bulk {bulk:.3f} s, certification device {warm - bulk:.3f} s, "
           f"host {host_warm - bulk:.3f} s")
 
-    oracle = _load_oracle()
     fns = bp.instance_fns(theta)
     r = fns.residuals(X).cpu().numpy()
     J = fns.jac_res(X)[0].cpu().numpy()   # shared by every instance (a stride-0 expand)
     Xn = X.cpu().numpy()
     A, b_rhs = bp.A.cpu().numpy(), bp.b.cpu().numpy()
     xl, xu = bp.xl.cpu().numpy(), bp.xu.cpu().numpy()
-    agree = sum(oracle.kkt_check_point(Xn[i], r[i], J, None, None, A, b_rhs, xl, xu)["ok"] for i in range(B))
-    print(f"config 3 oracle: {agree}/{B} instances pass the numpy KKT check")
+    agree = _oracle_agreement("config 3", [(Xn[i], r[i], J, None, None, A, b_rhs, xl, xu) for i in range(B)])
     if agree != B:
         raise AssertionError(f"config 3: oracle agrees on {agree}/{B}")
 
@@ -382,10 +591,11 @@ def phase_config3(kern) -> dict:
             "host_warm_s": host_warm, "bulk_s": bulk}
 
 
-def phase_profile() -> None:
+def phase_profile(kern) -> None:
     """Where the warm time of each path goes: bulk vs certification wall,
     and the device's busy share from torch.profiler (sum of kernel times
-    over the host wall of one warm run)."""
+    over the host wall of one warm run); and how many device kernels one
+    call of each fused kernel, and of the call site it replaces, launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from benlsip_tpu_torch.batch.refine import _cast_problem, _cast_tree, solve_mixed_precision
@@ -394,6 +604,25 @@ def phase_profile() -> None:
     from benlsip_tpu_torch.solver.options import SolverOptions
 
     dev = torch.device("cuda:0")
+
+    def device_kernels(fn) -> int:
+        fn()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _walled(fn)
+        return sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    rng = np.random.default_rng(1)
+    for B, m, n, shared in ((512, 1, 3, False), (64, 6, 192, True)):
+        A, fixed, r = _fused_case(rng, B, m, n, shared, dev)
+        L = kern.masked_aat_cholesky(A, fixed, 1e-3, mask_is_fixed=True)
+        counts = {
+            "masked_aat_cholesky": device_kernels(lambda: kern.masked_aat_cholesky(A, fixed, 0.0, mask_is_fixed=True)),
+            "old factor site": device_kernels(lambda: old_factor_site(kern, A, fixed)),
+            "project_tangent": device_kernels(lambda: kern.project_tangent(A, L, fixed, r)),
+            "old projection site": device_kernels(lambda: old_project_site(kern, A, L, fixed, r)),
+        }
+        print(f"profile call sites {B}x{m}x{n}{' shared A' if shared else ''}: device kernels per call {counts}")
+
     paths = {
         "config 2": (exp_fit_family(1024, d=32, seed=42, dtype=torch.float64, device=dev),
                      dict(max_outer_iter=40, max_inner_iter=120), 8, 512),
@@ -413,13 +642,15 @@ def phase_profile() -> None:
             walls[name] = _walled(fn)[1]
         print(f"profile {tag}: warm wall bulk {walls['bulk']:.3f} s, "
               f"certification {walls['pipeline'] - walls['bulk']:.3f} s, pipeline {walls['pipeline']:.3f} s")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall = _walled(lambda: solve_mixed_precision(bp, theta, X0, opts, chunk=chunk))[1]
-        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_us = sum(e.self_device_time_total for e in events)
-        n_launch = sum(e.count for e in events)
-        print(f"profile {tag}: traced wall {wall:.3f} s, device busy {dev_us / 1e6:.3f} s "
-              f"({100 * dev_us / 1e6 / wall:.1f}%), {n_launch} device kernels")
+        for _ in range(2):   # two traced runs: the counts should repeat
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                wall = _walled(lambda: solve_mixed_precision(bp, theta, X0, opts, chunk=chunk))[1]
+            events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+            dev_us = sum(e.self_device_time_total for e in events)
+            n_launch = sum(e.count for e in events)
+            print(f"profile {tag}: traced wall {wall:.3f} s, device busy {dev_us / 1e6:.3f} s "
+                  f"({100 * dev_us / 1e6 / wall:.1f}%), {n_launch} device kernels "
+                  f"(before the fused call sites: {DEVICE_KERNELS_BEFORE[tag]})")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
             print(f"profile {tag}: {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<7d} {e.key[:90]}")
 
@@ -434,23 +665,26 @@ def main() -> None:
     res = phase_slice(kern)
     res3 = phase_config3(kern)
     if "--profile" in sys.argv[1:]:
-        phase_profile()
+        phase_profile(kern)
+    src = "benlsip_tpu_torch/kernels/csrc/"
     sources = {
-        "batched_cholesky": ("benlsip_tpu_torch/kernels/csrc/cholesky.cu", "benlsip_tpu/kernels/batched_linalg.py:74"),
-        "batched_cho_solve": ("benlsip_tpu_torch/kernels/csrc/cho_solve.cu", "benlsip_tpu/kernels/batched_linalg.py:119"),
-        "batched_thin_qr": ("benlsip_tpu_torch/kernels/csrc/thin_qr.cu", "benlsip_tpu/kernels/batched_linalg.py:170"),
+        "batched_cholesky": (src + "cholesky.cu", "benlsip_tpu/kernels/batched_linalg.py:74"),
+        "batched_cho_solve": (src + "cho_solve.cu", "benlsip_tpu/kernels/batched_linalg.py:119"),
+        "batched_thin_qr": (src + "thin_qr.cu", "benlsip_tpu/kernels/batched_linalg.py:170"),
+        "masked_aat_cholesky": (src + "masked_aat_cholesky.cu", "benlsip_tpu/kernels/batched_linalg.py:74"),
+        "project_tangent": (src + "project_tangent.cu", "benlsip_tpu/kernels/batched_linalg.py:119"),
     }
-    kernels = [
-        {
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": res["launches"][name] + res3["launches"][name],
-            "launches_config2": res["launches"][name], "launches_config3": res3["launches"][name],
-            "max_abs_err": rec[name]["max_abs_err"],
-            "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
-            "ms_config3": rec[name]["ms_config3"], "plain_ms_config3": rec[name]["plain_ms_config3"],
-        }
-        for name, (src, rep) in sources.items()
-    ]
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        k = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
+        own2, own3 = res["launches"][name], res3["launches"][name]
+        if name == "batched_cholesky":
+            # Its body runs on both paths inside masked_aat_cholesky; its own
+            # wrapper is behind ops/cholesky.cholesky, which no path calls now.
+            k.update({"on_path_as": "masked_aat_cholesky", "own_launches": own2 + own3})
+            own2, own3 = res["launches"]["masked_aat_cholesky"], res3["launches"]["masked_aat_cholesky"]
+        k.update({"launches": own2 + own3, "launches_config2": own2, "launches_config3": own3, **rec[name]})
+        kernels.append(k)
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

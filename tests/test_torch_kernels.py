@@ -3,6 +3,10 @@ against the Pallas kernels they replace, run in interpret mode.
 
 Same cases as tests/test_kernels.py (B = 200/130/140, not lane-aligned),
 plus the empty batches, the NaN-on-non-SPD contract and the dispatch gate.
+The plain versions of the two fused kernels (`masked_aat_cholesky`,
+`project_tangent`) are held against the JAX package's call sites,
+`ops/cholesky.factor_masked_aat` and `ops/project.project_tangent` under
+jax.vmap, and their NaN patterns against the Pallas kernels.
 Inputs are float32 from a seeded numpy generator and go through both.
 Tolerance 1e-5 (relative, atol 1e-5): both sides run the same algorithm in
 the same order, so they differ only by float32 rounding of the reductions.
@@ -10,13 +14,19 @@ The kernels themselves compile and run only on the GPU; chip_smoke.py holds
 them against these plain versions there.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
 from benlsip_tpu.kernels import batched_linalg as jk
+from benlsip_tpu.ops import cholesky as jchol
+from benlsip_tpu.ops import constraints as jc
+from benlsip_tpu.ops import project as jpr
 from benlsip_tpu_torch.kernels import batched_linalg as tk
 from benlsip_tpu_torch.ops import cholesky as tchol
+from benlsip_tpu_torch.ops import constraints as tc
+from benlsip_tpu_torch.ops import project as tpr
 from benlsip_tpu_torch.ops import qr as tqr
 
 torch.set_num_threads(2)
@@ -146,5 +156,223 @@ def test_build_is_keyed_on_sources():
     # build itself needs nvcc and runs only on the GPU machine.
     p1, p2 = tk.library_path(), tk.library_path()
     assert p1 == p2 and p1.parent == tk.BUILD_DIR and p1.suffix == ".so"
-    assert {s.name for s in tk.CSRC.glob("*.cu")} == {"cholesky.cu", "cho_solve.cu", "thin_qr.cu"}
+    assert {s.name for s in tk.CSRC.glob("*.cu")} == {
+        "cholesky.cu", "cho_solve.cu", "thin_qr.cu", "masked_aat_cholesky.cu", "project_tangent.cu",
+    }
     assert "--use_fast_math" not in tk.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in tk.NVCC_FLAGS
+
+
+# ---------------------------------------------------------------------------
+# The fused call sites
+# ---------------------------------------------------------------------------
+
+FUSED_CASES = [(1, 3), (1, 192), (3, 37), (3, 192), (6, 37), (6, 192), (16, 37), (16, 192)]
+FUSED_B = 6
+
+
+def fused_inputs(m, n, shared):
+    """A (shared: one (m, n) matrix for the batch), a mask that keeps the
+    first min(n - 1, 4m) columns free (a well-conditioned A Z Aᵀ, so that
+    float32 summation order is all that differs), r, and two degenerate
+    lanes: the last is all fixed, the one before has a single free column
+    and entries of A in {±1, ±2} there, so that every product and sum is
+    exact in any order and the NaN pattern does not hang on rounding."""
+    B = FUSED_B
+    A = rng.standard_normal((B, m, n)).astype(np.float32)
+    if shared:
+        A = np.broadcast_to(rng.choice([-2.0, -1.0, 1.0, 2.0], (m, n)).astype(np.float32), (B, m, n))
+    else:
+        A[B - 2] = rng.choice([-2.0, -1.0, 1.0, 2.0], (m, n))
+    fixed = rng.random((B, n)) < 0.3
+    fixed[:, : min(n - 1, 4 * m)] = False
+    fixed[B - 2] = True
+    fixed[B - 2, 1] = False
+    fixed[B - 1] = True
+    r = rng.standard_normal((B, n)).astype(np.float32)
+    return A, fixed, r
+
+
+def torch_A(A, shared):
+    """The port's operand: a stride-0 expand of one matrix when shared."""
+    if shared:
+        return torch.from_numpy(np.array(A[0])).expand(A.shape)
+    return torch.from_numpy(A)
+
+
+def assert_same_nan_close(got, want, scale):
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("reg", [0.0, 1e-3])
+@pytest.mark.parametrize("shared", [False, True], ids=["per_instance", "shared"])
+@pytest.mark.parametrize("m,n", FUSED_CASES)
+def test_masked_aat_cholesky_plain_matches_jax(m, n, shared, reg):
+    # Tolerance: rtol 1e-5 with atol 1e-5·max|L| — float32, the Gram sums
+    # are taken in another order on the two sides.
+    A, fixed, _ = fused_inputs(m, n, shared)
+    free = ~fixed
+    At = torch_A(A, shared)
+    L_t = tk.masked_aat_cholesky(At, torch.from_numpy(free), reg).numpy()
+    L_fx = tk.masked_aat_cholesky(At, torch.from_numpy(fixed), reg, mask_is_fixed=True).numpy()
+    np.testing.assert_array_equal(L_t, L_fx)
+    assert L_t.shape == (FUSED_B, m, m) and np.all(np.triu(L_t, 1) == 0)
+
+    # The call site under vmap (XLA's Cholesky on the CPU) on the regular lanes.
+    a_axis = None if shared else 0
+    jA = jnp.asarray(A[0] if shared else A)
+    L_j = np.asarray(jax.vmap(lambda a, f: jchol.factor_masked_aat(a, f, reg), in_axes=(a_axis, 0))(jA, jnp.asarray(free)))
+    good = slice(0, FUSED_B - 2)
+    assert np.isfinite(L_t[good]).all()
+    np.testing.assert_allclose(L_t[good], L_j[good], rtol=1e-5, atol=1e-5 * np.abs(L_j[good]).max())
+
+    # Every lane, the degenerate ones too, against the Pallas kernel on the
+    # same masked product (M = 16 takes the interpreter ~20 s; left out).
+    if m <= 6:
+        K = jax.vmap(jchol.masked_aat, in_axes=(a_axis, 0))(jA, jnp.asarray(free))
+        K = K + jnp.float32(reg) * jnp.eye(m, dtype=jnp.float32)
+        L_pl = np.asarray(jk.batched_cholesky(K, interpret=True))
+        assert_same_nan_close(L_t, L_pl, np.abs(L_j[good]).max())
+    if reg == 0.0 and m >= 3:
+        # One free column under m equalities: the pivots after the first are
+        # exactly 0, and the factor is NaN from the second column on.
+        assert np.isnan(L_t[FUSED_B - 2, 2, 1]) and np.isnan(L_t[FUSED_B - 1, 1, 0])
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_instance", "shared"])
+@pytest.mark.parametrize("m,n", FUSED_CASES)
+def test_project_tangent_plain_matches_jax(m, n, shared):
+    # Both sides get the same factor L; tolerance rtol 1e-5 with atol
+    # 1e-5·max|r| (float32, dot products summed in another order).
+    A, fixed, r = fused_inputs(m, n, shared)
+    At = torch_A(A, shared)
+    L = tk.masked_aat_cholesky(At, torch.from_numpy(fixed), 0.0, mask_is_fixed=True)
+    P_t = tk.project_tangent(At, L, torch.from_numpy(fixed), torch.from_numpy(r)).numpy()
+
+    z = jnp.zeros((FUSED_B, n), jnp.float32)
+    poly = jc.Polyhedron(jnp.asarray(A[0] if shared else A), jnp.zeros((FUSED_B, m), jnp.float32), z, z)
+    axes = jc.Polyhedron(None if shared else 0, 0, 0, 0)
+    aset = jc.ActiveSet(jnp.asarray(fixed), jnp.asarray(L.numpy()))
+    P_j = np.asarray(jax.vmap(jpr.project_tangent, in_axes=(axes, jc.ActiveSet(0, 0), 0))(poly, aset, jnp.asarray(r)))
+    good = slice(0, FUSED_B - 2)
+    assert np.isfinite(P_t[good]).all()
+    np.testing.assert_allclose(P_t[good], P_j[good], rtol=1e-5, atol=1e-5 * np.abs(r).max())
+    assert np.all(P_t[fixed] == 0)
+    # The all-fixed lane projects to zero whatever its factor holds.
+    np.testing.assert_array_equal(P_t[FUSED_B - 1], np.zeros(n, np.float32))
+    if m >= 3:
+        # A NaN factor gives a NaN row on its free entries, as in JAX, and
+        # nothing else.
+        np.testing.assert_array_equal(np.isnan(P_t), np.isnan(P_j))
+        assert np.isnan(P_t[FUSED_B - 2, 1]) and not np.isnan(P_t[FUSED_B - 2, 0])
+
+    # The solve in the middle against the Pallas solve kernel, and the
+    # unmasked output sigma = r - Aᵀw against the same composition.
+    if m <= 6:
+        free = ~fixed
+        rz = np.where(free, r, 0).astype(np.float32)
+        t = np.einsum("bmn,bn->bm", A, rz).astype(np.float32)
+        ok = np.arange(FUSED_B - 2)
+        w = np.asarray(jk.batched_cho_solve(jnp.asarray(L.numpy()[ok]), jnp.asarray(t[ok]), interpret=True))
+        sigma = r[ok] - np.einsum("bmn,bm->bn", A[ok], w)
+        S_t = tk.project_tangent(At, L, torch.from_numpy(fixed), torch.from_numpy(r), unmasked_output=True).numpy()
+        scale = np.abs(r).max() + np.abs(sigma).max()
+        np.testing.assert_allclose(S_t[ok], sigma, rtol=1e-5, atol=1e-5 * scale)
+        np.testing.assert_allclose(P_t[ok], np.where(free[ok], sigma, 0), rtol=1e-5, atol=1e-5 * scale)
+
+
+def test_fused_dispatch_gate():
+    # CPU float32 -> the plain versions (no launch); float64, m > 16 and
+    # n > 2048 -> the composition on torch.linalg or the old kernels' plain
+    # versions; m = 0 -> no factor; a stride-0 A is accepted as it is.
+    tk.reset_launches()
+    A, fixed, r = fused_inputs(3, 37, shared=True)
+    A_sh = torch_A(A, shared=True)
+    fx, rt = torch.from_numpy(fixed)[:4], torch.from_numpy(r)[:4]
+    A_sh, A_pi = A_sh[:4], torch.from_numpy(A.copy())[:4]
+    assert A_sh.stride(0) == 0 and tk.has_row_major_blocks(A_sh)
+    assert tchol._row_major_blocks(A_sh) is A_sh           # no copy on the way to the kernel
+    assert not tk.has_row_major_blocks(A_pi.mT.contiguous().mT)
+
+    poly = tc.Polyhedron(A_sh, torch.zeros(4, 3), torch.zeros(4, 37), torch.zeros(4, 37))
+    aset = tc.make_active_set(poly, fx)
+    torch.testing.assert_close(aset.chol, tk.masked_aat_cholesky_plain(A_pi, fx, 0.0, True), rtol=0, atol=0)
+    torch.testing.assert_close(
+        tpr.project_tangent(poly, aset, rt), tk.project_tangent_plain(A_pi, aset.chol, fx, rt), rtol=0, atol=0
+    )
+    torch.testing.assert_close(tchol.factor_masked_aat(A_sh, ~fx), aset.chol, rtol=0, atol=0)
+
+    # float64: the library route, same numbers to float32 accuracy.
+    poly64 = tc.Polyhedron(*[f.double() for f in poly])
+    aset64 = tc.make_active_set(poly64, fx)
+    assert aset64.chol.dtype == torch.float64
+    np.testing.assert_allclose(aset64.chol.numpy(), aset.chol.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        tpr.project_tangent(poly64, aset64, rt.double()).numpy(), tpr.project_tangent(poly, aset, rt).numpy(),
+        rtol=1e-4, atol=1e-5,
+    )
+    # m = 20 > 16: torch.linalg in float32.
+    A20 = torch.from_numpy(rng.standard_normal((2, 20, 64)).astype(np.float32))
+    free20 = torch.ones((2, 64), dtype=torch.bool)
+    np.testing.assert_allclose(
+        tchol.factor_masked_aat(A20, free20).numpy(), np.linalg.cholesky((A20 @ A20.mT).numpy()), rtol=1e-4, atol=1e-4
+    )
+    # n > 2048: the composition with the old kernels inside.
+    assert not tchol._fused_eligible(torch.zeros((2, 3, tk.MAX_FUSED_N + 1)))
+    assert tchol._fused_eligible(torch.zeros((2, 3, tk.MAX_FUSED_N)))
+    assert not tchol._fused_eligible(torch.zeros((2, 3, 8), dtype=torch.float64))
+    assert not tchol._fused_eligible(torch.zeros((2, 17, 32)))
+    # m = 0: an empty factor, and the projection only masks.
+    poly0 = tc.Polyhedron(torch.zeros(4, 0, 37), torch.zeros(4, 0), poly.xl, poly.xu)
+    aset0 = tc.make_active_set(poly0, fx)
+    assert aset0.chol.shape == (4, 0, 0)
+    torch.testing.assert_close(tpr.project_tangent(poly0, aset0, rt), torch.where(fx, 0.0, rt), rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        tk.project_tangent(torch.zeros(4, 0, 37), torch.zeros(4, 0, 0), fx, rt)
+    # Empty batch and refused operands.
+    assert tk.masked_aat_cholesky(torch.zeros(0, 3, 5), torch.zeros(0, 5, dtype=torch.bool)).shape == (0, 3, 3)
+    assert tk.project_tangent(
+        torch.zeros(0, 3, 5), torch.zeros(0, 3, 3), torch.zeros(0, 5, dtype=torch.bool), torch.zeros(0, 5)
+    ).shape == (0, 5)
+    with pytest.raises(ValueError):
+        tk.masked_aat_cholesky(A_pi, fx[:, :5])
+    with pytest.raises(ValueError):
+        tk.masked_aat_cholesky(A_pi.to("meta"), fx.to("meta"))
+    assert sum(tk.LAUNCHES.values()) == 0 and set(tk.LAUNCHES) == {
+        "batched_cholesky", "batched_cho_solve", "batched_thin_qr", "masked_aat_cholesky", "project_tangent",
+    }
+
+
+def test_coupled_binding_uses_one_factor_and_one_projection(monkeypatch):
+    # `binding_bounds_coupled` goes through the two fused wrappers once per
+    # pass (one launch each on the card) and gives the JAX answer.
+    calls = {"factor": 0, "project": 0}
+    real_f, real_p = tk.masked_aat_cholesky, tk.project_tangent
+
+    def count_f(*a, **k):
+        calls["factor"] += 1
+        return real_f(*a, **k)
+
+    def count_p(*a, **k):
+        calls["project"] += 1
+        return real_p(*a, **k)
+
+    monkeypatch.setattr(tk, "masked_aat_cholesky", count_f)
+    monkeypatch.setattr(tk, "project_tangent", count_p)
+    B, m, n = 8, 2, 7
+    A = rng.standard_normal((B, m, n)).astype(np.float32)
+    x = rng.standard_normal((B, n)).astype(np.float32)
+    xl, xu = x - 0.5, x + 0.5
+    on = rng.random((B, n)) < 0.4
+    on[:, : m + 1] = False
+    x = np.where(on, xl, x).astype(np.float32)
+    g = rng.standard_normal((B, n)).astype(np.float32)
+    b = np.einsum("bmn,bn->bm", A, x).astype(np.float32)
+    tp = tc.Polyhedron(*[torch.from_numpy(v) for v in (A, b, xl, xu)])
+    fixed_t = tc.binding_bounds_coupled(tp, torch.from_numpy(x), torch.from_numpy(g), 1e-6, passes=2)
+    assert calls == {"factor": 2, "project": 2}
+    jp = jc.Polyhedron(*[jnp.asarray(v) for v in (A, b, xl, xu)])
+    fixed_j = jax.vmap(lambda p, xx, gg: jc.binding_bounds_coupled(p, xx, gg, 1e-6, passes=2),
+                       in_axes=(jc.Polyhedron(0, 0, 0, 0), 0, 0))(jp, jnp.asarray(x), jnp.asarray(g))
+    np.testing.assert_array_equal(fixed_t.numpy(), np.asarray(fixed_j))

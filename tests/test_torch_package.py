@@ -1,10 +1,12 @@
-"""Package hygiene of the PyTorch port: it never imports jax, its options
+"""Package hygiene of the PyTorch port: it never imports jax (and
+chip_smoke.py loads nothing of the JAX package), its options
 table matches the JAX package's field by field, knobs whose route is not
 ported raise instead of silently running another path (and the ported
-operator knobs are accepted), and the interop
-helpers carry data across."""
+operator knobs are accepted), its own copy of the KKT oracle gives the JAX
+package's verdicts, and the interop helpers carry data across."""
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -14,6 +16,8 @@ import pytest
 import torch
 
 import benlsip_tpu
+from benlsip_tpu.baselines import kkt_oracle as j_oracle
+from benlsip_tpu_torch.baselines import kkt_oracle as t_oracle
 from benlsip_tpu_torch.batch.refine import solve_mixed_precision
 from benlsip_tpu_torch.interop import info_to_numpy, problem_from_numpy, theta_from_numpy
 from benlsip_tpu_torch.problems.generators import exp_fit_family, _exp_fit_residuals
@@ -24,6 +28,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_MODULES = [
     "benlsip_tpu_torch",
     "benlsip_tpu_torch.interop",
+    "benlsip_tpu_torch.baselines.kkt_oracle",
     "benlsip_tpu_torch.kernels.batched_linalg",
     "benlsip_tpu_torch.ops.al",
     "benlsip_tpu_torch.ops.cholesky",
@@ -58,6 +63,65 @@ def test_port_never_imports_jax():
     env["PYTHONPATH"] = str(ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0 and "clean" in out.stdout, out.stderr
+
+
+def test_chip_smoke_names_no_file_of_the_jax_package():
+    # The only mentions of `benlsip_tpu/` in chip_smoke.py are the
+    # file:line strings of the TPU kernels its records say they replace;
+    # it imports by name and loads nothing by path.
+    src = (ROOT / "chip_smoke.py").read_text()
+    mentions = re.findall(r"benlsip_tpu/[\w/.:-]*", src)
+    assert mentions and all(re.fullmatch(r"benlsip_tpu/kernels/batched_linalg\.py:\d+", m) for m in mentions), mentions
+    assert "importlib" not in src and "spec_from_file_location" not in src
+    imported = re.findall(r"^\s*(?:from|import)\s+([\w.]+)", src, flags=re.M)
+    assert not [m for m in imported if m.split(".")[0] in ("jax", "jaxlib", "benlsip_tpu")]
+    assert "benlsip_tpu_torch.baselines.kkt_oracle" in imported
+
+
+def _oracle_point(seed, kind):
+    """A small bound- and equality-constrained linear least-squares point:
+    `kind` picks a KKT point, a perturbed one, an infeasible one, or the
+    fully-active box."""
+    rng = np.random.default_rng(seed)
+    n, d, m = 5, 9, 2
+    J = rng.standard_normal((d, n))
+    A = rng.standard_normal((m, n))
+    x = rng.standard_normal(n)
+    xl, xu = x - 1.0, x + 1.0
+    on_lo = np.zeros(n, bool)
+    on_lo[0] = True
+    if kind == "all_active":
+        xl, xu = x.copy(), x + 1.0
+        on_lo[:] = True
+    else:
+        xl[0] = x[0]
+    b = A @ x
+    # Choose y so that x is stationary: Jᵀ(Jx − y) + Aᵀν − σ_lo = 0 with σ_lo ≥ 0.
+    nu = rng.standard_normal(m)
+    sigma = np.where(on_lo, rng.uniform(0.5, 1.0, n), 0.0)
+    g = sigma - A.T @ nu
+    r0 = np.linalg.lstsq(J.T, g, rcond=None)[0]      # Jᵀ r0 = g (d > n)
+    y = J @ x - r0
+    if kind == "perturbed":
+        x = x + np.where(on_lo, 0.0, 1e-3)
+        b = A @ x
+    if kind == "infeasible":
+        b = b + 1e-3
+    if kind == "wrong_sign":
+        xu[0], xl[0] = x[0], x[0] - 1.0               # the active bound is now the upper one
+    return x, J @ x - y, J, None, None, A, b, xl, xu
+
+
+@pytest.mark.parametrize("kind,ok", [
+    ("kkt", True), ("perturbed", False), ("infeasible", False), ("wrong_sign", False), ("all_active", True),
+])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_port_oracle_matches_jax_package_oracle(seed, kind, ok):
+    args = _oracle_point(seed, kind)
+    want = j_oracle.kkt_check_point(*args)
+    got = t_oracle.kkt_check_point(*args)
+    assert got == want and got["ok"] is ok
+    assert got.get("degenerate_all_active", False) == (kind == "all_active")
 
 
 def test_options_match_jax_field_by_field():
