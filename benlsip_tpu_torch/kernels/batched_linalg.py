@@ -46,7 +46,6 @@ Tensor = torch.Tensor
 
 MAX_DIM = 16        # largest M (Cholesky, solve) and N (QR) the kernels take
 MAX_QR_ROWS = 2048  # largest D the QR kernel takes (the JAX gate's bound)
-MAX_FUSED_N = MAX_QR_ROWS  # largest n the fused kernels take
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -104,8 +103,8 @@ _SIGNATURES = {
     "benlsip_cholesky": [_PTR, _PTR, _INT, _INT, _PTR],
     "benlsip_cho_solve": [_PTR] * 3 + [_INT, _INT, _PTR],
     "benlsip_thin_qr": [_PTR] * 3 + [_INT] * 3 + [_PTR],
-    # A, its batch stride, mask, mask_is_fixed, reg, L, B, M, n, stream
-    "benlsip_masked_aat_cholesky": [_PTR, ctypes.c_longlong, _PTR, _INT, ctypes.c_double, _PTR] + [_INT] * 3 + [_PTR],
+    # A, its batch stride, fixed, reg, L, B, M, n, stream
+    "benlsip_masked_aat_cholesky": [_PTR, ctypes.c_longlong, _PTR, ctypes.c_double, _PTR] + [_INT] * 3 + [_PTR],
     # A, its batch stride, L, fixed, r, out, B, M, n, unmasked_output, stream
     "benlsip_project_tangent": [_PTR, ctypes.c_longlong] + [_PTR] * 4 + [_INT] * 4 + [_PTR],
 }
@@ -355,8 +354,8 @@ def _fused_args(name: str, A: Tensor, mask: Tensor, *rest: Tensor) -> int:
         raise ValueError(f"{name}: the mask must be a contiguous bool tensor on {A.device}")
     if not has_row_major_blocks(A):
         raise ValueError(f"{name}: A needs row-major (m, n) blocks, got strides {A.stride()}")
-    if not (0 < M <= MAX_DIM and 0 < n <= MAX_FUSED_N):
-        raise ValueError(f"{name}: need 0 < m <= {MAX_DIM} and 0 < n <= {MAX_FUSED_N}, got m={M}, n={n}")
+    if not (0 < M <= MAX_DIM and n > 0):
+        raise ValueError(f"{name}: need 0 < m <= {MAX_DIM} and n > 0, got m={M}, n={n}")
     return A.stride(0) if B > 1 else 0
 
 
@@ -366,31 +365,31 @@ def masked_aat(A: Tensor, free: Tensor) -> Tensor:
     return Af @ A.mT
 
 
-def masked_aat_cholesky_plain(A: Tensor, mask: Tensor, reg: float = 0.0, mask_is_fixed: bool = False) -> Tensor:
+def masked_aat_cholesky_plain(A: Tensor, fixed: Tensor, reg: float = 0.0) -> Tensor:
     """Plain PyTorch twin of the fused factor kernel: the masked product,
     the jitter, then the plain Cholesky."""
-    K = masked_aat(A, ~mask if mask_is_fixed else mask)
+    K = masked_aat(A, ~fixed)
     if reg:
         K = K + reg * torch.eye(A.shape[-2], dtype=A.dtype, device=A.device)
     return batched_cholesky_plain(K)
 
 
-def masked_aat_cholesky(A: Tensor, mask: Tensor, reg: float = 0.0, mask_is_fixed: bool = False) -> Tensor:
-    """Lower factor of A Z Aᵀ + reg·I for a batch: A (B, m, n), bool mask
-    (B, n) of the free columns (of the fixed ones with `mask_is_fixed`)
-    -> L (B, m, m).  A may share one matrix across the batch (stride 0)."""
-    if A.ndim != 3 or mask.shape != A.shape[::2]:
-        raise ValueError(f"masked_aat_cholesky: expected (B, m, n) and (B, n), got {tuple(A.shape)}, {tuple(mask.shape)}")
+def masked_aat_cholesky(A: Tensor, fixed: Tensor, reg: float = 0.0) -> Tensor:
+    """Lower factor of A Z Aᵀ + reg·I, Z = diag(¬fixed), for a batch:
+    A (B, m, n), bool fixed (B, n) -> L (B, m, m).  A may share one matrix
+    across the batch (stride 0)."""
+    if A.ndim != 3 or fixed.shape != A.shape[::2]:
+        raise ValueError(f"masked_aat_cholesky: expected (B, m, n) and (B, n), got {tuple(A.shape)}, {tuple(fixed.shape)}")
     B, M, _ = A.shape
     if B == 0 or M == 0:
         return torch.zeros((B, M, M), dtype=A.dtype, device=A.device)
     if _on_cpu(A):
-        return masked_aat_cholesky_plain(A, mask, reg, mask_is_fixed)
-    stride = _fused_args("masked_aat_cholesky", A, mask)
+        return masked_aat_cholesky_plain(A, fixed, reg)
+    stride = _fused_args("masked_aat_cholesky", A, fixed)
     L = torch.empty((B, M, M), dtype=A.dtype, device=A.device)
     _launch(
         "masked_aat_cholesky", "benlsip_masked_aat_cholesky", A,
-        A.data_ptr(), stride, mask.data_ptr(), int(mask_is_fixed), float(reg), L.data_ptr(), B, M, A.shape[2],
+        A.data_ptr(), stride, fixed.data_ptr(), float(reg), L.data_ptr(), B, M, A.shape[2],
     )
     return L
 

@@ -1,9 +1,9 @@
 // Fused masked Gram matrix and Cholesky factor, one launch per call site:
 //
-//   L = chol(A Z A^T + reg I),   Z = diag(free)
+//   L = chol(A Z A^T + reg I),   Z = diag(not fixed)
 //
-// for A (B, m, n) and a bool mask (B, n) that marks either the free or the
-// fixed columns; L (B, m, m) is lower with zeros above the diagonal.
+// for A (B, m, n) and a bool mask (B, n) of the fixed columns, as the
+// active set keeps it; L (B, m, m) is lower with zeros above the diagonal.
 //
 // Redesign for the H100 of the Pallas TPU kernel `batched_cholesky` /
 // `_cholesky_kernel` (benlsip_tpu/kernels/batched_linalg.py:44,74).  On the
@@ -44,13 +44,13 @@ using benlsip::warp_sum;
 template <typename T, int M>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 masked_aat_cholesky_kernel(const T* __restrict__ A, long long strideA,
-                           const unsigned char* __restrict__ mask, int mask_is_fixed, T reg,
+                           const unsigned char* __restrict__ fixed, T reg,
                            T* __restrict__ L, int B, int n) {
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (b >= B) return;  // uniform across the warp
   const T* a = A + static_cast<size_t>(b) * strideA;
-  const unsigned char* mk = mask + static_cast<size_t>(b) * n;
+  const unsigned char* fx = fixed + static_cast<size_t>(b) * n;
   T* l = L + static_cast<size_t>(b) * M * M;
 
   // Lower triangle of A Z A^T, packed: c[tri(i, k)] = sum_j free_j a_ij a_kj.
@@ -58,7 +58,7 @@ masked_aat_cholesky_kernel(const T* __restrict__ A, long long strideA,
 #pragma unroll
   for (int e = 0; e < M * (M + 1) / 2; ++e) c[e] = T(0);
   for (int j = lane; j < n; j += 32) {
-    if ((mk[j] != 0) == (mask_is_fixed != 0)) continue;  // column j is fixed
+    if (fx[j]) continue;
     T col[M];
 #pragma unroll
     for (int i = 0; i < M; ++i) col[i] = a[static_cast<size_t>(i) * n + j];
@@ -105,8 +105,8 @@ masked_aat_cholesky_kernel(const T* __restrict__ A, long long strideA,
 }
 
 template <typename T>
-int launch(const T* A, long long strideA, const unsigned char* mask, int mask_is_fixed, double reg,
-           T* L, int B, int M, int n, void* stream) {
+int launch(const T* A, long long strideA, const unsigned char* fixed, double reg, T* L, int B, int M,
+           int n, void* stream) {
   if (B <= 0 || M < 1 || M > benlsip::kMaxDim || n < 1 || strideA < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -116,7 +116,7 @@ int launch(const T* A, long long strideA, const unsigned char* mask, int mask_is
 #define BENLSIP_CASE(MM)                                                        \
   case MM:                                                                      \
     masked_aat_cholesky_kernel<T, MM><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(   \
-        A, strideA, mask, mask_is_fixed, static_cast<T>(reg), L, B, n);         \
+        A, strideA, fixed, static_cast<T>(reg), L, B, n);                       \
     break;
     BENLSIP_CASE(1) BENLSIP_CASE(2) BENLSIP_CASE(3) BENLSIP_CASE(4)
     BENLSIP_CASE(5) BENLSIP_CASE(6) BENLSIP_CASE(7) BENLSIP_CASE(8)
@@ -129,17 +129,14 @@ int launch(const T* A, long long strideA, const unsigned char* mask, int mask_is
 
 }  // namespace
 
-// mask_is_fixed = 0: the mask marks the free columns; != 0: the fixed ones.
 BENLSIP_API int benlsip_masked_aat_cholesky_f32(const float* A, long long strideA,
-                                                const unsigned char* mask, int mask_is_fixed,
-                                                double reg, float* L, int B, int M, int n,
-                                                void* stream) {
-  return launch<float>(A, strideA, mask, mask_is_fixed, reg, L, B, M, n, stream);
+                                                const unsigned char* fixed, double reg, float* L,
+                                                int B, int M, int n, void* stream) {
+  return launch<float>(A, strideA, fixed, reg, L, B, M, n, stream);
 }
 
 BENLSIP_API int benlsip_masked_aat_cholesky_f64(const double* A, long long strideA,
-                                                const unsigned char* mask, int mask_is_fixed,
-                                                double reg, double* L, int B, int M, int n,
-                                                void* stream) {
-  return launch<double>(A, strideA, mask, mask_is_fixed, reg, L, B, M, n, stream);
+                                                const unsigned char* fixed, double reg, double* L,
+                                                int B, int M, int n, void* stream) {
+  return launch<double>(A, strideA, fixed, reg, L, B, M, n, stream);
 }

@@ -14,8 +14,8 @@ Eager PyTorch fuses nothing around a kernel, so the two call sites of the
 active-set machinery are kernels as a whole: `factor_masked_aat` /
 `factor_unfixed_aat` (mask, A Z Aᵀ, jitter, Cholesky) and
 `masked_projection` (mask, A Z r, solve, Aᵀw, mask, subtract) each take
-one launch for an eligible batch with n ≤ 2048, and read a batch-shared A
-(a stride-0 expand) in place.
+one launch for an eligible batch, and read a batch-shared A (a stride-0
+expand) in place.
 """
 from __future__ import annotations
 
@@ -63,7 +63,7 @@ masked_aat = kern.masked_aat
 
 def _fused_eligible(A: Tensor) -> bool:
     """Whether the call sites on A (B, m, n) go to the fused kernels."""
-    return A.ndim == 3 and _kernel_eligible(A.shape[-2], A.dtype) and 0 < A.shape[-1] <= kern.MAX_FUSED_N
+    return A.ndim == 3 and _kernel_eligible(A.shape[-2], A.dtype) and A.shape[-1] > 0
 
 
 def _row_major_blocks(A: Tensor) -> Tensor:
@@ -71,26 +71,24 @@ def _row_major_blocks(A: Tensor) -> Tensor:
     return A if kern.has_row_major_blocks(A) else A.contiguous()
 
 
-def _factor(A: Tensor, mask: Tensor, reg: float, mask_is_fixed: bool) -> Tensor:
+def factor_unfixed_aat(A: Tensor, fixed: Tensor, reg: float = 0.0) -> Tensor:
+    """Lower Cholesky factor of A Z Aᵀ (+ reg·I), Z = diag(¬fixed), batched:
+    the active set's own mask, so no launch is spent on a negation."""
     B, m, _ = A.shape
     if m == 0:
         return torch.zeros((B, 0, 0), dtype=A.dtype, device=A.device)
     if _fused_eligible(A):
-        return kern.masked_aat_cholesky(_row_major_blocks(A), mask.contiguous(), reg, mask_is_fixed)
-    K = masked_aat(A, ~mask if mask_is_fixed else mask)
+        return kern.masked_aat_cholesky(_row_major_blocks(A), fixed.contiguous(), reg)
+    K = masked_aat(A, ~fixed)
     if reg:
         K = K + reg * torch.eye(m, dtype=A.dtype, device=A.device)
     return cholesky(K)
 
 
 def factor_masked_aat(A: Tensor, free: Tensor, reg: float = 0.0) -> Tensor:
-    """Lower Cholesky factor of A Z Aᵀ (+ reg·I), Z = diag(free), batched."""
-    return _factor(A, free, reg, mask_is_fixed=False)
-
-
-def factor_unfixed_aat(A: Tensor, fixed: Tensor, reg: float = 0.0) -> Tensor:
-    """`factor_masked_aat(A, ~fixed, reg)` without the launch for the negation."""
-    return _factor(A, fixed, reg, mask_is_fixed=True)
+    """Lower Cholesky factor of A Z Aᵀ (+ reg·I), Z = diag(free), batched
+    (the JAX package's signature)."""
+    return factor_unfixed_aat(A, ~free, reg)
 
 
 def cho_solve_lower(L: Tensor, b: Tensor) -> Tensor:

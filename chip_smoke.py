@@ -113,6 +113,11 @@ def _bound(n_bytes: float, flops: float) -> dict:
             "bytes": int(n_bytes), "flops": int(flops)}
 
 
+def _qr_bound(B: int, D: int, N: int) -> dict:
+    """Thin QR of (B, D, N): A read, Q and R written; 2·D·N² operations."""
+    return _bound(B * (2 * D * N + N * N) * 4, 2 * B * D * N * N)
+
+
 def _check_same_nan(name: str, got: torch.Tensor, want: torch.Tensor, atol: float) -> float:
     """NaN patterns equal exactly; the rest close."""
     if got.shape != want.shape:
@@ -173,18 +178,24 @@ def phase_build(kern) -> float:
     log = lib_path.with_suffix(".log")
     if log.exists():
         # ptxas report: the most registers of any instantiation of each
-        # kernel, and every instantiation that spills.
-        regs, entry = {}, "?"
+        # kernel, those of the float32 instantiations the two paths run
+        # (M = 1 and M = 6), and every instantiation that spills.
+        regs, on_path, entry = {}, {}, "?"
         for line in log.read_text().splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
             elif "Used" in line and "registers" in line:
                 family = next((k for k in ("masked_aat_cholesky", "project_tangent", "cholesky", "cho_solve", "mgs_qr")
                                if k in entry), entry)
-                regs[family] = max(regs.get(family, 0), int(line.split("Used")[1].split("registers")[0]))
+                used = int(line.split("Used")[1].split("registers")[0])
+                regs[family] = max(regs.get(family, 0), used)
+                for M in (1, 6):
+                    if f"IfLi{M}E" in entry:
+                        on_path[f"{family} M={M}"] = max(on_path.get(f"{family} M={M}", 0), used)
             elif "spill" in line and ("0 bytes spill stores" not in line or "0 bytes spill loads" not in line):
                 print(f"ptxas: {entry}: {line.strip()}")
         print(f"ptxas: most registers per thread by kernel: {regs}")
+        print(f"ptxas: registers per thread of the float32 instantiations on the paths: {on_path}")
     return dt
 
 
@@ -290,6 +301,7 @@ def _check_fused(kern, rng, worst) -> None:
     dev = torch.device("cuda:0")
     cases = [(512, 1, 3, False), (64, 6, 192, True), (64, 6, 192, False)]
     cases += [(130, m, n, shared) for m in (2, 3, 5, 8, 16) for n, shared in ((37, False), (200, True))]
+    cases += [(130, 3, 5000, False)]   # n has no cap: the lanes stride over it
     for B, m, n, shared in cases:
         A, fixed, r = _fused_case(rng, B, m, n, shared, dev)
         if shared and A.stride(0) != 0:
@@ -297,18 +309,15 @@ def _check_fused(kern, rng, worst) -> None:
         tag = f"{B}x{m}x{n}{' shared' if shared else ''}"
         row = float(torch.linalg.vector_norm(A, dim=-1).max())
         for reg in (0.0, 1e-3):
-            L = kern.masked_aat_cholesky(A, fixed, reg, mask_is_fixed=True)
-            Lp = kern.masked_aat_cholesky_plain(A, fixed, reg, mask_is_fixed=True)
+            L = kern.masked_aat_cholesky(A, fixed, reg)
+            Lp = kern.masked_aat_cholesky_plain(A, fixed, reg)
             atol = KERNEL_ATOL * math.sqrt(n) * row
             worst("masked_aat_cholesky", _check_same_nan(f"masked_aat_cholesky {tag} reg={reg}", L, Lp, atol))
             _check_same_nan(f"masked_aat_cholesky {tag} vs its old call site", L, old_factor_site(kern, A, fixed, reg), atol)
-            L_free = kern.masked_aat_cholesky(A, ~fixed, reg)
-            if not (torch.equal(torch.isnan(L), torch.isnan(L_free)) and torch.equal(L.nan_to_num(), L_free.nan_to_num())):
-                raise AssertionError(f"masked_aat_cholesky {tag}: the free-mask and fixed-mask entries disagree")
             if torch.triu(L, 1).abs().max() != 0:
                 raise AssertionError(f"masked_aat_cholesky {tag}: entries above the diagonal must be zero")
         # reg = 0 from here on: the last two lanes are degenerate.
-        L = kern.masked_aat_cholesky(A, fixed, 0.0, mask_is_fixed=True)
+        L = kern.masked_aat_cholesky(A, fixed)
         if m >= 3 and not (torch.isnan(L[B - 2, 2, 1]) and torch.isnan(L[B - 1, 1, 0]) and torch.isfinite(L[: B - 2]).all()):
             raise AssertionError(f"masked_aat_cholesky {tag}: NaN must stay in the degenerate lanes")
         atol = KERNEL_ATOL * math.sqrt(n) * float(r.abs().max())
@@ -334,7 +343,7 @@ def _check_fused(kern, rng, worst) -> None:
     if shapes != ((0, 3, 3), (0, 5)) or kern.LAUNCHES != before:
         raise AssertionError(f"fused kernels, empty batch: shapes {shapes}, launches {kern.LAUNCHES} vs {before}")
     A, fixed, r = _fused_case(rng, 8, 3, 10, False, dev)
-    L = kern.masked_aat_cholesky(A, fixed, 0.0, mask_is_fixed=True)
+    L = kern.masked_aat_cholesky(A, fixed)
     refused = (
         lambda: kern.project_tangent(A, L, fixed, torch.stack([r, r], dim=-1)[..., 0]),
         lambda: kern.project_tangent(A.mT.contiguous().mT, L, fixed, r),
@@ -366,13 +375,12 @@ def _time_kernels(kern, rng, rec) -> None:
         fixed[B - 2:] = fixed[0]     # no degenerate lanes in the timed batch
         if shared:                    # a generic shared matrix, as the path has
             A = torch.as_tensor(rng.standard_normal((m, n)), dtype=f32, device=dev).expand(B, m, n)
-        L = kern.masked_aat_cholesky(A, fixed, 0.0, mask_is_fixed=True)
+        L = kern.masked_aat_cholesky(A, fixed)
         K = (L @ L.mT).contiguous()
         b = torch.as_tensor(rng.standard_normal((B, m)), dtype=f32, device=dev)
         S = torch.as_tensor(rng.standard_normal(qr_shape), dtype=f32, device=dev)
         n_free = int((~fixed).sum())
         a_bytes = (1 if shared else B) * m * n * 4
-        Bq, D, N = qr_shape
         paths[suffix] = {
             "batched_cholesky": dict(
                 shape=f"{B}x{m}x{m}", kernel=lambda K=K: kern.batched_cholesky(K),
@@ -386,11 +394,11 @@ def _time_kernels(kern, rng, rec) -> None:
             "batched_thin_qr": dict(
                 shape="x".join(map(str, qr_shape)), kernel=lambda S=S: kern.batched_thin_qr(S),
                 plain=lambda S=S: kern.batched_thin_qr_plain(S), library=lambda S=S: torch.linalg.qr(S, mode="reduced"),
-                bound=_bound(Bq * (2 * D * N + N * N) * 4, 2 * Bq * D * N * N)),
+                bound=_qr_bound(*qr_shape)),
             "masked_aat_cholesky": dict(
                 shape=f"{B}x{m}x{n}{' shared A' if shared else ''}",
-                kernel=lambda A=A, fixed=fixed: kern.masked_aat_cholesky(A, fixed, 0.0, mask_is_fixed=True),
-                plain=lambda A=A, fixed=fixed: kern.masked_aat_cholesky_plain(A, fixed, 0.0, mask_is_fixed=True),
+                kernel=lambda A=A, fixed=fixed: kern.masked_aat_cholesky(A, fixed),
+                plain=lambda A=A, fixed=fixed: kern.masked_aat_cholesky_plain(A, fixed),
                 old_site=lambda A=A, fixed=fixed: old_factor_site(kern, A, fixed),
                 bound=_bound(a_bytes + B * n + B * m * m * 4, m * (m + 1) * n_free + B * m ** 3 / 3)),
             "project_tangent": dict(
@@ -418,7 +426,11 @@ def _time_kernels(kern, rng, rec) -> None:
     W = torch.as_tensor(rng.standard_normal((1024, 3, 1)), dtype=f32, device=dev)
     t = _in_turns({"plain": lambda: kern.batched_thin_qr_plain(W), "kernel": lambda: kern.batched_thin_qr(W),
                    "library": lambda: torch.linalg.qr(W, mode="reduced")})
-    print(f"batched_thin_qr 1024x3x1: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, library {t['library']:.4f} ms")
+    bound = _qr_bound(*W.shape)
+    rec["batched_thin_qr"].update({"ms_1024x3x1": t["kernel"], "plain_ms_1024x3x1": t["plain"],
+                                   "library_ms_1024x3x1": t["library"], "bound_us_1024x3x1": bound["bound_us"]})
+    print(f"batched_thin_qr 1024x3x1: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, library {t['library']:.4f} ms, "
+          f"bound {bound['bound_us']:.4f} us ({bound['bound_by']}: {bound['bytes']} B, {bound['flops']} flop)")
 
 
 def _check_launched(tag: str, launches: dict) -> None:
@@ -614,9 +626,9 @@ def phase_profile(kern) -> None:
     rng = np.random.default_rng(1)
     for B, m, n, shared in ((512, 1, 3, False), (64, 6, 192, True)):
         A, fixed, r = _fused_case(rng, B, m, n, shared, dev)
-        L = kern.masked_aat_cholesky(A, fixed, 1e-3, mask_is_fixed=True)
+        L = kern.masked_aat_cholesky(A, fixed, 1e-3)
         counts = {
-            "masked_aat_cholesky": device_kernels(lambda: kern.masked_aat_cholesky(A, fixed, 0.0, mask_is_fixed=True)),
+            "masked_aat_cholesky": device_kernels(lambda: kern.masked_aat_cholesky(A, fixed)),
             "old factor site": device_kernels(lambda: old_factor_site(kern, A, fixed)),
             "project_tangent": device_kernels(lambda: kern.project_tangent(A, L, fixed, r)),
             "old projection site": device_kernels(lambda: old_project_site(kern, A, L, fixed, r)),
@@ -679,10 +691,10 @@ def main() -> None:
         k = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
         own2, own3 = res["launches"][name], res3["launches"][name]
         if name == "batched_cholesky":
-            # Its body runs on both paths inside masked_aat_cholesky; its own
-            # wrapper is behind ops/cholesky.cholesky, which no path calls now.
-            k.update({"on_path_as": "masked_aat_cholesky", "own_launches": own2 + own3})
-            own2, own3 = res["launches"]["masked_aat_cholesky"], res3["launches"]["masked_aat_cholesky"]
+            # Its body runs on both paths inside masked_aat_cholesky, whose
+            # record holds those launches; its own wrapper is behind
+            # ops/cholesky.cholesky, which no path calls now.
+            k["on_path_as"] = "masked_aat_cholesky"
         k.update({"launches": own2 + own3, "launches_config2": own2, "launches_config3": own3, **rec[name]})
         kernels.append(k)
     print(f"card: {smi}")

@@ -214,9 +214,9 @@ def test_masked_aat_cholesky_plain_matches_jax(m, n, shared, reg):
     A, fixed, _ = fused_inputs(m, n, shared)
     free = ~fixed
     At = torch_A(A, shared)
-    L_t = tk.masked_aat_cholesky(At, torch.from_numpy(free), reg).numpy()
-    L_fx = tk.masked_aat_cholesky(At, torch.from_numpy(fixed), reg, mask_is_fixed=True).numpy()
-    np.testing.assert_array_equal(L_t, L_fx)
+    L_t = tk.masked_aat_cholesky(At, torch.from_numpy(fixed), reg).numpy()
+    # The op with the JAX package's signature (the free mask) is the same factor.
+    np.testing.assert_array_equal(L_t, tchol.factor_masked_aat(At, torch.from_numpy(free), reg).numpy())
     assert L_t.shape == (FUSED_B, m, m) and np.all(np.triu(L_t, 1) == 0)
 
     # The call site under vmap (XLA's Cholesky on the CPU) on the regular lanes.
@@ -247,7 +247,7 @@ def test_project_tangent_plain_matches_jax(m, n, shared):
     # 1e-5·max|r| (float32, dot products summed in another order).
     A, fixed, r = fused_inputs(m, n, shared)
     At = torch_A(A, shared)
-    L = tk.masked_aat_cholesky(At, torch.from_numpy(fixed), 0.0, mask_is_fixed=True)
+    L = tk.masked_aat_cholesky(At, torch.from_numpy(fixed))
     P_t = tk.project_tangent(At, L, torch.from_numpy(fixed), torch.from_numpy(r)).numpy()
 
     z = jnp.zeros((FUSED_B, n), jnp.float32)
@@ -283,9 +283,9 @@ def test_project_tangent_plain_matches_jax(m, n, shared):
 
 
 def test_fused_dispatch_gate():
-    # CPU float32 -> the plain versions (no launch); float64, m > 16 and
-    # n > 2048 -> the composition on torch.linalg or the old kernels' plain
-    # versions; m = 0 -> no factor; a stride-0 A is accepted as it is.
+    # CPU float32 -> the plain versions (no launch); float64 and m > 16 ->
+    # the composition on torch.linalg; m = 0 -> no factor; a stride-0 A is
+    # accepted as it is.
     tk.reset_launches()
     A, fixed, r = fused_inputs(3, 37, shared=True)
     A_sh = torch_A(A, shared=True)
@@ -297,7 +297,7 @@ def test_fused_dispatch_gate():
 
     poly = tc.Polyhedron(A_sh, torch.zeros(4, 3), torch.zeros(4, 37), torch.zeros(4, 37))
     aset = tc.make_active_set(poly, fx)
-    torch.testing.assert_close(aset.chol, tk.masked_aat_cholesky_plain(A_pi, fx, 0.0, True), rtol=0, atol=0)
+    torch.testing.assert_close(aset.chol, tk.masked_aat_cholesky_plain(A_pi, fx), rtol=0, atol=0)
     torch.testing.assert_close(
         tpr.project_tangent(poly, aset, rt), tk.project_tangent_plain(A_pi, aset.chol, fx, rt), rtol=0, atol=0
     )
@@ -318,9 +318,9 @@ def test_fused_dispatch_gate():
     np.testing.assert_allclose(
         tchol.factor_masked_aat(A20, free20).numpy(), np.linalg.cholesky((A20 @ A20.mT).numpy()), rtol=1e-4, atol=1e-4
     )
-    # n > 2048: the composition with the old kernels inside.
-    assert not tchol._fused_eligible(torch.zeros((2, 3, tk.MAX_FUSED_N + 1)))
-    assert tchol._fused_eligible(torch.zeros((2, 3, tk.MAX_FUSED_N)))
+    # The gate is the old kernels' (m, dtype) test; n does not enter it.
+    assert tchol._fused_eligible(torch.zeros((2, 3, 5000)).expand(2, 3, 5000))
+    assert tchol._fused_eligible(torch.zeros((2, 16, 8)))
     assert not tchol._fused_eligible(torch.zeros((2, 3, 8), dtype=torch.float64))
     assert not tchol._fused_eligible(torch.zeros((2, 17, 32)))
     # m = 0: an empty factor, and the projection only masks.
