@@ -9,8 +9,9 @@ E = [C; A], through one of two factorizations (`sqp_polish`'s
 `kkt_factorization`; "auto" picks by the factors' dtype):
 
 * "qr", range-space: RJ = qr_r([JZ; D_fixed]) and Wᵀ = RJ⁻ᵀ(EZ)ᵀ = Qw Tw
-  (`qr_r` at (B, d+n, n) and `thin_qr` at (B, n, p+m), the QR kernel's
-  shapes), O(κ(J)·eps) — the route for float32 factors;
+  (`qr_r` at (B, d+n, n): the narrow QR kernel at n ≤ 16, the panel QR
+  kernel above; `thin_qr` at (B, n, p+m): the narrow kernel),
+  O(κ(J)·eps) — the route for float32 factors;
 * "lu": the assembled (n+p+m)² KKT matrix
   [[ZJᵀJZ + diag(fixed) + reg·Z, (EZ)ᵀ], [EZ, -dual_reg·I]] by LU,
   O(κ(J)²·eps) — the float64 default.

@@ -7,13 +7,15 @@ CUDA C++ twins of the three Pallas TPU kernels of
 * `batched_cho_solve` ← `batched_cho_solve` / `_cho_solve_kernel` (:101, :119)
 * `batched_thin_qr`   ← `batched_thin_qr` / `_mgs_qr_kernel`     (:147, :170)
 
-and the two fused kernels that redesign the first two for a card where
-nothing fuses their neighbours, one launch per call site:
+and the three kernels that redesign them for this card:
 
 * `masked_aat_cholesky`: L = chol(A Z Aᵀ + reg·I), the Cholesky kernel
-  with the masked Gram product in front of it;
+  with the masked Gram product in front of it, one launch per call site;
 * `project_tangent`: Z r − Z Aᵀ (L Lᵀ)⁻¹ A Z r, the solve kernel with
-  the mask and both products with A around it.
+  the mask and both products with A around it, one launch per call site;
+* `blocked_qr_r`: the R factor of wide tall matrices (16 < N), a panel
+  QR in shared memory, one thread block per instance, where the TPU
+  kernel's gate left the factorization to the library.
 
 Each wrapper keeps the JAX package's public layout — (B, M, M), (B, M) and
 (B, D, N), row-major — and none of the TPU's batch-last transposes or lane
@@ -45,21 +47,30 @@ import torch
 Tensor = torch.Tensor
 
 MAX_DIM = 16        # largest M (Cholesky, solve) and N (QR) the kernels take
-MAX_QR_ROWS = 2048  # largest D the QR kernel takes (the JAX gate's bound)
+MAX_QR_ROWS = 2048  # largest D the QR kernels take (the JAX gate's bound)
+# The panel QR kernel behind `ops/qr.qr_r`: as many columns as it is measured
+# against the library call, and as few instances as it still beats it with
+# (one thread block factors one instance, the library gives each the card).
+MAX_BLOCKED_QR_COLS = 256
+MIN_BLOCKED_QR_BATCH = 4
+QR_PANEL_WIDTHS = (32, 16, 8)    # the panel QR kernel's instantiations, widest first
+QR_BLOCK_WARPS = 8               # warps of one block of the panel QR kernel
+MAX_DYNAMIC_SMEM = 232448        # bytes of shared memory a block may opt in to on sm_90
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # No --use_fast_math: the NaN-on-non-SPD contract needs IEEE sqrt.
 # --fmad=false keeps every multiply and add separately rounded, as the
-# plain versions' elementwise torch ops are.
+# plain versions' elementwise torch ops are.  The panel QR sums in another
+# order than its plain version's matrix products whatever the rounding, so
+# it alone keeps the fused multiply-add (twice the rate).
 NVCC_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (
-    *NVCC_ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+NVCC_FLAGS = (*NVCC_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+FMAD_SOURCES = ("blocked_qr.cu",)
 
 LAUNCHES = {
     "batched_cholesky": 0, "batched_cho_solve": 0, "batched_thin_qr": 0,
-    "masked_aat_cholesky": 0, "project_tangent": 0,
+    "masked_aat_cholesky": 0, "project_tangent": 0, "blocked_qr_r": 0,
 }
 
 
@@ -91,7 +102,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     """Path of the shared library for the current sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(repr((NVCC_FLAGS, FMAD_SOURCES)).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -107,6 +118,8 @@ _SIGNATURES = {
     "benlsip_masked_aat_cholesky": [_PTR, ctypes.c_longlong, _PTR, ctypes.c_double, _PTR] + [_INT] * 3 + [_PTR],
     # A, its batch stride, L, fixed, r, out, B, M, n, unmasked_output, stream
     "benlsip_project_tangent": [_PTR, ctypes.c_longlong] + [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    # S, R, workspace, B, D, N, panel width, leading dimension, stream
+    "benlsip_blocked_qr_r": [_PTR] * 3 + [_INT] * 5 + [_PTR],
 }
 
 
@@ -125,7 +138,8 @@ def build() -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         jobs = []
         for src in sorted(CSRC.glob("*.cu")):
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(Path(tmp) / f"{src.stem}.o")]
+            fmad = f"--fmad={'true' if src.name in FMAD_SOURCES else 'false'}"
+            cmd = [nvcc, *NVCC_FLAGS, fmad, "-c", str(src), "-o", str(Path(tmp) / f"{src.stem}.o")]
             jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         link = [nvcc, *NVCC_ARCH, "-shared", "-o", str(Path(tmp) / out.name), *[cmd[-1] for cmd, _ in jobs]]
         report, failed = [], []
@@ -331,6 +345,81 @@ def batched_thin_qr(A: Tensor):
     R = torch.empty((B, N, N), dtype=A.dtype, device=A.device)
     _launch("batched_thin_qr", "benlsip_thin_qr", A, A.data_ptr(), Q.data_ptr(), R.data_ptr(), B, D, N)
     return Q, R
+
+
+# ---------------------------------------------------------------------------
+# R factor of wide matrices (left-looking block modified Gram–Schmidt)
+# ---------------------------------------------------------------------------
+
+
+def qr_panel_layout(D: int, itemsize: int):
+    """(panel width, leading dimension) of the panel QR kernel for D rows:
+    the rows padded to a multiple of 4 and then to 4 mod 32 (shared-memory
+    banks), and the widest panel that fits, beside one width × width block
+    per warp and two rows of scalars, in the shared memory of one block.
+    None when not even the narrowest fits."""
+    ld = -(-D // 4) * 4
+    ld += (4 - ld) % 32
+    for bw in QR_PANEL_WIDTHS:
+        if (bw * ld + QR_BLOCK_WARPS * bw * bw + 2 * bw) * itemsize <= MAX_DYNAMIC_SMEM:
+            return bw, ld
+    return None
+
+
+def blocked_qr_r_plain(S: Tensor) -> Tensor:
+    """Plain PyTorch twin of the panel QR kernel, in the same panel order:
+    each panel has the finished panels projected out one after another
+    (W = QⱼᵀP into R, P −= QⱼW), then modified Gram–Schmidt inside the panel
+    on unnormalised columns (dots s with column c, R row s/√max(s_cc, tiny),
+    later columns −= column c · s/max(s_cc, tiny)), then the division by
+    the norms."""
+    B, D, N = S.shape
+    layout = qr_panel_layout(D, S.element_size())
+    bw = layout[0] if layout else QR_PANEL_WIDTHS[-1]
+    tiny = torch.finfo(S.dtype).tiny
+    R = torch.zeros((B, N, N), dtype=S.dtype, device=S.device)
+    finished = []
+    for c0 in range(0, N, bw):
+        P = S[:, :, c0:c0 + bw].clone()
+        nc = P.shape[-1]
+        for j0, Qj in finished:
+            W = Qj.mT @ P
+            R[:, j0:j0 + bw, c0:c0 + nc] = W
+            P -= Qj @ W
+        nrm = torch.empty((B, nc), dtype=S.dtype, device=S.device)
+        for c in range(nc):
+            s = (P[:, :, c:c + 1] * P[:, :, c:]).sum(1)          # (B, nc - c)
+            ss = torch.clamp_min(s[:, 0], tiny)
+            nrm[:, c] = torch.sqrt(ss)
+            R[:, c0 + c, c0 + c:c0 + nc] = s / nrm[:, c:c + 1]
+            R[:, c0 + c, c0 + c] = nrm[:, c]
+            P[:, :, c + 1:] -= P[:, :, c:c + 1] * (s[:, 1:] / ss[:, None]).unsqueeze(1)
+        if c0 + bw < N:
+            finished.append((c0, P / nrm.unsqueeze(1)))
+    return R
+
+
+def blocked_qr_r(S: Tensor) -> Tensor:
+    """R factor of a batch of tall matrices: S (B, D, N), D ≥ N -> upper
+    triangular R (B, N, N) with RᵀR = SᵀS and a positive diagonal.  S is
+    not written."""
+    if S.ndim != 3 or S.shape[1] < S.shape[2]:
+        raise ValueError(f"blocked_qr_r: expected (B, D, N) with D >= N, got {tuple(S.shape)}")
+    B, D, N = S.shape
+    if B == 0 or N == 0:
+        return torch.zeros((B, N, N), dtype=S.dtype, device=S.device)
+    if _on_cpu(S):
+        return blocked_qr_r_plain(S)
+    _require_cuda("blocked_qr_r", S)
+    layout = qr_panel_layout(D, S.element_size())
+    if layout is None:
+        raise ValueError(f"blocked_qr_r: a panel of D={D} rows does not fit in shared memory")
+    bw, ld = layout
+    R = torch.empty((B, N, N), dtype=S.dtype, device=S.device)
+    # The finished Q panels, all but the last, column-major with leading dimension ld.
+    ws = torch.empty((B, (-(-N // bw) - 1) * bw * ld), dtype=S.dtype, device=S.device)
+    _launch("blocked_qr_r", "benlsip_blocked_qr_r", S, S.data_ptr(), R.data_ptr(), ws.data_ptr(), B, D, N, bw, ld)
+    return R
 
 
 # ---------------------------------------------------------------------------

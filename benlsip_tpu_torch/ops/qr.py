@@ -1,13 +1,22 @@
 """QR factorizations for the Gauss-Newton algebra (PyTorch port of
 `benlsip_tpu/ops/qr.py`).
 
-Dispatch follows the JAX gate (`ops/qr.py:31-40` there): batched float32
-matrices with 0 < N ≤ 16 columns and N ≤ D ≤ 2048 rows go to the
+Dispatch starts from the JAX gate (`ops/qr.py:31-40` there): batched
+float32 matrices with 0 < N ≤ 16 columns and N ≤ D ≤ 2048 rows go to the
 hand-written modified Gram–Schmidt kernel (`kernels/batched_linalg.py`;
-its plain PyTorch version on a CPU tensor), everything else to
-`torch.linalg.qr`.  The two routes differ in sign conventions (MGS gives R
-a positive diagonal, Householder need not); every consumer here uses the
-factors in sign-invariant combinations (RᵀR, Q·T).
+its plain PyTorch version on a CPU tensor).  The bound N ≤ 16 is the TPU
+kernel's (it unrolls N(N+1)/2 column updates over a slab held in VMEM), not
+this card's: `qr_r`, which wants R only, sends 16 < N ≤ 256 at the same row
+bound and a batch of at least 4 to the panel kernel `blocked_qr_r` (block
+Gram–Schmidt in shared memory, one thread block per instance).  256
+columns, 2048 rows and 4 instances are the card's gate: where the kernel is
+measured no slower than the library call, which gives every matrix the
+whole card in turn and so wins on one or two large ones.
+`thin_qr` keeps the narrow gate (Gram–Schmidt's Q loses orthogonality with κ
+where its R does not), and everything else goes to `torch.linalg.qr`.  The
+routes differ in sign conventions (Gram–Schmidt gives R a positive
+diagonal, Householder need not); every consumer here uses the factors in
+sign-invariant combinations (RᵀR, Q·T).
 
 CholeskyQR2 (`cholqr2i_r`) builds the same R from the Gram matrix: its
 (n, n) Choleskys are at n ≥ 64 in the solver, where the JAX
@@ -27,13 +36,14 @@ from .cholesky import chol_linalg
 Tensor = torch.Tensor
 
 
-def _kernel_eligible(S: Tensor) -> bool:
+def _kernel_eligible(S: Tensor, max_cols: int = kern.MAX_DIM, min_batch: int = 0) -> bool:
     if S.dtype == torch.bfloat16:
         raise NotImplementedError("bf16 dispatch of the batched linalg kernels is not ported yet")
     if S.ndim != 3:
         return False
-    _, D, N = S.shape
-    return 0 < N <= kern.MAX_DIM and N <= D <= kern.MAX_QR_ROWS and S.dtype == torch.float32
+    B, D, N = S.shape
+    return (0 < N <= max_cols and N <= D <= kern.MAX_QR_ROWS and B >= min_batch
+            and S.dtype == torch.float32)
 
 
 def thin_qr(S: Tensor):
@@ -47,6 +57,8 @@ def qr_r(S: Tensor) -> Tensor:
     """R factor only of a batch (B, D, N) -> (B, K, N): RᵀR = SᵀS."""
     if _kernel_eligible(S):
         return kern.batched_thin_qr(S.contiguous())[1]
+    if _kernel_eligible(S, kern.MAX_BLOCKED_QR_COLS, kern.MIN_BLOCKED_QR_BATCH):
+        return kern.blocked_qr_r(S.contiguous())
     return torch.linalg.qr(S, mode="r")[1]
 
 

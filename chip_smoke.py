@@ -8,16 +8,19 @@ Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi); TF32 is off;
 2. build the CUDA kernels of benlsip_tpu_torch from csrc/ (nvcc, sm_90a);
-3. each of the five kernels against its plain PyTorch version on the card,
+3. each of the six kernels against its plain PyTorch version on the card,
    in float32, at both paths' shapes and the kernel tests' shapes, with
    the NaN, positive-diagonal, empty-batch and refused-operand checks; the
    two fused kernels also with a batch-shared (stride-0) A, ragged n,
    degenerate lanes and reg > 0, and against the call site they replace;
+   the panel QR kernel also against `torch.linalg.qr` and SᵀS, at the
+   polish's shape, ragged panels, every panel width, κ = 1e4 and float64;
    then, taken in turns inside this one process (plain, kernel, library,
-   library, kernel, plain; CUDA events over 200 calls), the time of every
-   kernel, of its plain version and of the one PyTorch call that computes
-   the same function (for a fused kernel: of the call site it replaces,
-   with the old kernel inside), beside the bound computed from the shapes;
+   library, kernel, plain; CUDA events over 200 calls, 20 for the panel
+   QR), the time of every kernel, of its plain version and of the one
+   PyTorch call that computes the same function (for a fused kernel: of the
+   call site it replaces, with the old kernel inside), beside the bound
+   computed from the shapes;
 4. the config-2 path: `solve_mixed_precision` on
    `exp_fit_family(1024, d=32, seed=42)` (float64 master data) on cuda:0,
    with every kernel's launch count read around that run; 1024/1024 must
@@ -30,12 +33,14 @@ Phases (any failure raises and the script exits non-zero):
    certification), launch counts and the solver's operator builds read
    around the cold run (every float32 build must be CholeskyQR2); 64/64 must
    certify at max(pix) ≤ 1.49e-8 cold and warm, `certify="host"` (f64
-   chord phase on the CPU) must certify 64/64 too, the oracle must agree
+   chord phase on the CPU) must certify 64/64 too, the panel QR kernel
+   must be launched in both certify modes, the oracle must agree
    on all 64, and a batch of 8 must agree with the port's CPU run; the warm
    wall is split into bulk and certification;
 6. with `--profile` only: each path's warm wall split into bulk and
    certification, and the device's busy share and kernel count from
-   torch.profiler.
+   torch.profiler, with the time and calls of cuSOLVER's `geqr2*` and of
+   the panel QR kernel.
 
 It imports nothing of JAX and nothing of the JAX package: the KKT oracle
 is the port's own copy.  The last two lines are the kernels' JSON record
@@ -70,10 +75,13 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 # The kernels on each path; `batched_cholesky` runs there inside
-# `masked_aat_cholesky`, which holds its body.
+# `masked_aat_cholesky`, which holds its body.  Config 3 (n = 192) also
+# runs the panel QR kernel; config 2 (n = 3) has no wide QR.
 PATH_KERNELS = ("masked_aat_cholesky", "project_tangent", "batched_cho_solve", "batched_thin_qr")
-# Device kernels of one warm run before the fused call sites (H100 80GB HBM3, 700 W).
-DEVICE_KERNELS_BEFORE = {"config 2": "76,582-76,924", "config 3": "18,924"}
+CONFIG3_KERNELS = PATH_KERNELS + ("blocked_qr_r",)
+# Device kernels of one warm run before the panel QR kernel (H100 80GB HBM3, 700 W).
+DEVICE_KERNELS_BEFORE = {"config 2": "68,888-68,892", "config 3": "17,405-17,413"}
+EPS32 = float(np.finfo(np.float32).eps)
 
 
 def _sync():
@@ -94,13 +102,13 @@ def _cuda_ms(fn, reps: int = 200, warm: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _in_turns(fns: dict) -> dict:
+def _in_turns(fns: dict, reps: int = 200, warm: int = 10) -> dict:
     """Warm per-call time of each function, taken in turns (first to last,
     then last to first) inside this process; the mean of the two."""
     order = list(fns)
     total = dict.fromkeys(order, 0.0)
     for name in order + order[::-1]:
-        total[name] += _cuda_ms(fns[name])
+        total[name] += _cuda_ms(fns[name], reps, warm)
     return {name: t / 2 for name, t in total.items()}
 
 
@@ -116,6 +124,11 @@ def _bound(n_bytes: float, flops: float) -> dict:
 def _qr_bound(B: int, D: int, N: int) -> dict:
     """Thin QR of (B, D, N): A read, Q and R written; 2·D·N² operations."""
     return _bound(B * (2 * D * N + N * N) * 4, 2 * B * D * N * N)
+
+
+def _r_bound(B: int, D: int, N: int, itemsize: int = 4) -> dict:
+    """R factor of (B, D, N): S read, R written; 2·D·N² − ⅔·N³ operations."""
+    return _bound(B * (D * N + N * N) * itemsize, B * (2 * D * N * N - 2 * N ** 3 / 3))
 
 
 def _check_same_nan(name: str, got: torch.Tensor, want: torch.Tensor, atol: float) -> float:
@@ -179,16 +192,21 @@ def phase_build(kern) -> float:
     if log.exists():
         # ptxas report: the most registers of any instantiation of each
         # kernel, those of the float32 instantiations the two paths run
-        # (M = 1 and M = 6), and every instantiation that spills.
+        # (M = 1 and M = 6; the panel QR at width 32), and every
+        # instantiation that spills.
         regs, on_path, entry = {}, {}, "?"
         for line in log.read_text().splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
             elif "Used" in line and "registers" in line:
-                family = next((k for k in ("masked_aat_cholesky", "project_tangent", "cholesky", "cho_solve", "mgs_qr")
-                               if k in entry), entry)
+                family = next((k for k in ("masked_aat_cholesky", "project_tangent", "cholesky", "cho_solve", "mgs_qr",
+                                           "blocked_qr_r") if k in entry), entry)
                 used = int(line.split("Used")[1].split("registers")[0])
                 regs[family] = max(regs.get(family, 0), used)
+                if family == "blocked_qr_r":   # config 3 runs the float32 kernel at panel width 32
+                    if "IfLi32E" in entry:
+                        on_path[f"{family} width=32"] = used
+                    continue
                 for M in (1, 6):
                     if f"IfLi{M}E" in entry:
                         on_path[f"{family} M={M}"] = max(on_path.get(f"{family} M={M}", 0), used)
@@ -265,6 +283,8 @@ def phase_kernels(kern) -> dict:
     _sync()
 
     _check_fused(kern, rng, worst)
+    _sync()
+    _check_blocked_qr(kern, rng, worst)
     _sync()
     for name in rec:
         print(f"{name}: max abs err {rec[name]['max_abs_err']:.3e} over every checked shape")
@@ -358,6 +378,160 @@ def _check_fused(kern, rng, worst) -> None:
         raise AssertionError(f"fused kernels: refused operand {i} was accepted")
 
 
+def polish_stack(rng, B, d, n, dev, reg=0.0):
+    """[JZ; D] as the polish's factor step builds it: a dense (d, n) block
+    whose fixed columns (~20%) are zero over diag(fixed ? 1 : sqrt(reg))."""
+    fixed = rng.random((B, n)) < 0.2
+    JZ = rng.standard_normal((B, d, n)) * ~fixed[:, None, :]
+    dbot = np.where(fixed, 1.0, math.sqrt(reg))
+    S = np.concatenate([JZ, dbot[:, :, None] * np.eye(n)], axis=1)
+    return torch.as_tensor(S, dtype=torch.float32, device=dev)
+
+
+def conditioned(rng, B, D, N, kappa, dev):
+    """(B, D, N) float32 with singular values spaced geometrically from 1 to 1/kappa."""
+    U = np.linalg.qr(rng.standard_normal((B, D, N)))[0]
+    V = np.linalg.qr(rng.standard_normal((B, N, N)))[0]
+    sv = np.logspace(0.0, -math.log10(kappa), N)
+    return torch.as_tensor((U * sv) @ np.transpose(V, (0, 2, 1)), dtype=torch.float32, device=dev)
+
+
+def _library_r(S):
+    """`torch.linalg.qr`'s R with every row's sign turned so that the diagonal is positive."""
+    R = torch.linalg.qr(S, mode="r")[1]
+    d = torch.diagonal(R, dim1=1, dim2=2)
+    return R * torch.where(d < 0, -1.0, 1.0).to(R.dtype).unsqueeze(-1)
+
+
+def _check_r(tag: str, R, S) -> dict:
+    """R is upper triangular with a positive diagonal, RᵀR = SᵀS to
+    2·N·eps (Frobenius, relative, products in float64), and R agrees with the
+    library's sign-normalised R to 4·eps·(√D + κ)·max|R|: the forward error
+    of a backward-stable R grows with κ(S), taken here from the library's R."""
+    D, N = S.shape[1:]
+    eps = float(torch.finfo(S.dtype).eps)
+    if not (torch.diagonal(R, dim1=1, dim2=2) > 0).all() or torch.tril(R, -1).abs().max() != 0:
+        raise AssertionError(f"{tag}: R must be upper triangular with a positive diagonal")
+    Rd, Sd = R.double(), S.double()
+    G = Sd.mT @ Sd
+    gram = float((torch.linalg.matrix_norm(Rd.mT @ Rd - G) / torch.linalg.matrix_norm(G)).max())
+    Rl = _library_r(S)
+    sv = torch.linalg.svdvals(Rl.double())
+    kappa = float((sv[:, 0] / sv[:, -1]).max())
+    err, scale = float((R - Rl).abs().max()), float(Rl.abs().max())
+    tol = 4 * eps * (math.sqrt(D) + kappa) * scale
+    if not (gram <= 2 * N * eps and err <= tol):
+        raise AssertionError(f"{tag}: ‖RᵀR − SᵀS‖/‖SᵀS‖ = {gram:.3e} (≤ {2 * N * eps:.3e}), "
+                             f"max |R − library R| = {err:.3e} (≤ {tol:.3e}, κ = {kappa:.3e})")
+    return {"gram": gram, "err": err, "tol": tol, "kappa": kappa, "scale": scale}
+
+
+def _check_blocked_qr(kern, rng, worst) -> None:
+    """The panel QR kernel against its plain version, against the library's
+    R and against SᵀS."""
+    dev = torch.device("cuda:0")
+    normal = lambda B, D, N: torch.as_tensor(rng.standard_normal((B, D, N)), dtype=torch.float32, device=dev)
+    cases = {
+        "64x1216x192 polish-shaped": polish_stack(rng, 64, 1024, 192, dev),
+        "8x300x17": normal(8, 300, 17),                  # one ragged panel
+        "5x2048x256 (the gate's corner, width 16)": normal(5, 2048, 256),
+        "3x40x40 square": normal(3, 40, 40),
+        "6x534x150": normal(6, 534, 150),                # D not a multiple of 4, ragged last panel
+        "4x1540x70 (the tallest at width 32)": normal(4, 1540, 70),
+        "4x600x96 kappa=1e4": conditioned(rng, 4, 600, 96, 1e4, dev),
+    }
+    for tag, S in cases.items():
+        S0 = S.clone()
+        R, Rp = kern.blocked_qr_r(S), kern.blocked_qr_r_plain(S)
+        if not torch.equal(S, S0):
+            raise AssertionError(f"blocked_qr_r {tag}: the kernel must not write S")
+        c = _check_r(f"blocked_qr_r {tag}", R, S)
+        cp = _check_r(f"blocked_qr_r_plain {tag}", Rp, S)
+        # Kernel against plain: the same algorithm, other summation order,
+        # so the same κ-scaled tolerance as against the library.
+        err = float((R - Rp).abs().max())
+        if err > c["tol"]:
+            raise AssertionError(f"blocked_qr_r {tag}: kernel disagrees with its plain version ({err:.3e} > {c['tol']:.3e})")
+        worst("blocked_qr_r", err)
+        print(f"blocked_qr_r {tag}: width {kern.qr_panel_layout(S.shape[1], 4)[0]}, vs plain {err:.3e}, "
+              f"vs library {c['err']:.3e} (tol {c['tol']:.3e}, κ {c['kappa']:.3e}, max|R| {c['scale']:.3e}), "
+              f"Gram {c['gram']:.3e} (plain {cp['gram']:.3e}, tol {2 * S.shape[2] * EPS32:.3e})")
+
+    # float64 through the same source: widths 32 and 8.
+    for B, D, N in ((4, 600, 50), (3, 2048, 40)):
+        S = torch.as_tensor(rng.standard_normal((B, D, N)), dtype=torch.float64, device=dev)
+        c = _check_r(f"blocked_qr_r float64 {B}x{D}x{N}", kern.blocked_qr_r(S), S)
+        print(f"blocked_qr_r float64 {B}x{D}x{N}: width {kern.qr_panel_layout(D, 8)[0]}, vs library {c['err']:.3e}, Gram {c['gram']:.3e}")
+
+    # A zero column gets the `tiny` floor on the diagonal and zeros beside it;
+    # a NaN stays in its own instance.
+    S = normal(6, 200, 40)
+    S[2, :, 35] = 0.0
+    S[4, 17, 3] = float("nan")
+    R, Rp = kern.blocked_qr_r(S), kern.blocked_qr_r_plain(S)
+    floor = math.sqrt(float(torch.finfo(torch.float32).tiny))
+    if not (abs(float(R[2, 35, 35]) - floor) <= 1e-6 * floor and R[2, 35, 36:].abs().max() == 0
+            and torch.isfinite(R[[0, 1, 2, 3, 5]]).all()):
+        raise AssertionError("blocked_qr_r: a zero column must give sqrt(tiny) on the diagonal and a finite R")
+    if not (torch.isnan(R[4]).any() and torch.equal(torch.isnan(R), torch.isnan(Rp))):
+        raise AssertionError("blocked_qr_r: a NaN must stay in its own instance, as in the plain version")
+
+    # Empty batch: no launch.  Refused: a transposed view, D < N, a matrix
+    # without a batch, float16, and a CPU tensor handed to the launch check.
+    before = dict(kern.LAUNCHES)
+    if kern.blocked_qr_r(torch.zeros((0, 50, 20), device=dev)).shape != (0, 20, 20) or kern.LAUNCHES != before:
+        raise AssertionError("blocked_qr_r: an empty batch must return (0, N, N) without a launch")
+    refused = (
+        lambda: kern.blocked_qr_r(normal(2, 20, 50).mT),
+        lambda: kern.blocked_qr_r(normal(2, 20, 50)),
+        lambda: kern.blocked_qr_r(normal(1, 50, 20)[0]),
+        lambda: kern.blocked_qr_r(normal(2, 50, 20).half()),
+        lambda: kern._require_cuda("blocked_qr_r", torch.zeros((2, 50, 20))),
+    )
+    for i, call in enumerate(refused):
+        try:
+            call()
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError(f"blocked_qr_r: refused operand {i} was accepted")
+    if kern.LAUNCHES != before:
+        raise AssertionError("blocked_qr_r: a refused operand must not count as a launch")
+
+
+def _time_blocked_qr(kern, rng, rec) -> None:
+    """The panel QR kernel, its plain version and `torch.linalg.qr(mode="r")`
+    in turns at the polish's shape on config 3 (the record's main keys), at
+    a smaller shape and at the corners of `qr_r`'s gate (4 instances, 2048
+    rows, 256 columns), where it must be no slower than the library call;
+    then below the gate's batch bound, where the library call, which gives
+    each matrix the whole card, may win; 20 calls a turn."""
+    dev = torch.device("cuda:0")
+    shapes = {
+        "": polish_stack(rng, 64, 1024, 192, dev),
+        "_16x534x150": torch.as_tensor(rng.standard_normal((16, 534, 150)), dtype=torch.float32, device=dev),
+        "_4x2048x256": torch.as_tensor(rng.standard_normal((4, 2048, 256)), dtype=torch.float32, device=dev),
+        "_64x2048x256": torch.as_tensor(rng.standard_normal((64, 2048, 256)), dtype=torch.float32, device=dev),
+        "_4x40x17": torch.as_tensor(rng.standard_normal((4, 40, 17)), dtype=torch.float32, device=dev),
+        "_2x2048x256": torch.as_tensor(rng.standard_normal((2, 2048, 256)), dtype=torch.float32, device=dev),
+        "_1x1216x192": torch.as_tensor(rng.standard_normal((1, 1216, 192)), dtype=torch.float32, device=dev),
+    }
+    for suffix, S in shapes.items():
+        t = _in_turns({"plain": lambda: kern.blocked_qr_r_plain(S), "kernel": lambda: kern.blocked_qr_r(S),
+                       "library": lambda: torch.linalg.qr(S, mode="r")}, reps=20, warm=3)
+        bound = _r_bound(*S.shape)
+        rec["blocked_qr_r"].update({
+            "ms" + suffix: t["kernel"], "plain_ms" + suffix: t["plain"], "library_ms" + suffix: t["library"],
+            **{k + suffix: bound[k] for k in ("bound_ms", "bound_us", "bound_by")},
+        })
+        shape = "x".join(map(str, S.shape))
+        print(f"blocked_qr_r {shape}: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+              f"library {t['library']:.4f} ms, bound {bound['bound_us']:.4f} us "
+              f"({bound['bound_by']}: {bound['bytes']} B, {bound['flops']} flop)")
+        if S.shape[0] >= kern.MIN_BLOCKED_QR_BATCH and t["kernel"] > t["library"]:
+            raise AssertionError(f"blocked_qr_r {shape}: slower than the library call inside qr_r's gate")
+    rec["blocked_qr_r"]["shape"] = "64x1216x192"
+
+
 def _time_kernels(kern, rng, rec) -> None:
     """Times at each path's shapes, in turns, with bounds and library calls.
 
@@ -408,7 +582,8 @@ def _time_kernels(kern, rng, rec) -> None:
                 old_site=lambda A=A, L=L, fixed=fixed, r=r: old_project_site(kern, A, L, fixed, r),
                 bound=_bound(a_bytes + B * m * m * 4 + B * n + 2 * B * n * 4, 4 * m * n_free + 2 * B * m * m)),
         }
-    for name in rec:
+    _time_blocked_qr(kern, rng, rec)
+    for name in next(iter(paths.values())):
         for suffix, cases in paths.items():
             case = cases[name]
             yard = "library" if "library" in case else "old_site"
@@ -433,9 +608,9 @@ def _time_kernels(kern, rng, rec) -> None:
           f"bound {bound['bound_us']:.4f} us ({bound['bound_by']}: {bound['bytes']} B, {bound['flops']} flop)")
 
 
-def _check_launched(tag: str, launches: dict) -> None:
+def _check_launched(tag: str, launches: dict, names=PATH_KERNELS) -> None:
     """Every kernel of the path was launched in the run just made."""
-    for name in PATH_KERNELS:
+    for name in names:
         if launches[name] <= 0:
             raise AssertionError(f"{tag}: kernel {name} was not launched on this path")
 
@@ -564,10 +739,15 @@ def phase_config3(kern) -> dict:
     _check_certified("config 3 warm", X2, info2, B, n)
     if not torch.equal(info2.converged, info.converged) or float((X2 - X).abs().max()) > SMALL_ATOL:
         raise AssertionError("config 3: the warm run disagrees with the cold run")
-    _check_launched("config 3", launches)
+    _check_launched("config 3", launches, CONFIG3_KERNELS)
 
     # Host certification (f32 factors on the card, f64 chord on the CPU).
+    kern.reset_launches()
     (Xh, _, info_h), host_cold = _walled(lambda: run("host"))
+    launches_host = dict(kern.LAUNCHES)
+    _check_launched("config 3 certify=host", launches_host, CONFIG3_KERNELS)
+    print(f"config 3: blocked_qr_r launches a run: {launches['blocked_qr_r']} (certify=auto), "
+          f"{launches_host['blocked_qr_r']} (certify=host)")
     (_, _, _), host_warm = _walled(lambda: run("host"))
     print(f"config 3 certify=host: certified {int(info_h.converged.sum())}/{B}, max pix {float(info_h.pix.max()):.3e}, "
           f"cold {host_cold:.3f} s, warm {host_warm:.3f} s, max |dX| vs device {float((Xh - X.cpu()).abs().max()):.3e}")
@@ -599,15 +779,16 @@ def phase_config3(kern) -> dict:
           f"certified {int(ig.converged.sum())}/8 vs {int(ic.converged.sum())}/8")
     if not (bool(ig.converged.all()) and bool(ic.converged.all()) and diff <= SMALL_ATOL):
         raise AssertionError("config 3 small batch: the card's run disagrees with the CPU run")
-    return {"launches": launches, "cold_s": cold, "warm_s": warm, "host_cold_s": host_cold,
-            "host_warm_s": host_warm, "bulk_s": bulk}
+    return {"launches": launches, "launches_host": launches_host, "cold_s": cold, "warm_s": warm,
+            "host_cold_s": host_cold, "host_warm_s": host_warm, "bulk_s": bulk}
 
 
 def phase_profile(kern) -> None:
     """Where the warm time of each path goes: bulk vs certification wall,
     and the device's busy share from torch.profiler (sum of kernel times
-    over the host wall of one warm run); and how many device kernels one
-    call of each fused kernel, and of the call site it replaces, launches."""
+    over the host wall of one warm run); how many device kernels one
+    call of each fused kernel, and of the call site it replaces, launches;
+    and the panel QR kernel's time against the column count and the batch."""
     from torch.profiler import ProfilerActivity, profile
 
     from benlsip_tpu_torch.batch.refine import _cast_problem, _cast_tree, solve_mixed_precision
@@ -634,6 +815,16 @@ def phase_profile(kern) -> None:
             "old projection site": device_kernels(lambda: old_project_site(kern, A, L, fixed, r)),
         }
         print(f"profile call sites {B}x{m}x{n}{' shared A' if shared else ''}: device kernels per call {counts}")
+
+    # The panel QR kernel's time against the column count and the batch:
+    # t(N = 32) is one panel (its load and the Gram-Schmidt steps inside
+    # it), t(64) − 2·t(32) one projection against a finished panel, and one
+    # instance against 64 says whether latency or throughput sets the time.
+    scan = {}
+    for B, D, N in ((64, 1216, 32), (64, 1216, 64), (64, 1216, 192), (1, 1216, 192), (132, 1216, 192)):
+        S = torch.as_tensor(rng.standard_normal((B, D, N)), dtype=torch.float32, device=dev)
+        scan[f"{B}x{D}x{N}"] = round(_cuda_ms(lambda: kern.blocked_qr_r(S), reps=30, warm=3), 4)
+    print(f"profile blocked_qr_r: ms by shape {scan}")
 
     paths = {
         "config 2": (exp_fit_family(1024, d=32, seed=42, dtype=torch.float64, device=dev),
@@ -662,7 +853,11 @@ def phase_profile(kern) -> None:
             n_launch = sum(e.count for e in events)
             print(f"profile {tag}: traced wall {wall:.3f} s, device busy {dev_us / 1e6:.3f} s "
                   f"({100 * dev_us / 1e6 / wall:.1f}%), {n_launch} device kernels "
-                  f"(before the fused call sites: {DEVICE_KERNELS_BEFORE[tag]})")
+                  f"(before the panel QR kernel: {DEVICE_KERNELS_BEFORE[tag]})")
+            for pattern in ("geqr2", "blocked_qr_r"):
+                hits = [e for e in events if pattern in e.key]
+                print(f"profile {tag}: {pattern}*: {sum(e.self_device_time_total for e in hits) / 1e3:.2f} ms "
+                      f"over {sum(e.count for e in hits)} calls")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
             print(f"profile {tag}: {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<7d} {e.key[:90]}")
 
@@ -685,6 +880,7 @@ def main() -> None:
         "batched_thin_qr": (src + "thin_qr.cu", "benlsip_tpu/kernels/batched_linalg.py:170"),
         "masked_aat_cholesky": (src + "masked_aat_cholesky.cu", "benlsip_tpu/kernels/batched_linalg.py:74"),
         "project_tangent": (src + "project_tangent.cu", "benlsip_tpu/kernels/batched_linalg.py:119"),
+        "blocked_qr_r": (src + "blocked_qr.cu", "benlsip_tpu/kernels/batched_linalg.py:170"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -695,6 +891,9 @@ def main() -> None:
             # record holds those launches; its own wrapper is behind
             # ops/cholesky.cholesky, which no path calls now.
             k["on_path_as"] = "masked_aat_cholesky"
+        if name == "blocked_qr_r":
+            # Config 2 (n = 3) has no wide QR and launches it 0 times.
+            k["launches_config3_host"] = res3["launches_host"][name]
         k.update({"launches": own2 + own3, "launches_config2": own2, "launches_config3": own3, **rec[name]})
         kernels.append(k)
     print(f"card: {smi}")

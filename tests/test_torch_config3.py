@@ -130,6 +130,30 @@ def test_split_polish_matches_jax():
     _assert_polish_agrees(out_t, out_j)
 
 
+def test_fused_polish_factors_through_the_panel_qr(monkeypatch):
+    # n = 96 > 16: the f32 range-space factor RJ = qr_r([JZ; D]) at
+    # (B, d + n, n) takes the panel QR's plain version on a CPU tensor (block
+    # Gram–Schmidt), where the JAX package takes XLA's Householder.  The KKT
+    # step uses RJ through RJᵀRJ-invariant combinations only, so X and the
+    # certificate agree at the polish tolerance of this file.
+    from benlsip_tpu_torch.kernels import batched_linalg as tk
+
+    shapes = []
+    plain = tk.blocked_qr_r_plain
+    monkeypatch.setattr(tk, "blocked_qr_r_plain", lambda S: shapes.append((tuple(S.shape), S.dtype)) or plain(S))
+    bp_j, th_j, bp_t, th_t, X32 = _both(8)
+    cast = lambda a: a.astype(jnp.float32)
+    bp32_j = dataclasses.replace(bp_j, A=cast(bp_j.A), b=cast(bp_j.b), xl=cast(bp_j.xl), xu=cast(bp_j.xu))
+    out_j = jpolish.sqp_polish_fused(
+        bp32_j, j_cast(th_j, jnp.float32), jnp.asarray(X32), bp_j, th_j, JOptions(**OPTS), num_steps=5)
+    out_t = tpolish.sqp_polish_fused(
+        _cast_problem(bp_t, torch.float32, "cpu"), _cast_tree(th_t, torch.float32), torch.from_numpy(X32),
+        bp_t, th_t, SolverOptions(**OPTS), num_steps=5)
+    n, d = SMALL["n"], SMALL["d"]
+    assert shapes and set(shapes) == {((8, d + n, n), torch.float32)}, shapes
+    _assert_polish_agrees(out_t, out_j)
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_pipeline(B: int):
     bp_j, th_j, X0_j = jgen.dense_quadratic_family(B, **SMALL)

@@ -6,7 +6,11 @@ plus the empty batches, the NaN-on-non-SPD contract and the dispatch gate.
 The plain versions of the two fused kernels (`masked_aat_cholesky`,
 `project_tangent`) are held against the JAX package's call sites,
 `ops/cholesky.factor_masked_aat` and `ops/project.project_tangent` under
-jax.vmap, and their NaN patterns against the Pallas kernels.
+jax.vmap, and their NaN patterns against the Pallas kernels.  The plain
+version of the panel QR kernel (`blocked_qr_r`, 16 < N) is held against the
+JAX package's `ops/qr.qr_r` under jax.vmap, which takes XLA's Householder
+at those widths: RᵀR against SᵀS, and R against the sign-normalised JAX R
+at a tolerance that grows with κ(S).
 Inputs are float32 from a seeded numpy generator and go through both.
 Tolerance 1e-5 (relative, atol 1e-5): both sides run the same algorithm in
 the same order, so they differ only by float32 rounding of the reductions.
@@ -23,6 +27,7 @@ from benlsip_tpu.kernels import batched_linalg as jk
 from benlsip_tpu.ops import cholesky as jchol
 from benlsip_tpu.ops import constraints as jc
 from benlsip_tpu.ops import project as jpr
+from benlsip_tpu.ops import qr as jqr
 from benlsip_tpu_torch.kernels import batched_linalg as tk
 from benlsip_tpu_torch.ops import cholesky as tchol
 from benlsip_tpu_torch.ops import constraints as tc
@@ -158,8 +163,12 @@ def test_build_is_keyed_on_sources():
     assert p1 == p2 and p1.parent == tk.BUILD_DIR and p1.suffix == ".so"
     assert {s.name for s in tk.CSRC.glob("*.cu")} == {
         "cholesky.cu", "cho_solve.cu", "thin_qr.cu", "masked_aat_cholesky.cu", "project_tangent.cu",
+        "blocked_qr.cu",
     }
     assert "--use_fast_math" not in tk.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in tk.NVCC_FLAGS
+    # Separately rounded products everywhere but in the panel QR, and the
+    # choice is part of the key.
+    assert not any(f.startswith("--fmad") for f in tk.NVCC_FLAGS) and tk.FMAD_SOURCES == ("blocked_qr.cu",)
 
 
 # ---------------------------------------------------------------------------
@@ -341,6 +350,7 @@ def test_fused_dispatch_gate():
         tk.masked_aat_cholesky(A_pi.to("meta"), fx.to("meta"))
     assert sum(tk.LAUNCHES.values()) == 0 and set(tk.LAUNCHES) == {
         "batched_cholesky", "batched_cho_solve", "batched_thin_qr", "masked_aat_cholesky", "project_tangent",
+        "blocked_qr_r",
     }
 
 
@@ -376,3 +386,171 @@ def test_coupled_binding_uses_one_factor_and_one_projection(monkeypatch):
     fixed_j = jax.vmap(lambda p, xx, gg: jc.binding_bounds_coupled(p, xx, gg, 1e-6, passes=2),
                        in_axes=(jc.Polyhedron(0, 0, 0, 0), 0, 0))(jp, jnp.asarray(x), jnp.asarray(g))
     np.testing.assert_array_equal(fixed_t.numpy(), np.asarray(fixed_j))
+
+
+# ---------------------------------------------------------------------------
+# The panel QR (R only, 16 < N)
+# ---------------------------------------------------------------------------
+
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def jax_r(S):
+    """The JAX package's R under vmap (XLA's Householder at N > 16), rows
+    turned so that the diagonal is positive."""
+    R = np.asarray(jax.vmap(jqr.qr_r)(jnp.asarray(S)))
+    d = np.diagonal(R, axis1=1, axis2=2)
+    return R * np.where(d < 0, -1.0, 1.0)[:, :, None].astype(R.dtype)
+
+
+def assert_r_factor(R, S, kappa=None):
+    """R is upper triangular with a positive diagonal; RᵀR = SᵀS to 2·N·eps
+    (Frobenius, relative, products in float64); R agrees with the JAX R to
+    4·eps·(√D + κ)·max|R|: both are backward stable, so each is within
+    c·κ(S)·eps of the exact factor, and √D·eps is the rounding of a column
+    norm over D rows.  κ is taken from the JAX R unless given."""
+    B, D, N = S.shape
+    assert R.shape == (B, N, N) and np.all(np.tril(R, -1) == 0)
+    assert np.all(np.diagonal(R, axis1=1, axis2=2) > 0)
+    Sd, Rd = S.astype(np.float64), R.astype(np.float64)
+    G = np.einsum("bdi,bdj->bij", Sd, Sd)
+    gram = np.linalg.norm(np.einsum("bki,bkj->bij", Rd, Rd) - G, axis=(1, 2)) / np.linalg.norm(G, axis=(1, 2))
+    assert gram.max() <= 2 * N * EPS32, gram.max()
+    R_j = jax_r(S)
+    if kappa is None:
+        kappa = np.linalg.cond(R_j.astype(np.float64)).max()
+    tol = 4 * EPS32 * (np.sqrt(D) + kappa) * np.abs(R_j).max()
+    assert np.abs(R - R_j).max() <= tol, (np.abs(R - R_j).max(), tol, kappa)
+
+
+@pytest.mark.parametrize("D", ["N", "3N", 1216])
+@pytest.mark.parametrize("N", [17, 40, 96, 192])
+def test_blocked_qr_r_plain_matches_jax(N, D):
+    # N = 17 is one ragged panel, 40 and 96 a full panel and a ragged or full
+    # last one, 192 six panels; D = N is square (κ up to ~1e3 for a Gaussian
+    # matrix), D = 1216 the polish's row count on config 3.
+    D = {"N": N, "3N": 3 * N}.get(D, D)
+    S = rng.standard_normal((4, D, N)).astype(np.float32)
+    S0 = S.copy()
+    R = tk.blocked_qr_r(torch.from_numpy(S)).numpy()
+    np.testing.assert_array_equal(S, S0)       # S is not written
+    assert_r_factor(R, S)
+    # `qr_r` takes this route for a float32 CPU tensor at 16 < N.
+    np.testing.assert_array_equal(tqr.qr_r(torch.from_numpy(S)).numpy(), R)
+
+
+def polish_stack(B, d, n, reg):
+    """[JZ; D] as the polish's factor step builds it: zero columns where a
+    bound is fixed over diag(fixed ? 1 : sqrt(reg))."""
+    fixed = rng.random((B, n)) < 0.2
+    JZ = rng.standard_normal((B, d, n)) * ~fixed[:, None, :]
+    dbot = np.where(fixed, 1.0, np.sqrt(reg))
+    return np.concatenate([JZ, dbot[:, :, None] * np.eye(n)], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("reg", [0.0, 1e-8])
+def test_blocked_qr_r_plain_polish_shaped(reg):
+    # Column count 70: two full panels and a ragged one; d + n = 230 rows.
+    S = polish_stack(4, 160, 70, reg)
+    assert_r_factor(tk.blocked_qr_r(torch.from_numpy(S)).numpy(), S)
+
+
+@pytest.mark.parametrize("kappa", [1e2, 1e4])
+def test_blocked_qr_r_plain_ill_conditioned(kappa):
+    # Singular values spaced geometrically from 1 to 1/κ.  Besides the
+    # forward tolerance (4·eps·κ·max|R|), the factor must be good for the
+    # chord iteration: ‖R⁻ᵀ(SᵀS − RᵀR)R⁻¹‖₂ ≤ 8·κ·eps, the contraction a
+    # backward-stable R gives; a Cholesky factor of SᵀS gives κ²·eps, no
+    # contraction at all at κ = 1e4 in float32.
+    B, D, N = 3, 300, 70
+    U = np.linalg.qr(rng.standard_normal((B, D, N)))[0]
+    V = np.linalg.qr(rng.standard_normal((B, N, N)))[0]
+    S = ((U * np.logspace(0.0, -np.log10(kappa), N)) @ np.transpose(V, (0, 2, 1))).astype(np.float32)
+    R = tk.blocked_qr_r(torch.from_numpy(S)).numpy()
+    assert_r_factor(R, S, kappa=kappa)
+    Sd, Rd = S.astype(np.float64), R.astype(np.float64)
+    E = np.einsum("bdi,bdj->bij", Sd, Sd) - np.einsum("bki,bkj->bij", Rd, Rd)
+    Rinv = np.linalg.inv(Rd)
+    contraction = np.linalg.norm(np.transpose(Rinv, (0, 2, 1)) @ E @ Rinv, 2, axis=(1, 2)).max()
+    assert contraction <= 8 * kappa * EPS32, contraction
+
+
+def test_blocked_qr_r_plain_zero_column_and_nan_lane():
+    # A zero column is floored at sqrt(tiny) on the diagonal (the narrow
+    # kernel's floor) with zeros beside it; a NaN stays in its own instance.
+    S = rng.standard_normal((4, 90, 40)).astype(np.float32)
+    S[1, :, 35] = 0.0
+    S[3, 7, 2] = np.nan
+    R = tk.blocked_qr_r(torch.from_numpy(S)).numpy()
+    floor = np.sqrt(np.finfo(np.float32).tiny)
+    np.testing.assert_allclose(R[1, 35, 35], floor, rtol=1e-6)
+    assert np.all(R[1, 35, 36:] == 0) and np.all(R[1, :35, 35] == 0)
+    assert np.isfinite(R[[0, 1, 2]]).all() and np.isnan(R[3]).any()
+    assert_r_factor(R[[0, 2]], S[[0, 2]])
+    # The narrow kernel's plain version has the same floor.
+    assert tk.batched_thin_qr(torch.zeros((1, 4, 2)))[1][0, 0, 0] == np.float32(floor)
+
+
+QR_ROUTES = [
+    # shape, dtype, route
+    ((2, 35, 3), torch.float32, "batched_thin_qr"),
+    ((2, 40, 16), torch.float32, "batched_thin_qr"),
+    ((4, 40, 17), torch.float32, "blocked_qr_r"),
+    ((4, 300, 256), torch.float32, "blocked_qr_r"),
+    ((4, 2048, 20), torch.float32, "blocked_qr_r"),
+    ((3, 40, 17), torch.float32, "linalg"),
+    ((4, 300, 257), torch.float32, "linalg"),
+    ((4, 2049, 20), torch.float32, "linalg"),
+    ((4, 20, 40), torch.float32, "linalg"),
+    ((4, 40, 17), torch.float64, "linalg"),
+    ((40, 17), torch.float32, "linalg"),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,route", QR_ROUTES, ids=lambda v: str(v).replace("torch.", ""))
+def test_qr_r_gate(shape, dtype, route, monkeypatch):
+    # Which wrapper `qr_r` hands a CPU tensor to: the narrow kernel's at
+    # N ≤ 16, the panel kernel's at 16 < N ≤ 256 and a batch of 4 or more,
+    # both float32 with N ≤ D ≤ 2048; torch.linalg.qr otherwise.  `thin_qr`
+    # (Q wanted) never takes the panel kernel.
+    calls = []
+    for name in ("batched_thin_qr", "blocked_qr_r"):
+        orig = getattr(tk, name)
+        monkeypatch.setattr(tk, name, lambda S, _o=orig, _n=name: calls.append(_n) or _o(S))
+    S = torch.from_numpy(rng.standard_normal(shape)).to(dtype)
+    R = tqr.qr_r(S)
+    assert calls == ([] if route == "linalg" else [route])
+    K = min(shape[-2:])
+    assert R.shape == shape[:-2] + (K, shape[-1]) and R.dtype == dtype
+    calls.clear()
+    Q, R2 = tqr.thin_qr(S)
+    assert calls == (["batched_thin_qr"] if route == "batched_thin_qr" else [])
+    torch.testing.assert_close(Q @ R2, S, rtol=1e-4, atol=1e-4)
+
+
+def test_blocked_qr_r_wrapper_contract():
+    # Layout rule: the widest panel that fits in 227 KB beside the partial
+    # sums, leading dimension 4 mod 32.
+    assert tk.qr_panel_layout(1216, 4) == (32, 1220) and tk.qr_panel_layout(1540, 4) == (32, 1540)
+    assert tk.qr_panel_layout(1541, 4) == (16, 1572) and tk.qr_panel_layout(2048, 4) == (16, 2052)
+    assert tk.qr_panel_layout(2048, 8) == (8, 2052) and tk.qr_panel_layout(17, 4) == (32, 36)
+    assert tk.qr_panel_layout(10 ** 6, 4) is None
+    # Empty batches and refused operands; nothing on the CPU counts as a launch.
+    tk.reset_launches()
+    assert tk.blocked_qr_r(torch.zeros((0, 50, 20))).shape == (0, 20, 20)
+    assert tk.blocked_qr_r(torch.zeros((3, 50, 0))).shape == (3, 0, 0)
+    with pytest.raises(ValueError):
+        tk.blocked_qr_r(torch.zeros((2, 20, 50)))           # D < N
+    with pytest.raises(ValueError):
+        tk.blocked_qr_r(torch.zeros((50, 20)))              # no batch
+    # A tensor that is on neither the CPU nor a CUDA device is refused, and
+    # the launch path refuses a CPU tensor and a missing library: it raises,
+    # it never falls back to the plain version.
+    with pytest.raises(ValueError):
+        tk.blocked_qr_r(torch.zeros((2, 50, 20), device="meta"))
+    with pytest.raises(ValueError):
+        tk._require_cuda("blocked_qr_r", torch.zeros((2, 50, 20)))
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, OSError, AssertionError)):
+            tk._launch("blocked_qr_r", "benlsip_blocked_qr_r", torch.zeros((2, 50, 20)), 0, 0, 0, 2, 50, 20, 32, 68)
+    assert tk.LAUNCHES["blocked_qr_r"] == 0
