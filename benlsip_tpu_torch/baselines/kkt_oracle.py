@@ -1,9 +1,13 @@
 """Independent first-principles KKT oracle of the port (numpy only).
 
-The port's own copy of `kkt_check_point` from the JAX package's
+The port's own copy of `kkt_check_point` and
+`kkt_check_classic_battery` from the JAX package's
 `baselines/kkt_oracle.py`: the port imports nothing of that package, not
 even a module that needs only numpy.  `tests/test_torch_package.py` holds
-the two copies to the same verdicts.
+the two copies to the same verdicts.  The check itself is numpy and shares
+no code with the solver; the battery loop solves with the port's `solve`,
+evaluates the port's callables at the solution and hands numpy arrays
+over.
 
 The solver certifies solutions with the exact-projection criticality
 measure ‖P_Ω(x − ∇L) − x‖ (`ops/polyproject.py`).  This module checks the
@@ -31,6 +35,7 @@ package's copy); callers report how many verdicts carry it.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -179,3 +184,63 @@ def kkt_check_point(
     if degenerate_all_active:  # scipy-less fallback: sign check skipped
         out["degenerate_all_active"] = True
     return out
+
+
+def kkt_check_problem_point(problem, x, **tols) -> dict:
+    """`kkt_check_point` of a `solver.api.Problem` at the tensor x (n,):
+    r, J, c, C come from the problem's own callables on x's device and
+    cross to the oracle as float64 numpy arrays."""
+    import torch
+
+    x = x.detach().to(torch.float64)
+    fns, poly = problem.build(x.shape[0], torch.float64, x.device)
+    f64 = lambda t: t[0].detach().cpu().numpy().astype(np.float64)
+    X = x[None]
+    c, C, A = f64(fns.nlconstraints(X)), f64(fns.jac_nlcons(X)), f64(poly.A)
+    return kkt_check_point(
+        f64(X), f64(fns.residuals(X)), f64(fns.jac_res(X)),
+        c if c.size else None, C if C.size else None,
+        A if A.size else None, f64(poly.b), f64(poly.xl), f64(poly.xu), **tols,
+    )
+
+
+def kkt_check_classic_battery(options=None, device=None) -> dict:
+    """Solve every classic HS/MGH battery entry (problems/classic.py) in
+    float64 on `device` (None: the CUDA card) and run the independent
+    oracle on each solution.
+
+    Returns the JAX package's keys {"battery_oracle_checked",
+    "battery_oracle_agree", "battery_oracle_fail": [names]} and
+    "battery_details": name → {x, converged, outer_iters, inner_iters,
+    seconds, verdict} for callers that report per problem.
+    """
+    from ..problems.classic import REGISTRY
+    from ..solver.api import solve
+    from ..solver.options import SolverOptions
+
+    fails, details = [], {}
+    for name in sorted(REGISTRY):
+        rec = REGISTRY[name]
+        problem = rec.make_problem()
+        opts = options or (
+            SolverOptions(max_outer_iter=100, **rec.options)
+            if rec.options
+            else SolverOptions(max_outer_iter=100, max_inner_iter=300)
+        )
+        t0 = time.perf_counter()
+        x, _, info = solve(problem, rec.x0(device=device), opts)
+        converged = bool(info.converged)   # reading it waits for the device
+        seconds = time.perf_counter() - t0
+        verdict = kkt_check_problem_point(problem, x)
+        details[name] = {
+            "x": x.cpu().numpy(), "converged": converged, "outer_iters": int(info.outer_iters),
+            "inner_iters": int(info.inner_iters), "seconds": seconds, "verdict": verdict,
+        }
+        if not (converged and verdict["ok"]):
+            fails.append(name)
+    return {
+        "battery_oracle_checked": len(details),
+        "battery_oracle_agree": len(details) - len(fails),
+        "battery_oracle_fail": fails,
+        "battery_details": details,
+    }

@@ -18,7 +18,7 @@ import torch
 
 from .._batched import tree_map
 from ..ops.constraints import Polyhedron
-from ..solver.api import NLSFunctions
+from ..solver.api import NLSFunctions, autodiff_jacobian, empty_jac_nlcons, empty_nlconstraints
 from ..solver.options import SolverOptions
 from ..solver.outer import SolveInfo, solve_fixed_point
 
@@ -48,19 +48,16 @@ class BatchedProblem:
 
     def instance_fns(self, theta) -> NLSFunctions:
         """Bind the batch's theta into batched callables of X (B, n)."""
-        vmap, jacfwd = torch.func.vmap, torch.func.jacfwd
+        vmap = torch.func.vmap
         res = vmap(self.residuals)
-        jr = vmap(self.jac_res if self.jac_res is not None else jacfwd(self.residuals))
+        # A hand-written Jacobian is passed through as given; an autodiff
+        # one is cast to x's dtype (`autodiff_jacobian`).
+        jr = vmap(self.jac_res if self.jac_res is not None else autodiff_jacobian(self.residuals))
         if self.nlconstraints is None:
-            # p == 0: empty blocks, no autodiff of a zero-output function.
-            def nlc(X):
-                return X.new_zeros((X.shape[0], 0))
-
-            def jc(X):
-                return X.new_zeros((X.shape[0], 0, X.shape[1]))
+            nlc, jc = empty_nlconstraints, empty_jac_nlcons   # p == 0
         else:
             nlc_v = vmap(self.nlconstraints)
-            jc_v = vmap(self.jac_nlcons if self.jac_nlcons is not None else jacfwd(self.nlconstraints))
+            jc_v = vmap(self.jac_nlcons if self.jac_nlcons is not None else autodiff_jacobian(self.nlconstraints))
 
             def nlc(X):
                 return nlc_v(X, theta)

@@ -13,12 +13,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .batch.vmap_solve import BatchedProblem
 from .solver.outer import SolveInfo
 
 
 def _t(a, device=None, dtype: torch.dtype = torch.float64):
-    return None if a is None else torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return None if a is None else torch.as_tensor(np.array(a), dtype=dtype, device=resolve_device(device))
 
 
 def problem_from_numpy(
@@ -28,16 +29,19 @@ def problem_from_numpy(
     xu: Optional[np.ndarray],
     poly_batched: bool,
     residuals: Callable,
+    device=None,
 ) -> BatchedProblem:
-    """A BatchedProblem (float64, CPU) from numpy constraint data and a
-    per-instance torch residual of (x, theta_i)."""
+    """A float64 BatchedProblem on `device` (None: the CUDA card) from
+    numpy constraint data and a per-instance torch residual of (x, theta_i)."""
     return BatchedProblem(
-        residuals=residuals, A=_t(A), b=_t(b), xl=_t(xl), xu=_t(xu), poly_batched=poly_batched,
+        residuals=residuals, A=_t(A, device), b=_t(b, device), xl=_t(xl, device), xu=_t(xu, device),
+        poly_batched=poly_batched,
     )
 
 
 def theta_from_numpy(theta_np, device=None, dtype: torch.dtype = torch.float64):
-    """Problem data theta (a numpy array or a dict of them) as tensors."""
+    """Problem data theta (a numpy array or a dict of them) as tensors on
+    `device` (None: the CUDA card)."""
     if isinstance(theta_np, dict):
         return {k: theta_from_numpy(v, device, dtype) for k, v in theta_np.items()}
     return _t(theta_np, device, dtype)

@@ -1,1 +1,1 @@
-"""Problem-family generators."""
+"""Problem fixtures and family generators of the port."""

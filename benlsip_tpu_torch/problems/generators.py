@@ -1,8 +1,11 @@
-"""Problem-family generators (PyTorch port of `exp_fit_family` and
-`dense_quadratic_family` in `benlsip_tpu/problems/generators.py`).
+"""Problem-family generators (PyTorch port of `exp_fit_family`,
+`sphere_family` and `dense_quadratic_family` in
+`benlsip_tpu/problems/generators.py`).
 
 The data come from the same numpy recipe as the JAX generators, so theta,
-the constraint data and X0 are bit-identical for the same arguments.
+the constraint data and X0 are bit-identical for the same arguments.  The
+tensors are created on `device`; None is the CUDA card
+(`_device.resolve_device`).
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..batch.vmap_solve import BatchedProblem
 
 Tensor = torch.Tensor
@@ -42,7 +46,7 @@ def exp_fit_family(
     y = a[:, None] * np.exp(-bb[:, None] * t[None, :]) + c[:, None]
     y += 0.01 * rng.standard_normal((B, d))
 
-    kw = {"dtype": dtype, "device": device}
+    kw = {"dtype": dtype, "device": resolve_device(device)}
     theta = {
         "t": torch.as_tensor(np.ascontiguousarray(np.broadcast_to(t, (B, d))), **kw),
         "y": torch.as_tensor(y, **kw),
@@ -62,6 +66,49 @@ def exp_fit_family(
     X0 = torch.as_tensor(np.stack([np.ones(B), np.full(B, 1.0), np.zeros(B)], axis=1), **kw)
     if with_constraints:
         X0[:, 2] = theta["y"][:, 0] - X0[:, 0]   # start feasible w.r.t. a + c = y0
+    return bp, theta, X0
+
+
+def _sphere_residuals(x: Tensor, th: dict) -> Tensor:
+    base = torch.stack(
+        [
+            x[0] ** 2 + x[1] ** 2 - 2 * x[0] + torch.sin(x[0] + x[1]) - 1.5,
+            x[0] * x[1] + 0.5 * torch.cos(2 * x[0]) - 0.8,
+            (x[0] - 1.0) ** 2 + (x[1] - 0.5) ** 2 - x[2],
+            x[2] ** 2 - x[0] + 0.3 * torch.sin(x[2]) - 0.2,
+        ]
+    )
+    return base + th["off"]
+
+
+def _sphere_nlconstraints(x: Tensor, th: dict) -> Tensor:
+    return torch.stack([x[0] ** 2 + x[1] ** 2 + x[2] ** 2 - th["rad"]])
+
+
+def sphere_family(
+    B: int, seed: int = 0, dtype: torch.dtype = torch.float64, device=None,
+) -> Tuple[BatchedProblem, dict, Tensor]:
+    """Batched perturbations of the sphere-regression fixture
+    (`problems/sphere_regression.py`): per-instance shifts of the residual
+    offsets and the sphere radius.  Shapes n=3, d=4, p=1, m=1; the
+    Jacobians come from autodiff.  Returns (BatchedProblem, theta, X0) on
+    `device`.
+    """
+    rng = np.random.default_rng(seed)
+    kw = {"dtype": dtype, "device": resolve_device(device)}
+    theta = {
+        "off": torch.as_tensor(rng.uniform(-0.1, 0.1, (B, 4)), **kw),
+        "rad": torch.as_tensor(3.0 + rng.uniform(-0.2, 0.2, B), **kw),
+    }
+    bp = BatchedProblem(
+        residuals=_sphere_residuals,
+        nlconstraints=_sphere_nlconstraints,
+        A=torch.as_tensor([[1.0, 2.0, -1.0]], **kw),
+        b=torch.as_tensor([0.5], **kw),
+        xl=torch.as_tensor([-2.0, -1.5, 0.0], **kw),
+        xu=torch.as_tensor([2.0, 1.5, 2.0], **kw),
+    )
+    X0 = torch.as_tensor([1.0, 0.5, 1.5], **kw).expand(B, 3).contiguous()
     return bp, theta, X0
 
 
@@ -120,7 +167,7 @@ def dense_quadratic_family(
     y = x_true @ J.T + 0.01 * rng.standard_normal((B, d))
     b = x_true[0] @ A.T   # shared rhs: every instance projects onto the same plane
 
-    kw = {"dtype": dtype, "device": device}
+    kw = {"dtype": dtype, "device": resolve_device(device)}
     bp = _shared_linear_problem(J, A, b, 0.8, kw)
     # Feasible start: zero projected onto {Ax = b} (bounds hold at 0).
     x0 = np.clip(A.T @ np.linalg.solve(A @ A.T, b), -0.79, 0.79)

@@ -9,7 +9,8 @@ Phases (any failure raises and the script exits non-zero):
 1. the card's name and power limit (nvidia-smi); TF32 is off;
 2. build the CUDA kernels of benlsip_tpu_torch from csrc/ (nvcc, sm_90a);
 3. each of the six kernels against its plain PyTorch version on the card,
-   in float32, at both paths' shapes and the kernel tests' shapes, with
+   in float32, at every path's shapes (batches of one included) and the
+   kernel tests' shapes, with
    the NaN, positive-diagonal, empty-batch and refused-operand checks; the
    two fused kernels also with a batch-shared (stride-0) A, ragged n,
    degenerate lanes and reg > 0, and against the call site they replace;
@@ -37,8 +38,23 @@ Phases (any failure raises and the script exits non-zero):
    must be launched in both certify modes, the oracle must agree
    on all 64, and a batch of 8 must agree with the port's CPU run; the warm
    wall is split into bulk and certification;
-6. with `--profile` only: each path's warm wall split into bulk and
-   certification, and the device's busy share and kernel count from
+6. the config-1 path, through the public entry points: `solve` and
+   `tralcnllss` on the sphere-regression fixture in float64 on the card
+   (analytic and autodiff Jacobians, a warm start from y) against the
+   known optimum, the KKT oracle and the port's CPU run; the same fixture
+   and a bound-only problem in float32 at B = 1, where the kernels run on
+   grids of one block and a problem without equalities launches no factor
+   or projection kernel; the 18 classic HS/MGH problems, each converged,
+   feasible, at its published optimum and passed by the oracle;
+   `solve_mixed_precision` on `sphere_family(1024, seed=0)` (one nonlinear
+   constraint per instance) in both certify modes, at least 90% certified
+   at pix, feas ≤ 1.49e-8, oracle on 128 certified lanes with (c, C), the
+   first 64 instances against the port's CPU run; `solve_qp`,
+   `with_inequalities` and `least_squares` once each against a dense KKT
+   solve, the published optimum and scipy;
+7. with `--profile` only: each path's warm wall split into bulk and
+   certification, how many lanes the fused polish certifies alone and with
+   its re-polish buckets, and the device's busy share and kernel count from
    torch.profiler, with the time and calls of cuSOLVER's `geqr2*` and of
    the panel QR kernel.
 
@@ -81,6 +97,8 @@ PATH_KERNELS = ("masked_aat_cholesky", "project_tangent", "batched_cho_solve", "
 CONFIG3_KERNELS = PATH_KERNELS + ("blocked_qr_r",)
 # Device kernels of one warm run before the panel QR kernel (H100 80GB HBM3, 700 W).
 DEVICE_KERNELS_BEFORE = {"config 2": "68,888-68,892", "config 3": "17,405-17,413"}
+# The sphere-regression fixture's optimum (float64 solves of both packages agree on these digits).
+SPHERE_X_STAR = (1.37471722, 0.08763489, 1.04998699)
 EPS32 = float(np.finfo(np.float32).eps)
 
 
@@ -233,7 +251,7 @@ def phase_kernels(kern) -> dict:
     def worst(name, err):
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
 
-    for B, M in ((1024, 1), (1024, 2), (1024, 3), (1024, 5), (64, 6), (1024, 8), (1024, 16)):
+    for B, M in ((1024, 1), (1024, 2), (1024, 3), (1024, 5), (64, 6), (1024, 8), (1024, 16), (1, 1), (1, 2), (1, 3), (1, 6), (1, 16)):
         K = spd(B, M)
         L = kern.batched_cholesky(K)
         worst("batched_cholesky", _check_close(f"cholesky {B}x{M}x{M}", L, kern.batched_cholesky_plain(K)))
@@ -250,7 +268,8 @@ def phase_kernels(kern) -> dict:
     if not torch.equal(torch.isnan(L), torch.isnan(kern.batched_cholesky_plain(K))):
         raise AssertionError("cholesky: NaN pattern differs from the plain version")
 
-    for B, D, N in ((1024, 35, 3), (1024, 3, 1), (64, 192, 6), (200, 32, 3), (140, 16, 8)):
+    for B, D, N in ((1024, 35, 3), (1024, 3, 1), (64, 192, 6), (200, 32, 3), (140, 16, 8),
+                    (1024, 3, 2), (1024, 7, 3), (1, 3, 1), (1, 3, 2), (1, 7, 3), (1, 35, 3), (1, 192, 6)):
         A = torch.as_tensor(rng.standard_normal((B, D, N)), dtype=f32, device=dev)
         Q, R = kern.batched_thin_qr(A)
         Qp, Rp = kern.batched_thin_qr_plain(A)
@@ -322,7 +341,25 @@ def _check_fused(kern, rng, worst) -> None:
     cases = [(512, 1, 3, False), (64, 6, 192, True), (64, 6, 192, False)]
     cases += [(130, m, n, shared) for m in (2, 3, 5, 8, 16) for n, shared in ((37, False), (200, True))]
     cases += [(130, 3, 5000, False)]   # n has no cap: the lanes stride over it
-    for B, m, n, shared in cases:
+    # One instance, as a single solve launches them: a regular lane (B = 1)
+    # and the degenerate pair alone (B = 2).
+    single = [(1, 2, 5), (1, 1, 3), (1, 3, 4), (1, 1, 2), (1, 6, 192), (2, 2, 5)]
+    for B, m, n, shared in cases + [(B, m, n, False) for B, m, n in single]:
+        if (B, m, n) in single:
+            A, fixed, r = (t[:1].contiguous() if B == 1 else t[1:].contiguous() for t in _fused_case(rng, 3, m, n, False, dev))
+            tag = f"{B}x{m}x{n}"
+            for reg in (0.0, 1e-3):
+                L, Lp = kern.masked_aat_cholesky(A, fixed, reg), kern.masked_aat_cholesky_plain(A, fixed, reg)
+                atol = KERNEL_ATOL * math.sqrt(n) * float(torch.linalg.vector_norm(A, dim=-1).max())
+                worst("masked_aat_cholesky", _check_same_nan(f"masked_aat_cholesky {tag} reg={reg}", L, Lp, atol))
+            for unmasked in (False, True):   # L of reg = 1e-3: finite in every lane
+                P = kern.project_tangent(A, L, fixed, r, unmasked_output=unmasked)
+                Pp = kern.project_tangent_plain(A, L, fixed, r, unmasked_output=unmasked)
+                atol = KERNEL_ATOL * math.sqrt(n) * float(r.abs().max())
+                worst("project_tangent", _check_same_nan(f"project_tangent {tag} unmasked={unmasked}", P, Pp, atol))
+            if B == 1 and not (torch.isfinite(kern.masked_aat_cholesky(A, fixed)).all() and torch.isfinite(P).all()):
+                raise AssertionError(f"fused kernels {tag}: a regular single instance must stay finite")
+            continue
         A, fixed, r = _fused_case(rng, B, m, n, shared, dev)
         if shared and A.stride(0) != 0:
             raise AssertionError("the shared A must reach the kernels as a stride-0 view")
@@ -439,6 +476,7 @@ def _check_blocked_qr(kern, rng, worst) -> None:
         "6x534x150": normal(6, 534, 150),                # D not a multiple of 4, ragged last panel
         "4x1540x70 (the tallest at width 32)": normal(4, 1540, 70),
         "4x600x96 kappa=1e4": conditioned(rng, 4, 600, 96, 1e4, dev),
+        "1x300x40 one instance": normal(1, 300, 40),
     }
     for tag, S in cases.items():
         S0 = S.clone()
@@ -598,13 +636,44 @@ def _time_kernels(kern, rng, rec) -> None:
             print(f"{name} {case['shape']}: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
                   f"{yard.replace('_', ' ')} {t[yard]:.4f} ms, bound {case['bound']['bound_us']:.4f} us "
                   f"({case['bound']['bound_by']}: {case['bound']['bytes']} B, {case['bound']['flops']} flop)")
-    W = torch.as_tensor(rng.standard_normal((1024, 3, 1)), dtype=f32, device=dev)
-    t = _in_turns({"plain": lambda: kern.batched_thin_qr_plain(W), "kernel": lambda: kern.batched_thin_qr(W),
-                   "library": lambda: torch.linalg.qr(W, mode="reduced")})
-    bound = _qr_bound(*W.shape)
-    rec["batched_thin_qr"].update({"ms_1024x3x1": t["kernel"], "plain_ms_1024x3x1": t["plain"],
-                                   "library_ms_1024x3x1": t["library"], "bound_us_1024x3x1": bound["bound_us"]})
-    print(f"batched_thin_qr 1024x3x1: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, library {t['library']:.4f} ms, "
+    # The narrow QR at the other call sites' shapes: the multiplier estimate's
+    # thin_qr(Cᵀ) (config 2's polish has the same shape), the config-1
+    # polish's qr_r([JZ; D]) and thin_qr(Wᵀ), and one instance.
+    for shape in ((1024, 3, 1), (1024, 7, 3), (1024, 3, 2), (1, 3, 1)):
+        W = torch.as_tensor(rng.standard_normal(shape), dtype=f32, device=dev)
+        _time_extra(rec, "batched_thin_qr", shape, _qr_bound(*shape), {
+            "plain": lambda W=W: kern.batched_thin_qr_plain(W), "kernel": lambda W=W: kern.batched_thin_qr(W),
+            "library": lambda W=W: torch.linalg.qr(W, mode="reduced")})
+    # One instance (a float32 `solve` at B = 1), n = 3, m = 1.
+    A, fixed, r = (t[:1].contiguous() for t in _fused_case(rng, 3, 1, 3, False, dev))
+    L = kern.masked_aat_cholesky(A, fixed)
+    b = torch.as_tensor(rng.standard_normal((1, 1)), dtype=f32, device=dev)
+    n_free = int((~fixed).sum())
+    _time_extra(rec, "masked_aat_cholesky", (1, 1, 3), _bound(12 + 3 + 4, 2 * n_free + 1 / 3), {
+        "plain": lambda: kern.masked_aat_cholesky_plain(A, fixed), "kernel": lambda: kern.masked_aat_cholesky(A, fixed),
+        "old_site": lambda: old_factor_site(kern, A, fixed)})
+    _time_extra(rec, "project_tangent", (1, 1, 3), _bound(12 + 4 + 3 + 24, 4 * n_free + 2), {
+        "plain": lambda: kern.project_tangent_plain(A, L, fixed, r), "kernel": lambda: kern.project_tangent(A, L, fixed, r),
+        "old_site": lambda: old_project_site(kern, A, L, fixed, r)})
+    _time_extra(rec, "batched_cho_solve", (1, 1), _bound(12, 2), {
+        "plain": lambda: kern.batched_cho_solve_plain(L, b), "kernel": lambda: kern.batched_cho_solve(L, b),
+        "library": lambda: torch.cholesky_solve(b.unsqueeze(-1), L)})
+    K = (L @ L.mT).contiguous()
+    _time_extra(rec, "batched_cholesky", (1, 1, 1), _bound(8, 1 / 3), {
+        "plain": lambda: kern.batched_cholesky_plain(K), "kernel": lambda: kern.batched_cholesky(K),
+        "library": lambda: torch.linalg.cholesky_ex(K)})
+
+
+def _time_extra(rec: dict, name: str, shape: tuple, bound: dict, fns: dict) -> None:
+    """Time one kernel at one more shape, in turns with its plain version
+    and its library call (or the call site it replaces); the record's keys
+    carry the shape as a suffix."""
+    t = _in_turns(fns)
+    yard = "library" if "library" in fns else "old_site"
+    suffix = "_" + "x".join(map(str, shape))
+    rec[name].update({"ms" + suffix: t["kernel"], "plain_ms" + suffix: t["plain"], f"{yard}_ms" + suffix: t[yard],
+                      "bound_us" + suffix: bound["bound_us"], "bound_by" + suffix: bound["bound_by"]})
+    print(f"{name} {suffix[1:]}: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, {yard.replace('_', ' ')} {t[yard]:.4f} ms, "
           f"bound {bound['bound_us']:.4f} us ({bound['bound_by']}: {bound['bytes']} B, {bound['flops']} flop)")
 
 
@@ -681,7 +750,7 @@ def phase_slice(kern) -> dict:
         raise AssertionError(f"oracle agrees on {agree}/128")
 
     # The card against the port's CPU run (plain versions) on a small batch.
-    bp_s, th_s, X0_s = exp_fit_family(64, d=32, seed=42, dtype=torch.float64)
+    bp_s, th_s, X0_s = exp_fit_family(64, d=32, seed=42, dtype=torch.float64, device="cpu")
     Xc, _, ic = solve_mixed_precision(bp_s, th_s, X0_s, opts)
     bp_g, th_g, X0_g = exp_fit_family(64, d=32, seed=42, dtype=torch.float64, device=dev)
     Xg, _, ig = solve_mixed_precision(bp_g, th_g, X0_g, opts)
@@ -770,7 +839,7 @@ def phase_config3(kern) -> dict:
     if agree != B:
         raise AssertionError(f"config 3: oracle agrees on {agree}/{B}")
 
-    bp_c, th_c, X0_c = dense_quadratic_family(8, n=n, d=d, m=m, seed=3, dtype=torch.float64)
+    bp_c, th_c, X0_c = dense_quadratic_family(8, n=n, d=d, m=m, seed=3, dtype=torch.float64, device="cpu")
     Xc, _, ic = solve_mixed_precision(bp_c, th_c, X0_c, opts, chunk=8)
     bp_g, th_g, X0_g = dense_quadratic_family(8, n=n, d=d, m=m, seed=3, dtype=torch.float64, device=dev)
     Xg, _, ig = solve_mixed_precision(bp_g, th_g, X0_g, opts, chunk=8)
@@ -783,6 +852,227 @@ def phase_config3(kern) -> dict:
             "host_cold_s": host_cold, "host_warm_s": host_warm, "bulk_s": bulk}
 
 
+def _require(ok: bool, msg: str) -> None:
+    if not ok:
+        raise AssertionError(msg)
+
+
+def _single_solves(kern) -> dict:
+    """Config 1, steps 1-2: one instance through `solve` and `tralcnllss`."""
+    from benlsip_tpu_torch import SolverOptions, solve, tralcnllss
+    from benlsip_tpu_torch.baselines.kkt_oracle import kkt_check_problem_point
+    from benlsip_tpu_torch.problems import rosenbrock, sphere_regression as sr
+
+    opts = SolverOptions(max_outer_iter=100, max_inner_iter=250)
+    x_star = torch.tensor(SPHERE_X_STAR, dtype=torch.float64)
+
+    def timed(fn):
+        fn()
+        (out, wall) = _walled(fn)
+        return out, wall
+
+    # Float64 on the card (x0() creates its tensor on the default device, the card).
+    problem = sr.make_problem()
+    (x, y, info), wall = timed(lambda: solve(problem, sr.x0(), opts))
+    (xc, _, info_c), wall_cpu = timed(lambda: solve(problem, sr.x0(device="cpu"), opts))
+    feas = float(torch.linalg.vector_norm(sr.nlconstraints(x)))
+    verdict = kkt_check_problem_point(problem, x)
+    print(f"config 1 solve(sphere_regression) float64: x = {x.tolist()}, converged {bool(info.converged)}, ||c|| {feas:.3e}, "
+          f"outer {int(info.outer_iters)}, inner {int(info.inner_iters)}, |x - x*| {float((x.cpu() - x_star).abs().max()):.3e}, "
+          f"|x - CPU run| {float((x.cpu() - xc).abs().max()):.3e}, oracle {verdict['ok']}; "
+          f"warm wall card {wall:.3f} s, CPU {wall_cpu:.3f} s ({wall / wall_cpu:.2f}x)")
+    _require(x.device.type == "cuda" and x.dtype == torch.float64 and all(f.ndim == 0 for f in info),
+             "solve: x must be float64 on the card and SolveInfo 0-dim")
+    _require(bool(info.converged) and feas < 1.5e-8, f"solve: converged {bool(info.converged)}, ||c|| {feas:.3e}")
+    _require(float((x.cpu() - x_star).abs().max()) <= 1e-6, "solve: x is not the fixture's optimum")
+    _require(verdict["ok"], f"solve: the KKT oracle rejects x: {verdict}")
+    _require(bool(info_c.converged) and float((x.cpu() - xc).abs().max()) <= 1e-9, "solve: the card disagrees with the CPU run")
+
+    # The reference-parity entry, autodiff Jacobians, a warm start from y.
+    xt, _, it = tralcnllss(sr.x0(), sr.residuals, sr.jac_res, sr.nlconstraints, sr.jac_nlcons,
+                           sr.A, sr.b, sr.xl, sr.xu, max_outer_iter=100, max_inner_iter=250)
+    xa, _, ia = solve(sr.make_problem(analytic_jacobians=False), [1.0, 0.5, 1.5], opts)   # a list x0: created on the card
+    xw, _, iw = solve(problem, sr.x0(), opts, y0=y)
+    print(f"config 1 tralcnllss |dx| {float((xt - x).abs().max()):.3e}; autodiff |dx| {float((xa - x).abs().max()):.3e}; "
+          f"warm start from y: outer {int(iw.outer_iters)} (cold {int(info.outer_iters)}), |dx| {float((xw - x).abs().max()):.3e}")
+    _require(bool(it.converged) and torch.equal(xt, x), "tralcnllss: not the same solve as solve()")
+    _require(bool(ia.converged) and xa.device.type == "cuda" and float((xa - x).abs().max()) <= 1e-6, "solve: autodiff Jacobians reach another point")
+    _require(bool(iw.converged) and int(iw.outer_iters) <= int(info.outer_iters) and float((xw - x).abs().max()) <= 1e-7,
+             "solve: the warm start from y must converge to the same x in no more outer iterations")
+
+    # Float32 at B = 1: every kernel of the path on a grid of one block.
+    kern.reset_launches()
+    (x32, _, i32), _ = _walled(lambda: solve(problem, sr.x0(torch.float32), opts))
+    launches = dict(kern.LAUNCHES)
+    _, wall32 = _walled(lambda: solve(problem, sr.x0(torch.float32), opts))
+    print(f"config 1 solve(sphere_regression) float32, B = 1: converged {bool(i32.converged)}, pix {float(i32.pix):.3e}, "
+          f"feas {float(i32.feas):.3e}, |x - x*| {float((x32.cpu().double() - x_star).abs().max()):.3e}, "
+          f"warm wall {wall32:.3f} s, launches {launches}")
+    _require(x32.dtype == torch.float32 and bool(i32.converged) and float((x32.cpu().double() - x_star).abs().max()) <= 1e-3,
+             "float32 solve at B = 1: not converged at the float32 tolerance")
+    _check_launched("config 1 float32 B = 1", launches)
+    # No equalities (m = 0): no factor and no projection launch.
+    kern.reset_launches()
+    xr, _, ir = solve(rosenbrock.make_problem(bounded=True), rosenbrock.x0(torch.float32), SolverOptions())
+    no_eq = dict(kern.LAUNCHES)
+    print(f"config 1 solve(rosenbrock, bounded) float32, m = 0: x = {xr.tolist()}, converged {bool(ir.converged)}, launches {no_eq}")
+    _require(bool(ir.converged) and float((xr.cpu() - 1.0).abs().max()) <= 1e-3, "float32 bounded Rosenbrock: not at (1, 1)")
+    _require(no_eq["masked_aat_cholesky"] == 0 and no_eq["project_tangent"] == 0, "m = 0 must launch no factor or projection kernel")
+    return {"launches_b1": launches, "solve_f64_s": wall, "solve_f64_cpu_s": wall_cpu, "solve_f32_s": wall32}
+
+
+def _classic_battery() -> dict:
+    """Config 1, step 3: the 18 classic problems in float64 on the card."""
+    from benlsip_tpu_torch import is_feasible
+    from benlsip_tpu_torch.baselines.kkt_oracle import kkt_check_classic_battery
+    from benlsip_tpu_torch.problems.classic import REGISTRY
+
+    t0 = time.perf_counter()
+    res = kkt_check_classic_battery()   # device=None: the card
+    total = time.perf_counter() - t0
+    details = res["battery_details"]
+    for name, d in details.items():
+        rec = REGISTRY[name]
+        problem = rec.make_problem()
+        x = torch.as_tensor(d["x"])
+        fns, poly = problem.build(x.shape[0], torch.float64, "cpu")
+        cx = fns.nlconstraints(x[None])[0]
+        f = 0.5 * float((fns.residuals(x[None]) ** 2).sum())
+        err = None if rec.x_star is None else float((x - torch.tensor(rec.x_star, dtype=torch.float64)).abs().max())
+        print(f"config 1 battery {name}: outer {d['outer_iters']}, inner {d['inner_iters']}, {d['seconds']:.3f} s, "
+              f"f {f:.6e}, |x - x*| {'n/a' if err is None else format(err, '.3e')}, oracle {d['verdict']['ok']}")
+        _require(d["converged"] and bool(torch.isfinite(x).all()), f"battery {name}: not converged")
+        _require(bool(is_feasible(poly, x[None])[0]), f"battery {name}: polyhedron infeasible")
+        _require(cx.numel() == 0 or float(torch.linalg.vector_norm(cx)) < CERT_PIX, f"battery {name}: ||c|| too large")
+        _require(rec.f_star is None or f - rec.f_star < 1e-8 + 1e-6 * abs(rec.f_star), f"battery {name}: f = {f} vs f* = {rec.f_star}")
+        _require(err is None or err < rec.x_tol, f"battery {name}: |x - x*| = {err} (tol {rec.x_tol})")
+        _require(d["verdict"]["ok"], f"battery {name}: the KKT oracle rejects x: {d['verdict']}")
+    flagged = sum(bool(d["verdict"].get("degenerate_all_active")) for d in details.values())
+    print(f"config 1 battery: {res['battery_oracle_agree']}/{res['battery_oracle_checked']} converged and pass the numpy KKT check "
+          f"({flagged} verdicts carry degenerate_all_active), {total:.1f} s in all")
+    _require(res["battery_oracle_checked"] == len(REGISTRY) == 18 and not res["battery_oracle_fail"],
+             f"battery: failed {res['battery_oracle_fail']}")
+    return {"battery_s": total, "slowest": max(details, key=lambda k: details[k]["seconds"]),
+            "slowest_s": max(d["seconds"] for d in details.values())}
+
+
+def _sphere_batch(kern, smi: str) -> dict:
+    """Config 1, step 4: the batched nonlinear-constraint path at full width."""
+    from benlsip_tpu_torch._batched import tree_map
+    from benlsip_tpu_torch.batch.refine import _cast_problem, solve_mixed_precision
+    from benlsip_tpu_torch.problems.generators import sphere_family
+    from benlsip_tpu_torch.solver.options import SolverOptions
+
+    B, chunk = 1024, 512
+    opts = SolverOptions(max_outer_iter=100, max_inner_iter=300)
+    bp, theta, X0 = sphere_family(B, seed=0)   # device=None: the card
+    _require(X0.device.type == "cuda", "sphere_family: the default device must be the card")
+    out, xs = {}, {}
+    for certify in ("auto", "host"):
+        kern.reset_launches()
+        (X, Y, info), cold = _walled(lambda: solve_mixed_precision(bp, theta, X0, opts, chunk=chunk, certify=certify))
+        launches = dict(kern.LAUNCHES)
+        (X2, _, info2), warm = _walled(lambda: solve_mixed_precision(bp, theta, X0, opts, chunk=chunk, certify=certify))
+        ok = info.converged
+        n_cert = int(ok.sum())
+        tag = f"config 1 sphere_family B={B} certify={certify}"
+        print(f"{tag}: certified {n_cert}/{B}, max pix {float(info.pix[ok].max()):.3e}, max feas {float(info.feas[ok].max()):.3e}, "
+              f"cold {cold:.3f} s, warm {warm:.3f} s on {smi}, launches {launches}")
+        _require(X.shape == (B, 3) and Y.shape == (B, 1) and X.dtype == torch.float64 and bool(torch.isfinite(X[ok]).all()),
+                 f"{tag}: X (B, 3) and Y (B, 1) must be finite float64")
+        _require(X.device.type == ("cpu" if certify == "host" else "cuda"), f"{tag}: results on the wrong device")
+        _require(n_cert >= 0.9 * B, f"{tag}: only {n_cert}/{B} certified")
+        _require(float(info.pix[ok].max()) <= CERT_PIX and float(info.feas[ok].max()) <= CERT_PIX, f"{tag}: a certified lane misses 1.49e-8")
+        _require(torch.equal(info2.converged, ok) and float((X2 - X)[ok].abs().max()) <= SMALL_ATOL, f"{tag}: the warm run disagrees with the cold run")
+        _check_launched(tag, launches)
+        _require(launches["blocked_qr_r"] == 0, f"{tag}: n = 3 has no wide QR")
+
+        # The oracle on 128 sampled certified lanes, the nonlinear block handed over.
+        dev = X.device
+        th = tree_map(lambda a: a.to(dev), theta)
+        fns = bp.instance_fns(th)
+        r, J, c, C = (f(X).cpu().numpy() for f in (fns.residuals, fns.jac_res, fns.nlconstraints, fns.jac_nlcons))
+        Xn = X.cpu().numpy()
+        A, b_rhs, xl, xu = (t.cpu().numpy() for t in (bp.A, bp.b, bp.xl, bp.xu))
+        sample = np.random.default_rng(0).choice(np.flatnonzero(ok.cpu().numpy()), size=128, replace=False)
+        agree = _oracle_agreement(tag, [(Xn[i], r[i], J[i], c[i], C[i], A, b_rhs, xl, xu) for i in sample])
+        _require(agree == 128, f"{tag}: oracle agrees on {agree}/128")
+        out[certify] = {"launches": launches, "cold_s": cold, "warm_s": warm, "certified": n_cert}
+        xs[certify] = (X.cpu(), ok.cpu())
+    both = xs["auto"][1] & xs["host"][1]
+    print(f"config 1 sphere_family: certify=host vs auto max |dX| {float((xs['host'][0] - xs['auto'][0])[both].abs().max()):.3e} "
+          f"on the {int(both.sum())} lanes certified by both")
+
+    # The card against the port's CPU run on the first 64 instances.
+    first = lambda a: a[:64]
+    th_g, X0_g = tree_map(first, theta), X0[:64]
+    Xg, _, ig = solve_mixed_precision(bp, th_g, X0_g, opts, chunk=64)
+    Xc, _, ic = solve_mixed_precision(_cast_problem(bp, torch.float64, "cpu"), tree_map(lambda a: a.cpu(), th_g), X0_g.cpu(), opts, chunk=64)
+    same = torch.equal(ig.converged.cpu(), ic.converged)
+    diff = float((Xg.cpu() - Xc)[ic.converged].abs().max())
+    print(f"config 1 sphere_family first 64: card vs CPU max |dX| {diff:.3e}, certified {int(ig.converged.sum())}/64 vs {int(ic.converged.sum())}/64")
+    _require(same and diff <= SMALL_ATOL, "config 1 first 64: the card's run disagrees with the CPU run")
+    return out
+
+
+def _other_surfaces() -> None:
+    """Config 1, step 5: `solve_qp`, `with_inequalities`, `least_squares` once each on the card."""
+    from scipy.optimize import least_squares as scipy_least_squares
+
+    from benlsip_tpu_torch import Problem, SolverOptions, least_squares, solve, solve_qp, with_inequalities
+
+    # Box-and-equality QP against a dense KKT solve on the active set the solver found.
+    rng = np.random.default_rng(3)
+    n, m = 6, 2
+    U, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    Q = (U * np.logspace(0, -np.log10(5.0), n)) @ U.T
+    c, A, b = rng.standard_normal(n), rng.standard_normal((m, n)), 0.1 * rng.standard_normal(m)
+    lo, hi = -0.4, 0.4
+    x, nu, info = solve_qp(Q, c, A, b, xl=lo, xu=hi)
+    xh = x.cpu().numpy()
+    act = (xh <= lo + 1e-6) | (xh >= hi - 1e-6)
+    fr = ~act
+    K = np.block([[Q[np.ix_(fr, fr)], A[:, fr].T], [A[:, fr], np.zeros((m, m))]])
+    sol = np.linalg.solve(K, np.concatenate([-c[fr] - Q[np.ix_(fr, act)] @ xh[act], b - A[:, act] @ xh[act]]))
+    gL = Q @ xh + c + A.T @ sol[fr.sum():]
+    print(f"config 1 solve_qp (n=6, m=2, box): converged {bool(info.converged)}, {int(act.sum())} active bounds, "
+          f"|x_free - dense KKT| {np.abs(xh[fr] - sol[:fr.sum()]).max():.3e}, |nu - dense KKT| {np.abs(nu.cpu().numpy() - sol[fr.sum():]).max():.3e}, "
+          f"stationarity {float(info.stationarity):.3e}")
+    _require(x.device.type == "cuda" and bool(info.converged) and np.abs(xh[fr] - sol[:fr.sum()]).max() <= 1e-7
+             and np.abs(nu.cpu().numpy() - sol[fr.sum():]).max() <= 1e-6, "solve_qp: disagrees with the dense KKT solve")
+    _require(np.all(gL[xh <= lo + 1e-6] >= -1e-6) and np.all(gL[xh >= hi - 1e-6] <= 1e-6) and np.abs(A @ xh - b).max() <= 1e-8,
+             "solve_qp: a bound dual has the wrong sign or Ax != b")
+
+    # HS15 through the slack transform: x* = (0.5, 2), f* = 306.5.
+    prob = Problem(residuals=lambda x: torch.stack([10 * (x[1] - x[0] ** 2), 1 - x[0]]), xu=[0.5, math.inf])
+    lift = with_inequalities(prob, [-2.0, 1.0], nl_ineq=lambda x: torch.stack([x[0] * x[1] - 1.0, x[0] + x[1] ** 2]))
+    z, _, info = solve(lift.problem, lift.z0, SolverOptions(max_outer_iter=60, max_inner_iter=200))
+    xh = lift.unlift(z).cpu().numpy()
+    f = 100 * (xh[1] - xh[0] ** 2) ** 2 + (1 - xh[0]) ** 2
+    print(f"config 1 with_inequalities (HS15): x = {xh.tolist()}, f = {f:.9f}, converged {bool(info.converged)}, slacks {lift.slacks(z)[0].tolist()}")
+    _require(z.device.type == "cuda" and bool(info.converged) and np.abs(xh - [0.5, 2.0]).max() <= 1e-6 and abs(f - 306.5) <= 1e-7,
+             "with_inequalities: HS15 is not at its published optimum")
+
+    # Bounded Rosenbrock against scipy.
+    bounds = ([-2.0, -2.0], [0.8, 2.0])
+    res = least_squares(lambda x: torch.stack([10.0 * (x[1] - x[0] ** 2), 1.0 - x[0]]), np.array([-1.2, 1.0]), bounds=bounds)
+    ref = scipy_least_squares(lambda v: np.array([10.0 * (v[1] - v[0] ** 2), 1.0 - v[0]]), [-1.2, 1.0], bounds=bounds, xtol=1e-15, gtol=1e-12)
+    diff = np.abs(res.x.cpu().numpy() - ref.x).max()
+    print(f"config 1 least_squares (bounded Rosenbrock): {res}, x = {res.x.tolist()}, |x - scipy| {diff:.3e}, active_mask {res.active_mask.tolist()}")
+    _require(res.x.device.type == "cuda" and res.success and res.status > 0 and diff <= 1e-6 and int(res.active_mask[0]) == 1
+             and res.optimality < 1.5e-8, "least_squares: disagrees with scipy on the bounded Rosenbrock")
+
+
+def phase_config1(kern, smi: str) -> dict:
+    """Config 1 (a single small problem) and the nonlinear-constraint path,
+    through the public entry points; every step raises when its gate fails."""
+    res = _single_solves(kern)
+    res.update(_classic_battery())
+    res.update(_sphere_batch(kern, smi))
+    _other_surfaces()
+    return res
+
+
 def phase_profile(kern) -> None:
     """Where the warm time of each path goes: bulk vs certification wall,
     and the device's busy share from torch.profiler (sum of kernel times
@@ -791,9 +1081,10 @@ def phase_profile(kern) -> None:
     and the panel QR kernel's time against the column count and the batch."""
     from torch.profiler import ProfilerActivity, profile
 
+    from benlsip_tpu_torch.batch.polish import sqp_polish_fused
     from benlsip_tpu_torch.batch.refine import _cast_problem, _cast_tree, solve_mixed_precision
     from benlsip_tpu_torch.batch.vmap_solve import solve_batched_chunked
-    from benlsip_tpu_torch.problems.generators import dense_quadratic_family, exp_fit_family
+    from benlsip_tpu_torch.problems.generators import dense_quadratic_family, exp_fit_family, sphere_family
     from benlsip_tpu_torch.solver.options import SolverOptions
 
     dev = torch.device("cuda:0")
@@ -831,6 +1122,8 @@ def phase_profile(kern) -> None:
                      dict(max_outer_iter=40, max_inner_iter=120), 8, 512),
         "config 3": (dense_quadratic_family(64, n=192, d=1024, m=6, seed=3, dtype=torch.float64, device=dev),
                      dict(max_outer_iter=30, max_inner_iter=100), 100, 64),
+        "config 1": (sphere_family(1024, seed=0, dtype=torch.float64, device=dev),
+                     dict(max_outer_iter=100, max_inner_iter=300), 8, 512),
     }
     for tag, ((bp, theta, X0), caps, bulk_inner, chunk) in paths.items():
         opts = SolverOptions(**caps)
@@ -845,15 +1138,25 @@ def phase_profile(kern) -> None:
             walls[name] = _walled(fn)[1]
         print(f"profile {tag}: warm wall bulk {walls['bulk']:.3f} s, "
               f"certification {walls['pipeline'] - walls['bulk']:.3f} s, pipeline {walls['pipeline']:.3f} s")
+        # How far the polish alone certifies the bulk's points: the first
+        # fused polish (rounds=1), then with the re-polish buckets (rounds=2);
+        # the pipeline hands the lanes left over to the full f64 refine.
+        X32 = solve_batched_chunked(bp32, th32, X0.float(), bulk_opts, chunk=chunk)[0]
+        bp64, th64 = _cast_problem(bp, torch.float64, dev), _cast_tree(theta, torch.float64)
+        for rounds in (1, 2):
+            out, wall = _walled(lambda: sqp_polish_fused(bp32, th32, X32, bp64, th64, opts, num_steps=5, rounds=rounds))
+            print(f"profile {tag}: fused polish, rounds={rounds}: certifies {int(out[2].sum())}/{X32.shape[0]} lanes in {wall:.3f} s")
         for _ in range(2):   # two traced runs: the counts should repeat
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # Device activity only: the host's events are read nowhere here, and a
+            # config-1 run has millions of them.
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 wall = _walled(lambda: solve_mixed_precision(bp, theta, X0, opts, chunk=chunk))[1]
             events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
             dev_us = sum(e.self_device_time_total for e in events)
             n_launch = sum(e.count for e in events)
             print(f"profile {tag}: traced wall {wall:.3f} s, device busy {dev_us / 1e6:.3f} s "
                   f"({100 * dev_us / 1e6 / wall:.1f}%), {n_launch} device kernels "
-                  f"(before the panel QR kernel: {DEVICE_KERNELS_BEFORE[tag]})")
+                  f"(before the panel QR kernel: {DEVICE_KERNELS_BEFORE.get(tag, 'not measured')})")
             for pattern in ("geqr2", "blocked_qr_r"):
                 hits = [e for e in events if pattern in e.key]
                 print(f"profile {tag}: {pattern}*: {sum(e.self_device_time_total for e in hits) / 1e3:.2f} ms "
@@ -871,6 +1174,7 @@ def main() -> None:
     rec = phase_kernels(kern)
     res = phase_slice(kern)
     res3 = phase_config3(kern)
+    res1 = phase_config1(kern, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(kern)
     src = "benlsip_tpu_torch/kernels/csrc/"
@@ -886,15 +1190,18 @@ def main() -> None:
     for name, (source, replaces) in sources.items():
         k = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
         own2, own3 = res["launches"][name], res3["launches"][name]
+        own1, own1_b1 = res1["auto"]["launches"][name], res1["launches_b1"][name]
         if name == "batched_cholesky":
-            # Its body runs on both paths inside masked_aat_cholesky, whose
+            # Its body runs on every path inside masked_aat_cholesky, whose
             # record holds those launches; its own wrapper is behind
             # ops/cholesky.cholesky, which no path calls now.
             k["on_path_as"] = "masked_aat_cholesky"
         if name == "blocked_qr_r":
-            # Config 2 (n = 3) has no wide QR and launches it 0 times.
+            # Configs 1 and 2 (n = 3) have no wide QR and launch it 0 times.
             k["launches_config3_host"] = res3["launches_host"][name]
-        k.update({"launches": own2 + own3, "launches_config2": own2, "launches_config3": own3, **rec[name]})
+        k.update({"launches": own2 + own3 + own1 + own1_b1, "launches_config2": own2, "launches_config3": own3,
+                  "launches_config1": own1, "launches_config1_host": res1["host"]["launches"][name],
+                  "launches_config1_single_f32": own1_b1, **rec[name]})
         kernels.append(k)
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -29,7 +29,7 @@ OPTS = dict(max_outer_iter=40, max_inner_iter=120)
 @pytest.mark.parametrize("with_constraints", [True, False])
 def test_generator_bit_identical(with_constraints):
     bp_j, th_j, X0_j = j_exp_fit(24, d=16, seed=5, with_constraints=with_constraints)
-    bp_t, th_t, X0_t = exp_fit_family(24, d=16, seed=5, with_constraints=with_constraints)
+    bp_t, th_t, X0_t = exp_fit_family(24, d=16, seed=5, with_constraints=with_constraints, device="cpu")
     for k in ("t", "y"):
         np.testing.assert_array_equal(th_t[k].numpy(), np.asarray(th_j[k]))
     np.testing.assert_array_equal(X0_t.numpy(), np.asarray(X0_j))
@@ -41,7 +41,7 @@ def test_generator_bit_identical(with_constraints):
     assert bp_t.poly_batched == bp_j.poly_batched
     # float32 data round the same way.
     _, th_j32, X0_j32 = j_exp_fit(8, d=16, seed=5, dtype=jnp.float32)
-    _, th_t32, X0_t32 = exp_fit_family(8, d=16, seed=5, dtype=torch.float32)
+    _, th_t32, X0_t32 = exp_fit_family(8, d=16, seed=5, dtype=torch.float32, device="cpu")
     np.testing.assert_array_equal(th_t32["y"].numpy(), np.asarray(th_j32["y"]))
     np.testing.assert_array_equal(X0_t32.numpy(), np.asarray(X0_j32))
 
@@ -51,7 +51,7 @@ def test_bulk_matches_jax(dtype):
     jd, td = (jnp.float64, torch.float64) if dtype == "f64" else (jnp.float32, torch.float32)
     bp_j, th_j, X0_j = j_exp_fit(16, d=16, seed=0, dtype=jd)
     Xj, _, ij = j_solve(bp_j, th_j, X0_j, JOptions(**OPTS), chunk=16)
-    bp_t, th_t, X0_t = exp_fit_family(16, d=16, seed=0, dtype=td)
+    bp_t, th_t, X0_t = exp_fit_family(16, d=16, seed=0, dtype=td, device="cpu")
     Xt, Yt, it = solve_batched_chunked(bp_t, th_t, X0_t, SolverOptions(**OPTS), chunk=16)
     info = info_to_numpy(it)
     assert Xt.dtype == td and Yt.shape == (16, 0)
@@ -80,7 +80,7 @@ def test_pipeline_reaches_kernel_gate_in_f32(monkeypatch):
             return _orig(*args)
 
         monkeypatch.setattr(kern, name, spy)
-    bp, th, X0 = exp_fit_family(8, d=16, seed=3)
+    bp, th, X0 = exp_fit_family(8, d=16, seed=3, device="cpu")
     X, _, info = solve_mixed_precision(bp, th, X0, SolverOptions(**OPTS), chunk=8)
     assert bool(info.converged.all()) and X.dtype == torch.float64
     for name, dtypes in seen.items():
@@ -91,7 +91,7 @@ def test_pipeline_reaches_kernel_gate_in_f32(monkeypatch):
 def test_chunk_independence_and_poly_helpers():
     # Per-lane results do not depend on the chunk width: each lane's loops
     # stop on its own predicate, so chunk=16 and chunk=8 give identical X.
-    bp, th, X0 = exp_fit_family(16, d=16, seed=2, dtype=torch.float32)
+    bp, th, X0 = exp_fit_family(16, d=16, seed=2, dtype=torch.float32, device="cpu")
     opts = SolverOptions(**OPTS)
     X16, _, i16 = solve_batched_chunked(bp, th, X0, opts, chunk=16)
     X8, _, i8 = solve_batched_chunked(bp, th, X0, opts, chunk=8)

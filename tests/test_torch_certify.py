@@ -51,7 +51,7 @@ def test_fused_polish_matches_jax():
     opts_j = JOptions(**OPTS)
     Xj, Yj, okj, pixj, feasj, objj = j_polish(bp32_j, th32_j, X32_j, bp_j, th_j, opts_j, num_steps=5)
 
-    bp, th, _ = exp_fit_family(B, d=32, seed=13)
+    bp, th, _ = exp_fit_family(B, d=32, seed=13, device="cpu")
     bp32, th32 = _f32(bp, th)
     X32 = torch.from_numpy(np.array(X32_j))
     Xt, Yt, okt, pixt, feast, objt = sqp_polish_fused(bp32, th32, X32, bp, th, SolverOptions(**OPTS), num_steps=5)
@@ -69,7 +69,7 @@ def test_straggler_buckets_and_fallback():
     # least as many lanes as a full-width bucket and agree on them; the
     # fallback refine then certifies every lane.
     B = 32
-    bp, th, X0 = exp_fit_family(B, d=32, seed=13)
+    bp, th, X0 = exp_fit_family(B, d=32, seed=13, device="cpu")
     bp32, th32 = _f32(bp, th)
     opts = SolverOptions(**OPTS)
     X32 = X0.to(torch.float32)
@@ -90,7 +90,7 @@ def test_fallback_stall_restart_rescue():
     # The JAX suite's config-5 uncertified-tail fixture (seed 7, instance
     # 9996: a near-degenerate slow decay) must certify through the port's
     # pipeline too.
-    bp, th, X0 = exp_fit_family(16384, d=32, seed=7)
+    bp, th, X0 = exp_fit_family(16384, d=32, seed=7, device="cpu")
     i = 9996
     bp_i = dataclasses.replace(bp, b=bp.b[i : i + 1])
     th_i = {k: v[i : i + 1] for k, v in th.items()}
@@ -104,7 +104,7 @@ def test_refine_route_matches_polish_route():
     # bulk point; it must certify the same solutions as the polish route
     # (atol 1e-7: two different f64 routes to the same KKT point).
     B = 8
-    bp, th, X0 = exp_fit_family(B, d=32, seed=21)
+    bp, th, X0 = exp_fit_family(B, d=32, seed=21, device="cpu")
     opts = SolverOptions(**OPTS)
     Xr, _, ir = solve_mixed_precision(bp, th, X0, opts, chunk=B, polish=False)
     Xp, _, ip = solve_mixed_precision(bp, th, X0, opts, chunk=B)
@@ -117,7 +117,7 @@ def test_slice_matches_jax():
     B = 32
     bp_j, th_j, X0_j = j_exp_fit(B, d=32, seed=13)
     Xj, _, ij = j_mixed(bp_j, th_j, X0_j, JOptions(**OPTS), chunk=B)
-    bp, th, X0 = exp_fit_family(B, d=32, seed=13)
+    bp, th, X0 = exp_fit_family(B, d=32, seed=13, device="cpu")
     Xt, Yt, it = solve_mixed_precision(bp, th, X0, SolverOptions(**OPTS), chunk=B)
     assert int(ij.converged.sum()) == B and bool(it.converged.all())
     assert float(jnp.max(ij.pix)) <= 1.5e-8 and float(it.pix.max()) <= 1.5e-8
@@ -134,7 +134,7 @@ def test_polish_always_runs_a_chord_step(polisher):
     # f32 factor point, so refactor_steps = num_steps = 3 gives exactly the
     # refactor_steps = 2 result.  A budget of one step has no room for both.
     B = 8
-    bp, th, X0 = exp_fit_family(B, d=16, seed=3)
+    bp, th, X0 = exp_fit_family(B, d=16, seed=3, device="cpu")
     bp32, th32 = _f32(bp, th)
     X32, _, _ = solve_batched_chunked(
         bp32, th32, X0.float(), SolverOptions(crit_tol=1e-2, max_outer_iter=40, max_inner_iter=8), chunk=B)

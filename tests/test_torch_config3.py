@@ -45,7 +45,7 @@ def test_generator_bit_identical(dtype):
     kw = dict(B=6, n=70, d=150, m=4, seed=3)
     jd, td = (jnp.float64, torch.float64) if dtype == "f64" else (jnp.float32, torch.float32)
     bp_j, th_j, X0_j = jgen.dense_quadratic_family(dtype=jd, **kw)
-    bp_t, th_t, X0_t = tgen.dense_quadratic_family(dtype=td, **kw)
+    bp_t, th_t, X0_t = tgen.dense_quadratic_family(dtype=td, **kw, device="cpu")
     np.testing.assert_array_equal(th_t["y"].numpy(), np.asarray(th_j["y"]))
     np.testing.assert_array_equal(X0_t.numpy(), np.asarray(X0_j))
     for f in ("A", "b", "xl", "xu"):
@@ -71,7 +71,7 @@ def test_solve_batched_matches_jax(fact, lin):
     # n = 96 and d = 384 ≥ 2n: both packages materialize the operator, and
     # n − m = 93 > 32 takes the projected Cauchy variant at its default.
     bp_j, th_j, X0_j = jgen.dense_quadratic_family(4, **SMALL)
-    bp_t, th_t, X0_t = tgen.dense_quadratic_family(4, **SMALL)
+    bp_t, th_t, X0_t = tgen.dense_quadratic_family(4, **SMALL, device="cpu")
     kw = dict(gn_factorization=fact, linear_residuals=lin, **OPTS)
     Xj, _, ij = j_solve(bp_j, th_j, X0_j, JOptions(**kw), chunk=4)
     reset_operator_builds()
@@ -86,7 +86,7 @@ def test_solve_batched_matches_jax(fact, lin):
 @functools.lru_cache(maxsize=None)
 def _warm_start(B: int):
     """The port's f32 bulk point on the small config-3 family, as numpy."""
-    bp, th, X0 = tgen.dense_quadratic_family(B, **SMALL)
+    bp, th, X0 = tgen.dense_quadratic_family(B, **SMALL, device="cpu")
     bp32, th32 = _cast_problem(bp, torch.float32, "cpu"), _cast_tree(th, torch.float32)
     X32, _, _ = solve_batched_chunked(bp32, th32, X0.float(), SolverOptions(crit_tol=1e-2, **OPTS), chunk=B)
     return X32.numpy()
@@ -94,7 +94,7 @@ def _warm_start(B: int):
 
 def _both(B: int):
     bp_j, th_j, _ = jgen.dense_quadratic_family(B, **SMALL)
-    bp_t, th_t, _ = tgen.dense_quadratic_family(B, **SMALL)
+    bp_t, th_t, _ = tgen.dense_quadratic_family(B, **SMALL, device="cpu")
     return bp_j, th_j, bp_t, th_t, _warm_start(B)
 
 
@@ -165,7 +165,7 @@ def _jax_pipeline(B: int):
 @pytest.mark.parametrize("certify", ["device", "host"])
 def test_mixed_precision_matches_jax(certify):
     B = 8
-    bp, th, X0 = tgen.dense_quadratic_family(B, **SMALL)
+    bp, th, X0 = tgen.dense_quadratic_family(B, **SMALL, device="cpu")
     X, Y, info = solve_mixed_precision(bp, th, X0, SolverOptions(**OPTS), chunk=B, certify=certify)
     assert bool(info.converged.all()) and float(info.pix.max()) <= 1.5e-8
     assert X.dtype == torch.float64 and X.shape == (B, 96) and Y.shape == (B, 0)
@@ -192,10 +192,10 @@ def test_polish_then_refine_routes(device, family, with32, want, monkeypatch):
         orig = getattr(tpolish, name)
         monkeypatch.setattr(tpolish, name, lambda *a, _o=orig, _n=name, **k: calls.append(_n) or _o(*a, **k))
     if family == "dense":
-        bp, th, _ = tgen.dense_quadratic_family(8, **SMALL)
+        bp, th, _ = tgen.dense_quadratic_family(8, **SMALL, device="cpu")
         X32 = torch.from_numpy(_warm_start(8))
     else:
-        bp, th, X0 = tgen.exp_fit_family(8, d=16, seed=3)
+        bp, th, X0 = tgen.exp_fit_family(8, d=16, seed=3, device="cpu")
         X32, _, _ = solve_batched_chunked(
             _cast_problem(bp, torch.float32, "cpu"), _cast_tree(th, torch.float32), X0.float(),
             SolverOptions(crit_tol=1e-2, max_outer_iter=40, max_inner_iter=8), chunk=8)
@@ -207,7 +207,7 @@ def test_polish_then_refine_routes(device, family, with32, want, monkeypatch):
 
 
 def test_polish_argument_checks():
-    bp, th, X0 = tgen.exp_fit_family(2, d=8, seed=0)
+    bp, th, X0 = tgen.exp_fit_family(2, d=8, seed=0, device="cpu")
     with pytest.raises(ValueError):
         tpolish.polish_then_refine(bp, th, X0.float(), device="cuda:0")
     with pytest.raises(ValueError):

@@ -1,9 +1,11 @@
 """Package hygiene of the PyTorch port: it never imports jax (and
-chip_smoke.py loads nothing of the JAX package), its options
+chip_smoke.py loads nothing of the JAX package), importing it exports the
+public names and touches neither CUDA nor the kernel build, its options
 table matches the JAX package's field by field, knobs whose route is not
 ported raise instead of silently running another path (and the ported
 operator knobs are accepted), its own copy of the KKT oracle gives the JAX
-package's verdicts, and the interop helpers carry data across."""
+package's verdicts (point by point and over the classic battery), and the
+interop helpers carry data across."""
 import dataclasses
 import os
 import re
@@ -27,6 +29,8 @@ from benlsip_tpu_torch.solver.subproblem import resolve_operator_route
 ROOT = Path(__file__).resolve().parent.parent
 PORT_MODULES = [
     "benlsip_tpu_torch",
+    "benlsip_tpu_torch._device",
+    "benlsip_tpu_torch.compat",
     "benlsip_tpu_torch.interop",
     "benlsip_tpu_torch.baselines.kkt_oracle",
     "benlsip_tpu_torch.kernels.batched_linalg",
@@ -42,13 +46,22 @@ PORT_MODULES = [
     "benlsip_tpu_torch.solver.multipliers",
     "benlsip_tpu_torch.solver.options",
     "benlsip_tpu_torch.solver.outer",
+    "benlsip_tpu_torch.solver.qp",
     "benlsip_tpu_torch.solver.status",
     "benlsip_tpu_torch.solver.subproblem",
+    "benlsip_tpu_torch.solver.transforms",
     "benlsip_tpu_torch.batch.vmap_solve",
     "benlsip_tpu_torch.batch.polish",
     "benlsip_tpu_torch.batch.refine",
+    "benlsip_tpu_torch.problems.classic",
     "benlsip_tpu_torch.problems.generators",
+    "benlsip_tpu_torch.problems.hs48",
+    "benlsip_tpu_torch.problems.rosenbrock",
+    "benlsip_tpu_torch.problems.sphere_regression",
 ]
+# The JAX package's `__all__` less what the port's `ops/al` does not have
+# (ROADMAP.md lists those two).
+NOT_PORTED_NAMES = {"first_derivatives", "second_derivatives"}
 
 
 def test_port_never_imports_jax():
@@ -63,6 +76,37 @@ def test_port_never_imports_jax():
     env["PYTHONPATH"] = str(ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0 and "clean" in out.stdout, out.stderr
+
+
+def test_every_port_module_is_listed():
+    # A new module cannot escape the import check above.
+    files = [p for p in (ROOT / "benlsip_tpu_torch").rglob("*.py") if p.name != "__init__.py"]
+    found = {".".join(p.relative_to(ROOT).with_suffix("").parts) for p in files} | {"benlsip_tpu_torch"}
+    assert found - {"benlsip_tpu_torch._batched"} == set(PORT_MODULES)
+
+
+def test_import_exports_public_names_without_cuda_or_kernel_build():
+    import benlsip_tpu_torch as bt
+
+    assert set(bt.__all__) == set(benlsip_tpu.__all__) - NOT_PORTED_NAMES
+    assert all(hasattr(bt, name) for name in bt.__all__)
+    code = (
+        "import sys, torch\n"
+        "from benlsip_tpu_torch import (Problem, solve, tralcnllss, least_squares, solve_qp,\n"
+        "    with_inequalities, SolveInfo, SolverOptions)\n"
+        "from benlsip_tpu_torch.kernels import batched_linalg as kern\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert 'triton' not in sys.modules\n"
+        "assert kern.load_library.cache_info().currsize == 0, 'importing the package must not load the kernels'\n"
+        "print('clean')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT)
+    build_dir = ROOT / "benlsip_tpu_torch" / "kernels" / "_build"
+    before = sorted(build_dir.iterdir()) if build_dir.exists() else None
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0 and "clean" in out.stdout, out.stderr
+    assert (sorted(build_dir.iterdir()) if build_dir.exists() else None) == before
 
 
 def test_chip_smoke_names_no_file_of_the_jax_package():
@@ -124,6 +168,29 @@ def test_port_oracle_matches_jax_package_oracle(seed, kind, ok):
     assert got.get("degenerate_all_active", False) == (kind == "all_active")
 
 
+def test_port_battery_oracle_matches_jax_package_on_three_entries(monkeypatch):
+    # One entry with a nonlinear constraint, one with linear equalities and
+    # a box, one unconstrained: the same verdicts from both packages.
+    from benlsip_tpu.problems import classic as j_classic
+    from benlsip_tpu_torch.problems import classic as t_classic
+
+    names = ["hs42", "hs53", "mgh05_beale"]
+    monkeypatch.setattr(j_classic, "REGISTRY", {k: j_classic.REGISTRY[k] for k in names})
+    monkeypatch.setattr(t_classic, "REGISTRY", {k: t_classic.REGISTRY[k] for k in names})
+    want = j_oracle.kkt_check_classic_battery()
+    got = t_oracle.kkt_check_classic_battery(device="cpu")
+    details = got.pop("battery_details")
+    assert got == want == {"battery_oracle_checked": 3, "battery_oracle_agree": 3, "battery_oracle_fail": []}
+    assert sorted(details) == sorted(names)
+    for name, d in details.items():
+        assert d["converged"] and d["verdict"]["ok"] and d["outer_iters"] >= 1 and d["seconds"] > 0
+        assert d["verdict"]["n_eq"] == {"hs42": 2, "hs53": 3, "mgh05_beale": 0}[name]
+    # A point that is not a KKT point fails the port's check of a Problem.
+    rec = t_classic.REGISTRY["hs42"]
+    bad = t_oracle.kkt_check_problem_point(rec.make_problem(), rec.x0(device="cpu"))
+    assert bad["ok"] is False
+
+
 def test_options_match_jax_field_by_field():
     j_fields = {f.name: f.default for f in dataclasses.fields(benlsip_tpu.SolverOptions)}
     t_fields = {f.name: f.default for f in dataclasses.fields(SolverOptions)}
@@ -159,7 +226,7 @@ def test_ported_operator_option_accepted(knob):
     {"pipeline_overlap": True}, {"bulk_dtype": torch.bfloat16},
 ])
 def test_unported_pipeline_knob_raises(kw):
-    bp, th, X0 = exp_fit_family(2, d=8, seed=0)
+    bp, th, X0 = exp_fit_family(2, d=8, seed=0, device="cpu")
     with pytest.raises(NotImplementedError):
         solve_mixed_precision(bp, th, X0, SolverOptions(), **kw)
 
@@ -185,10 +252,10 @@ def test_interop_round_trip():
     bp_j, th_j, X0_j = j_exp_fit(4, d=8, seed=1)
     bp = problem_from_numpy(
         np.asarray(bp_j.A), np.asarray(bp_j.b), np.asarray(bp_j.xl), np.asarray(bp_j.xu),
-        bp_j.poly_batched, _exp_fit_residuals,
+        bp_j.poly_batched, _exp_fit_residuals, device="cpu",
     )
-    th = theta_from_numpy({k: np.asarray(v) for k, v in th_j.items()})
-    bp_t, th_t, X0_t = exp_fit_family(4, d=8, seed=1)
+    th = theta_from_numpy({k: np.asarray(v) for k, v in th_j.items()}, device="cpu")
+    bp_t, th_t, X0_t = exp_fit_family(4, d=8, seed=1, device="cpu")
     for f in ("A", "b", "xl", "xu"):
         assert torch.equal(getattr(bp, f), getattr(bp_t, f))
     assert torch.equal(th["y"], th_t["y"]) and bp.poly_batched
