@@ -108,6 +108,14 @@ def _implicit_refine_r2(G: Tensor, R1: Tensor):
     return torch.where(bad, eye, R2), bad
 
 
+def implicit_refine_upper(G: Tensor, R1: Tensor) -> Tensor:
+    """R with RᵀR = G from the formed Gram and its first factor R₁, with no
+    pass over S: R₂R₁ from the implicit refinement, R₁ in a lane whose
+    refinement broke down (the row-sharded operator's route, where the
+    explicit pass would need a second psum)."""
+    return _implicit_refine_r2(G, R1)[0] @ R1
+
+
 def rescue_broken_refinement(R2: Tensor, bad: Tensor, S: Tensor, R1: Tensor) -> Tensor:
     """Replace R₂ by the explicit pass on S in the lanes flagged `bad` (B, 1, 1)
     only; healthy lanes keep their implicit factor (the JAX `lax.cond`

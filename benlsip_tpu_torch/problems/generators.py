@@ -1,5 +1,5 @@
 """Problem-family generators (PyTorch port of `exp_fit_family`,
-`sphere_family` and `dense_quadratic_family` in
+`sphere_family`, `dense_quadratic_family` and `blocked_hard_family` in
 `benlsip_tpu/problems/generators.py`).
 
 The data come from the same numpy recipe as the JAX generators, so theta,
@@ -173,3 +173,59 @@ def dense_quadratic_family(
     x0 = np.clip(A.T @ np.linalg.solve(A @ A.T, b), -0.79, 0.79)
     X0 = torch.as_tensor(np.broadcast_to(x0, (B, n)).copy(), **kw)
     return bp, {"y": torch.as_tensor(y, **kw)}, X0
+
+
+def blocked_hard_family(
+    n: int = 10240,
+    d: int = 20480,
+    seed: int = 0,
+    dtype: torch.dtype = torch.float32,
+    alpha: float = 1.5,
+    m: int = 8,
+    bound: float = 0.8,
+    spread: float = 1.6,
+    noise: float = 1e-2,
+    device=None,
+) -> Tuple[BatchedProblem, dict, Tensor]:
+    """One large nonlinear bound-active instance (BASELINE config 4) for the
+    blocked-Jacobian path (`dist/sharded.solve_large_blocked_family`):
+
+        r(x) = J0 psi(x) - y,   psi(x) = x + alpha x³ (elementwise),
+        J(x) = J0 · psi'(x) column-scaled, psi' = 1 + 3 alpha x².
+
+    x_true ~ U(-spread, spread) with spread > bound, so about half of the
+    coordinates are active at the solution; a linear equality block Ax = b
+    (b = A clip(x_true), feasible with the box) keeps the constraint stack
+    live.  Returns (bp, theta, x0) with theta = {"J": (d, n), "y": (d,)}
+    and x0 (n,), the min-norm feasible point of Ax = b, clipped; one
+    instance, so theta carries no batch axis (the solver adds it as a
+    view).  The numpy recipe is the JAX generator's, so every array is
+    bit-identical to its.
+    """
+    rng = np.random.default_rng(seed)
+    J0 = (rng.standard_normal((d, n)) / np.sqrt(d)).astype(np.float32)
+    x_true = rng.uniform(-spread, spread, n).astype(np.float32)
+    psi_true = x_true + alpha * x_true**3
+    y = J0 @ psi_true + noise * rng.standard_normal(d).astype(np.float32)
+    A = (rng.standard_normal((m, n)) / np.sqrt(n)).astype(np.float32)
+    b = A @ np.clip(x_true, -bound, bound)
+
+    kw = {"dtype": dtype, "device": resolve_device(device)}
+    theta = {"J": torch.as_tensor(J0, **kw), "y": torch.as_tensor(y, **kw)}
+
+    def residuals(x, th):
+        return th["J"] @ (x + alpha * x**3) - th["y"]
+
+    def jac_res(x, th):
+        return th["J"] * (1.0 + 3.0 * alpha * x**2)
+
+    bp = BatchedProblem(
+        residuals=residuals,
+        jac_res=jac_res,
+        A=torch.as_tensor(A, **kw),
+        b=torch.as_tensor(b, **kw),
+        xl=torch.full((n,), -bound, **kw),
+        xu=torch.full((n,), bound, **kw),
+    )
+    x0 = np.clip(A.T @ np.linalg.solve(A @ A.T, b), -bound, bound)
+    return bp, theta, torch.as_tensor(x0, **kw)

@@ -32,10 +32,11 @@ def factor_to_boundary(p: Tensor, w: Tensor, w_l: Tensor, w_u: Tensor, atol: flo
     return torch.clamp_min(torch.minimum(lo.amin(-1), hi.amin(-1)), 0.0)
 
 
-def linesearch(g_model: Tensor, H: AlHessian, w: Tensor, w_l: Tensor, w_u: Tensor, fixed: Tensor) -> Tensor:
+def linesearch(g_model: Tensor, H: AlHessian, w: Tensor, w_l: Tensor, w_u: Tensor, fixed: Tensor,
+               axis: Optional[str] = None) -> Tensor:
     """Exact model line search along w, capped by the free-variable box."""
     inf = torch.tensor(math.inf, dtype=w.dtype, device=w.device)
-    wHw = vhv(H, w)
+    wHw = vhv(H, w, axis)
     gw = vdot(g_model, w)
     alpha_opt = torch.where(wHw > 0, -gw / torch.where(wHw > 0, wHw, 1.0), inf)
     lo = torch.where(~fixed & (w < 0), w_l / torch.where(w < 0, w, 1.0), inf)
@@ -64,11 +65,13 @@ def projected_cg(
     kappa2: float,
     atol: Optional[float] = None,
     active: Optional[Tensor] = None,
+    axis: Optional[str] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Projected CG with bound-hit / negative-curvature early exits.
 
     Returns (w, status, iters) per lane.  `active` (B,) restricts the
-    iteration to the lanes an enclosing loop still runs.
+    iteration to the lanes an enclosing loop still runs; `axis` is the
+    mesh dim H's rows are sharded over (`ops/al.hv`).
     """
     dtype = g_minor.dtype
     if atol is None:
@@ -84,7 +87,7 @@ def projected_cg(
     max_iter = 2 * (n - m - nb_fix(aset))
 
     def body(c: _CGCarry) -> _CGCarry:
-        Hp = hv(H, c.p)
+        Hp = hv(H, c.p, axis)
         pHp = vdot(c.p, Hp)
         gamma = factor_to_boundary(c.p, c.w, w_l, w_u)
         gamma_safe = torch.where(torch.isfinite(gamma), gamma, 0.0)

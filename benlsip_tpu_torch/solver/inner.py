@@ -63,7 +63,7 @@ class _CauchyCarry(NamedTuple):
 
 def cauchy_step(
     x: Tensor, g: Tensor, H: AlHessian, poly: Polyhedron, delta: Tensor, atol: float,
-    chol_reg: float = 0.0, active: Optional[Tensor] = None,
+    chol_reg: float = 0.0, active: Optional[Tensor] = None, axis: Optional[str] = None,
 ) -> Tuple[Tensor, ActiveSet]:
     """First local minimum of the model along the projected-gradient path
     (the breakpoint walk): returns (s_c, active set after the walk)."""
@@ -80,7 +80,7 @@ def cauchy_step(
     d_l = torch.maximum(poly.xl - x, -dl)
 
     # Slope phi' = sᵀHd + gᵀd with gᵀd = -‖d‖² exactly (d = P(-g)).
-    Hd0 = hv(H, d0)
+    Hd0 = hv(H, d0, axis)
     c = _CauchyCarry(
         s=torch.zeros_like(x),
         fixed=fixed0,
@@ -116,7 +116,7 @@ def cauchy_step(
         fixed = sel(advance, c.fixed.scatter(-1, ind.unsqueeze(-1), True), c.fixed)
         aset = make_active_set(poly, fixed, reg=chol_reg)
         d_new = project_tangent(poly, aset, -g)
-        Hd_new = hv(H, d_new)
+        Hd_new = hv(H, d_new, axis)
         return _CauchyCarry(
             s,
             fixed,
@@ -138,7 +138,7 @@ def cauchy_step(
 
 def minor_iterate(
     x: Tensor, s: Tensor, g_minor: Tensor, H: AlHessian, poly: Polyhedron, aset: ActiveSet,
-    delta: Tensor, kappa2: float, active: Optional[Tensor] = None,
+    delta: Tensor, kappa2: float, active: Optional[Tensor] = None, axis: Optional[str] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """One minor iteration: projected-CG direction + model line search.
     The remaining trust-region/bound gap constrains the free variables."""
@@ -149,8 +149,8 @@ def minor_iterate(
     w_u = torch.clamp_min(w_u, 0.0)
     w_l = torch.clamp_max(w_l, 0.0)
 
-    w, cg_status, cg_iters = projected_cg(g_minor, H, w_l, w_u, poly, aset, kappa2, active=active)
-    alpha = linesearch(g_minor, H, w, w_l, w_u, aset.fixed)
+    w, cg_status, cg_iters = projected_cg(g_minor, H, w_l, w_u, poly, aset, kappa2, active=active, axis=axis)
+    alpha = linesearch(g_minor, H, w, w_l, w_u, aset.fixed, axis=axis)
     w = sel(cg_status != CG_NEGATIVE_CURVATURE, alpha.unsqueeze(-1) * w, w)
     return w, cg_status, cg_iters
 
@@ -158,7 +158,7 @@ def minor_iterate(
 def cauchy_step_projected(
     x: Tensor, g: Tensor, H: AlHessian, poly: Polyhedron, delta: Tensor, atol: float,
     kappa1: float = 1e-2, gamma_c: float = 10.0, max_trials: int = 16,
-    chol_reg: float = 0.0, active: Optional[Tensor] = None,
+    chol_reg: float = 0.0, active: Optional[Tensor] = None, axis: Optional[str] = None,
 ) -> Tuple[Tensor, ActiveSet]:
     """Projected-search Cauchy step: backtracking along s(t) = P(x - t·g) - x
     with exact projections, accepted at the first t with sufficient
@@ -173,14 +173,14 @@ def cauchy_step_projected(
         A=poly.A, b=torch.zeros_like(poly.b),
         xl=torch.maximum(poly.xl - x, -dl), xu=torch.minimum(poly.xu - x, dl),
     )
-    gHg = vhv(H, g)
+    gHg = vhv(H, g, axis)
     gg = vdot(g, g)
     t0 = torch.where(gHg > 0, gg / torch.where(gHg > 0, gHg, 1.0), 1.0)
 
     def trial(t, act):
         s = projection_polyhedron(seg, -t.unsqueeze(-1) * g, active=act)
         gts = vdot(g, s)
-        qs = 0.5 * vhv(H, s) + gts
+        qs = 0.5 * vhv(H, s, axis) + gts
         return s, qs <= kappa1 * gts
 
     s, ok = trial(t0, active)
@@ -222,23 +222,25 @@ def inner_step(
     """Cauchy step + active-set refinement minor iterations.
 
     Returns (s, model_reduction, final_active_set, stats); the model
-    reduction pred = gᵀs + 1/2 sᵀHs is negative for improvement.
+    reduction pred = gᵀs + 1/2 sᵀHs is negative for improvement.  Every
+    product with H is summed over `opts.spmd_axis`.
     """
     B, n = x.shape
     m = poly.A.shape[-2]
     if active is None:
         active = _all(B, x)
     chol_reg = opts.chol_reg
+    ax = opts.spmd_axis
 
     if n - m > opts.projected_cauchy_threshold:
         s0, aset0 = cauchy_step_projected(
             x, g, H, poly, delta, atol,
             kappa1=opts.kappa1, gamma_c=opts.gamma_c,
-            max_trials=opts.cauchy_max_trials, chol_reg=chol_reg, active=active,
+            max_trials=opts.cauchy_max_trials, chol_reg=chol_reg, active=active, axis=ax,
         )
     else:
-        s0, aset0 = cauchy_step(x, g, H, poly, delta, atol, chol_reg, active=active)
-    g_minor0 = hv(H, s0) + g
+        s0, aset0 = cauchy_step(x, g, H, poly, delta, atol, chol_reg, active=active, axis=ax)
+    g_minor0 = hv(H, s0, ax) + g
 
     nrg0 = norm_reduced_gradient(poly, aset0, g)
     nrgm0 = norm_reduced_gradient(poly, aset0, g_minor0)
@@ -262,11 +264,11 @@ def inner_step(
     def body(c: _MinorCarry, act: Tensor) -> _MinorCarry:
         aset = ActiveSet(fixed=c.fixed, chol=c.chol)
         w, cg_status, cg_iters = minor_iterate(
-            x, c.s, c.g_minor, H, poly, aset, delta, opts.kappa2, active=act
+            x, c.s, c.g_minor, H, poly, aset, delta, opts.kappa2, active=act, axis=ax
         )
         cg_stop = cg_status == CG_NEGATIVE_CURVATURE
         s = c.s + w
-        g_minor = hv(H, s) + g
+        g_minor = hv(H, s, ax) + g
 
         at_bound = step_active_bounds(poly, x, s, delta, atol)
         union_fixed = c.fixed | at_bound
@@ -287,6 +289,6 @@ def inner_step(
         while bool(run.any()):
             c = sel_tuple(run, body(c, run), c)
             run = run & cond(c)
-    pred = vdot(g, c.s) + 0.5 * vhv(H, c.s)
+    pred = vdot(g, c.s) + 0.5 * vhv(H, c.s, ax)
     stats = InnerStats(minor_iters=c.j - 1, cg_iters=c.cg_total)
     return c.s, pred, ActiveSet(fixed=c.fixed, chol=c.chol), stats

@@ -17,12 +17,8 @@ from typing import Optional
 import torch
 
 # Non-default values of these fields select routes the port does not have
-# yet (sharded blocked mode and its operator layouts, host iteration logs,
-# reduced-precision matmuls).
+# yet (host iteration logs, reduced-precision matmuls).
 _UNPORTED_DEFAULTS = {
-    "spmd_axis": None,
-    "gram_layout": "replicated",
-    "reduce_schedule": "xla",
     "verbose": False,
     "matmul_precision": "highest",
 }
@@ -81,8 +77,16 @@ class SolverOptions:
     linear_residuals: bool = False
     tr_factor: float = 0.1
     chol_reg: float = 0.0
+    # The mesh dim the residual dimension is sharded over in the
+    # explicit-collective blocked mode (`dist/sharded.solve_large_blocked_shardmap`):
+    # every contraction over it carries a psum (`dist/collectives.py`).
     spmd_axis: Optional[str] = None
+    # Under spmd_axis: the materialized operator whole on every rank
+    # ("replicated", one all-reduce per refresh) or as each rank's n/D rows
+    # ("sharded": a reduce-scatter per refresh, an all_gather per H·v).
     gram_layout: str = "replicated"
+    # How the sharded Gram is reduce-scattered: "xla" (one reduce_scatter)
+    # or "ring" (D−1 point-to-point hops, chunks built as the ring needs them).
     reduce_schedule: str = "xla"
     verbose: bool = False
 

@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .._batched import full, norm, sel, sel_tuple, vdot
+from ..ops.al import _psum
 from ..ops.constraints import Polyhedron
 from .multipliers import least_squares_multipliers
 from .options import SolverOptions
@@ -82,7 +83,9 @@ def outer_init(fns, poly: Polyhedron, x0: Tensor, opts: SolverOptions,
         opts.gn_factorization == "auto" and dtype in (torch.float32, torch.bfloat16)
     )
     if y0 is None:
-        y0 = least_squares_multipliers(x0, fns, method="qr" if use_qr_mult else "normal")
+        y0 = least_squares_multipliers(
+            x0, fns, method="qr" if use_qr_mult else "normal", axis=opts.spmd_axis
+        )
     else:
         y0 = y0.to(dtype)
     inf = full(B, float("inf"), x0)
@@ -181,4 +184,4 @@ def solve_fixed_point(fns, poly: Polyhedron, x0: Tensor, opts: SolverOptions,
     # At a critical exit return the converged multiplier y + mu·c.
     y_final = sel(c.critical, c.y + c.mu.unsqueeze(-1) * c.cx, c.y)
     rx = fns.residuals(c.x)
-    return c.x, y_final, carry_info(c, opts, objective=0.5 * vdot(rx, rx))
+    return c.x, y_final, carry_info(c, opts, objective=_psum(0.5 * vdot(rx, rx), opts.spmd_axis))

@@ -9,6 +9,12 @@ under `vmap`).  When the Jacobian is tall the Hessian operator is
 materialized once per refresh (`resolve_operator_route`) and the carry
 holds it; `OPERATOR_BUILDS` counts those builds by route, so a caller can
 see which operator a run really built.
+
+Under `opts.spmd_axis` (the explicit-collective blocked mode) every rank
+runs this loop on its own rows of J and r.  Each host-side loop decision
+(`run.any()`, `upd.any()`) is made from values that are psummed or
+computed from replicated data, so every rank takes every branch the same
+way and meets every collective.
 """
 from __future__ import annotations
 
@@ -23,8 +29,10 @@ from ..ops.al import (
     al_gradient,
     evaluate_al,
     gram_j,
+    gram_j_rows,
     new_point,
     with_gram,
+    with_gram_rows,
     with_r_factor,
     with_r_factor_cholqr2,
 )
@@ -93,9 +101,9 @@ class SubproblemResult(NamedTuple):
 def resolve_operator_route(opts: SolverOptions, n: int, d_plus_p: int, dtype: torch.dtype):
     """Shape/dtype-based operator route: (use_op, fact) — whether an (n, n)
     operator is materialized, and the resolved gn_factorization
-    ("normal" / "qr" / "cholqr2")."""
-    if opts.spmd_axis is not None:
-        raise NotImplementedError("operator routes under spmd_axis wait for dist/")
+    ("normal" / "qr" / "cholqr2").  Under `spmd_axis` `d_plus_p` counts
+    this rank's rows, as in the JAX package."""
+    ax = opts.spmd_axis
     use_op = opts.gram_hessian == "on" or (
         opts.gram_hessian == "auto" and n >= 64 and d_plus_p >= 2 * n
     )
@@ -103,17 +111,27 @@ def resolve_operator_route(opts: SolverOptions, n: int, d_plus_p: int, dtype: to
     if fact == "auto":
         if dtype in (torch.float32, torch.bfloat16):
             # κ² eats the f32 budget: the orthogonal route, GEMM-shaped
-            # CholeskyQR2 at large n, the MGS kernel behind qr_r at small n.
-            fact = "cholqr2" if n >= 64 else "qr"
+            # CholeskyQR2 at large n or under an axis, the MGS kernel
+            # behind qr_r at small n.
+            fact = "cholqr2" if (ax is not None or n >= 64) else "qr"
         else:
             fact = "normal"
+    if fact == "qr" and ax is not None:
+        # No distributed Householder QR; an explicit request is refused,
+        # never downgraded, whether or not the operator is materialized.
+        raise ValueError(
+            "gn_factorization='qr' (Householder) is unavailable under spmd_axis "
+            "(the explicit-collective blocked mode).  Use gn_factorization='cholqr2', "
+            "which reduces (n, n) Grams with one psum and never gathers J, or 'auto'."
+        )
     return use_op, fact
 
 
 def linear_gram_cache(fns, x0: Tensor, opts: SolverOptions) -> dict:
     """Constant-Jacobian JᵀJ cache for `opts.linear_residuals`, computed once
-    per solve and handed to every subproblem as `Gj`; {} when the option is
-    off or the route has nothing to cache (matrix-free, Householder QR)."""
+    per solve and handed to every subproblem as `Gj` (or, for the
+    row-sharded Gram, `Gj_rows`); {} when the option is off or the route
+    has nothing to cache (matrix-free, Householder QR)."""
     if not opts.linear_residuals:
         return {}
     J0 = fns.jac_res(x0)
@@ -121,18 +139,33 @@ def linear_gram_cache(fns, x0: Tensor, opts: SolverOptions) -> dict:
     use_op, fact = resolve_operator_route(opts, x0.shape[-1], d_plus_p, x0.dtype)
     if not use_op or fact == "qr":
         return {}
-    return {"Gj": gram_j(J0)}
+    return _gram_cache(J0, fact, opts)
 
 
-def _materializer(use_op: bool, fact: str, Gj: Optional[Tensor]):
+def _sharded_gram(fact: str, opts: SolverOptions) -> bool:
+    return fact == "normal" and opts.spmd_axis is not None and opts.gram_layout == "sharded"
+
+
+def _gram_cache(J: Tensor, fact: str, opts: SolverOptions) -> dict:
+    if _sharded_gram(fact, opts):
+        return {"Gj_rows": gram_j_rows(J, opts.spmd_axis, opts.reduce_schedule)}
+    return {"Gj": gram_j(J, opts.spmd_axis)}
+
+
+def _materializer(use_op: bool, fact: str, opts: SolverOptions, Gj: Optional[Tensor],
+                  Gj_rows: Optional[Tensor]):
+    ax = opts.spmd_axis
     if not use_op:
         return lambda H: H
     if fact == "qr":
         build = with_r_factor
     elif fact == "cholqr2":
-        build = lambda H: with_r_factor_cholqr2(H, Gj=Gj)
+        layout = opts.gram_layout if ax is not None else "replicated"
+        build = lambda H: with_r_factor_cholqr2(H, ax, layout, Gj=Gj)
+    elif _sharded_gram(fact, opts):
+        build = lambda H: with_gram_rows(H, ax, opts.reduce_schedule, Gj_rows=Gj_rows)
     else:
-        build = lambda H: with_gram(H, Gj=Gj)
+        build = lambda H: with_gram(H, ax, Gj=Gj)
 
     def materialize(H: AlHessian) -> AlHessian:
         OPERATOR_BUILDS[(fact, str(H.J.dtype).removeprefix("torch."))] += 1
@@ -144,23 +177,27 @@ def _materializer(use_op: bool, fact: str, Gj: Optional[Tensor]):
 def solve_subproblem(
     fns, poly: Polyhedron, x0: Tensor, y: Tensor, mu: Tensor, omega_tol: Tensor,
     opts: SolverOptions, atol: float, active: Optional[Tensor] = None,
-    Gj: Optional[Tensor] = None,
+    Gj: Optional[Tensor] = None, Gj_rows: Optional[Tensor] = None,
 ) -> SubproblemResult:
     """Batched trust-region subproblem solve from x0 (B, n).
 
     `active` (B,) restricts the loop to the lanes an enclosing loop still
-    runs; other lanes return their start point.  `Gj` is the once-per-solve
-    JᵀJ cache of `linear_gram_cache` (computed here when the option asks
-    for it and none is given).
+    runs; other lanes return their start point.  `Gj` / `Gj_rows` is the
+    once-per-solve JᵀJ cache of `linear_gram_cache` (computed here when the
+    option asks for it and none is given).
     """
     dtype = x0.dtype
     B, n = x0.shape
-    rx0, cx0, _, mx0, g0, H0 = new_point(x0, y, mu, fns)
+    ax = opts.spmd_axis
+    rx0, cx0, _, mx0, g0, H0 = new_point(x0, y, mu, fns, ax)
     use_op, fact = resolve_operator_route(opts, n, rx0.shape[-1] + cx0.shape[-1], dtype)
     lin = opts.linear_residuals and use_op and fact != "qr"
-    if lin and Gj is None:
-        Gj = gram_j(H0.J)
-    materialize = _materializer(use_op, fact, Gj if lin else None)
+    if lin and Gj is None and Gj_rows is None:
+        cache = _gram_cache(H0.J, fact, opts)
+        Gj, Gj_rows = cache.get("Gj"), cache.get("Gj_rows")
+    if not lin:
+        Gj = Gj_rows = None
+    materialize = _materializer(use_op, fact, opts, Gj, Gj_rows)
     H0 = materialize(H0)
     delta0 = initial_tr(g0, opts.tr_factor)
     inf = full(B, float("inf"), mx0)
@@ -183,7 +220,7 @@ def solve_subproblem(
     def body(c: _TRCarry, act: Tensor) -> _TRCarry:
         s, pred, _aset, istats = inner_step(c.x, c.g, c.H, poly, c.delta, opts, atol, active=act)
         x_next = c.x + s
-        rx_next, cx_next, mx_next = evaluate_al(x_next, y, mu, fns)
+        rx_next, cx_next, mx_next = evaluate_al(x_next, y, mu, fns, ax)
         ared = mx_next - c.mx
         rho = ared / pred
 
@@ -203,7 +240,7 @@ def solve_subproblem(
             Jn = sel(upd, fns.jac_res(x_next), c.H.J)
             Cn = sel(upd, fns.jac_nlcons(x_next), c.H.C)
             y_bar = y + mu.unsqueeze(-1) * cx_next
-            g = sel(upd, al_gradient(Jn, Cn, rx_next, y_bar), c.g)
+            g = sel(upd, al_gradient(Jn, Cn, rx_next, y_bar, ax), c.g)
             H = sel_tuple(upd, materialize(AlHessian(Jn, Cn, mu)), c.H)
         x = sel(accept, x_next, c.x)
         rx = sel(accept, rx_next, c.rx)

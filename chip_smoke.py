@@ -52,11 +52,23 @@ Phases (any failure raises and the script exits non-zero):
    first 64 instances against the port's CPU run; `solve_qp`,
    `with_inequalities` and `least_squares` once each against a dense KKT
    solve, the published optimum and scipy;
-7. with `--profile` only: each path's warm wall split into bulk and
+7. the config-4 path (one large instance): `solve_large_blocked_family` on
+   `blocked_hard_family(n=10240, d=20480, m=8, seed=0)` in float32 on a
+   one-rank NCCL mesh (`make_mesh(1, 1)`), one cold and two warm calls; it
+   must converge, pass the numpy KKT oracle at f32 grade (5e-4), build the
+   Gram operator in float32 only and launch the factor, projection and
+   solve kernels (checked and timed against their plain versions at
+   (1, 8, 10240) and (1, 8) in phase 3); then the explicit-collective path
+   (`solve_large_blocked_shardmap`, every operator layout and reduce
+   schedule) on the same group against the plain solve at n=2048,
+   d=8192, and the card against the port's CPU run at n=1024 in float32
+   and float64;
+8. with `--profile` only: each path's warm wall split into bulk and
    certification, how many lanes the fused polish certifies alone and with
    its re-polish buckets, and the device's busy share and kernel count from
    torch.profiler, with the time and calls of cuSOLVER's `geqr2*` and of
-   the panel QR kernel.
+   the panel QR kernel; for config 4 one traced warm run, the busy share
+   and the largest device kernels by name (the Gram GEMM first).
 
 It imports nothing of JAX and nothing of the JAX package: the KKT oracle
 is the port's own copy.  The last two lines are the kernels' JSON record
@@ -251,7 +263,7 @@ def phase_kernels(kern) -> dict:
     def worst(name, err):
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
 
-    for B, M in ((1024, 1), (1024, 2), (1024, 3), (1024, 5), (64, 6), (1024, 8), (1024, 16), (1, 1), (1, 2), (1, 3), (1, 6), (1, 16)):
+    for B, M in ((1024, 1), (1024, 2), (1024, 3), (1024, 5), (64, 6), (1024, 8), (1024, 16), (1, 1), (1, 2), (1, 3), (1, 6), (1, 8), (1, 16)):
         K = spd(B, M)
         L = kern.batched_cholesky(K)
         worst("batched_cholesky", _check_close(f"cholesky {B}x{M}x{M}", L, kern.batched_cholesky_plain(K)))
@@ -343,7 +355,7 @@ def _check_fused(kern, rng, worst) -> None:
     cases += [(130, 3, 5000, False)]   # n has no cap: the lanes stride over it
     # One instance, as a single solve launches them: a regular lane (B = 1)
     # and the degenerate pair alone (B = 2).
-    single = [(1, 2, 5), (1, 1, 3), (1, 3, 4), (1, 1, 2), (1, 6, 192), (2, 2, 5)]
+    single = [(1, 2, 5), (1, 1, 3), (1, 3, 4), (1, 1, 2), (1, 6, 192), (1, 8, 10240), (2, 2, 5)]
     for B, m, n, shared in cases + [(B, m, n, False) for B, m, n in single]:
         if (B, m, n) in single:
             A, fixed, r = (t[:1].contiguous() if B == 1 else t[1:].contiguous() for t in _fused_case(rng, 3, m, n, False, dev))
@@ -662,6 +674,22 @@ def _time_kernels(kern, rng, rec) -> None:
     _time_extra(rec, "batched_cholesky", (1, 1, 1), _bound(8, 1 / 3), {
         "plain": lambda: kern.batched_cholesky_plain(K), "kernel": lambda: kern.batched_cholesky(K),
         "library": lambda: torch.linalg.cholesky_ex(K)})
+    # Config 4: one instance, m = 8 equalities over n = 10,240 columns (a
+    # single warp strides over them); the solve at (1, 8) in the dual Newton.
+    m, n = 8, 10240
+    A, fixed, r = (t[:1].contiguous() for t in _fused_case(rng, 3, m, n, False, dev))
+    L = kern.masked_aat_cholesky(A, fixed)
+    b = torch.as_tensor(rng.standard_normal((1, m)), dtype=f32, device=dev)
+    n_free = int((~fixed).sum())
+    _time_extra(rec, "masked_aat_cholesky", (1, m, n), _bound(m * n * 4 + n + m * m * 4, m * (m + 1) * n_free + m ** 3 / 3), {
+        "plain": lambda: kern.masked_aat_cholesky_plain(A, fixed), "kernel": lambda: kern.masked_aat_cholesky(A, fixed),
+        "old_site": lambda: old_factor_site(kern, A, fixed)})
+    _time_extra(rec, "project_tangent", (1, m, n), _bound(m * n * 4 + m * m * 4 + n + 2 * n * 4, 4 * m * n_free + 2 * m * m), {
+        "plain": lambda: kern.project_tangent_plain(A, L, fixed, r), "kernel": lambda: kern.project_tangent(A, L, fixed, r),
+        "old_site": lambda: old_project_site(kern, A, L, fixed, r)})
+    _time_extra(rec, "batched_cho_solve", (1, m), _bound((m * m + 2 * m) * 4, 2 * m * m), {
+        "plain": lambda: kern.batched_cho_solve_plain(L, b), "kernel": lambda: kern.batched_cho_solve(L, b),
+        "library": lambda: torch.cholesky_solve(b.unsqueeze(-1), L)})
 
 
 def _time_extra(rec: dict, name: str, shape: tuple, bound: dict, fns: dict) -> None:
@@ -1073,6 +1101,164 @@ def phase_config1(kern, smi: str) -> dict:
     return res
 
 
+# Config 4: one large instance, full width (BASELINE config 4, `bench.py:182-272`
+# in the JAX package), and the gates `bench.py:223-240` holds it to.
+CONFIG4 = dict(n=10240, d=20480, m=8, seed=0, alpha=1.5)
+CONFIG4_ORACLE_TOL = 5e-4          # the oracle's stat_tol and feas_tol at f32 grade
+CONFIG4_KERNELS = ("masked_aat_cholesky", "project_tangent", "batched_cho_solve")
+# The explicit-collective path on a one-rank group against the plain solve:
+# the same operations on the same data, so they agree far inside this.
+SHARDMAP_ATOL = 1e-5
+# The card against the port's CPU run at n = 1024 (f32 to crit_tol 1e-3,
+# f64 to 1e-5; at sqrt(eps(f32)) the f32 solve stalls at this size on the
+# CPU).  The two runs round differently (cuBLAS against the CPU's BLAS); on
+# the CPU a relative change of 1e-7 in x0 moves the solution by 6.4e-5
+# (f32) and 3.3e-6 (f64), so the tolerances are 15x and 3x that.
+CARD_CPU = {torch.float32: (1e-3, 1e-3), torch.float64: (1e-5, 1e-5)}   # dtype: (crit_tol, atol)
+
+
+def _config4_oracle(tag: str, bp, theta, x, alpha: float) -> dict:
+    """The port's numpy KKT oracle at a config-4 point, in float64 on the host."""
+    from benlsip_tpu_torch.baselines.kkt_oracle import kkt_check_point
+
+    xn = x.double().cpu().numpy()
+    J0 = theta["J"].cpu().double().numpy()
+    r = J0 @ (xn + alpha * xn**3) - theta["y"].cpu().double().numpy()
+    J0 *= (1.0 + 3.0 * alpha * xn * xn)[None, :]
+    host = lambda t: t.cpu().double().numpy()
+    verdict = kkt_check_point(xn, r, J0, None, None, host(bp.A), host(bp.b), host(bp.xl), host(bp.xu),
+                              stat_tol=CONFIG4_ORACLE_TOL, feas_tol=CONFIG4_ORACLE_TOL)
+    print(f"{tag} oracle (f32 grade, tol {CONFIG4_ORACLE_TOL:g}): {verdict}")
+    return verdict
+
+
+def _info_line(info) -> str:
+    return (f"converged {bool(info.converged)}, outer {int(info.outer_iters)}, inner {int(info.inner_iters)}, "
+            f"minor {int(info.minor_iters)}, cg {int(info.cg_iters)}, pix {float(info.pix):.3e}")
+
+
+def phase_config4(kern, profile: bool) -> dict:
+    """Config 4 at full size through `dist/sharded.solve_large_blocked_family`
+    on a one-rank NCCL mesh: one cold call, two warm calls, the gates of the
+    JAX package's bench (converged, the oracle at f32 grade), the operator
+    builds and kernel launches of the cold run, peak device memory; then
+    the explicit-collective path against it at a reduced size, and the
+    card against the port's CPU run at n = 1024."""
+    import torch.distributed as dist
+
+    from benlsip_tpu_torch.dist.mesh import make_mesh
+    from benlsip_tpu_torch.dist.sharded import solve_large_blocked_family, solve_large_blocked_shardmap
+    from benlsip_tpu_torch.problems.generators import blocked_hard_family
+    from benlsip_tpu_torch.solver import subproblem
+    from benlsip_tpu_torch.solver.options import SolverOptions
+
+    dev = torch.device("cuda:0")
+    t_phase = time.perf_counter()
+    n, d, alpha = CONFIG4["n"], CONFIG4["d"], CONFIG4["alpha"]
+    (bp, theta, x0), data_s = _walled(lambda: blocked_hard_family(
+        n=n, d=d, m=CONFIG4["m"], seed=CONFIG4["seed"], alpha=alpha, dtype=torch.float32, device=dev))
+    mesh = make_mesh(1, 1)
+    one = torch.ones(1, device=dev)
+    dist.all_reduce(one)
+    _require(dist.get_backend() == "nccl" and float(one) == 1.0, "config 4: the one-rank group must be NCCL")
+    opts = SolverOptions(max_outer_iter=20, max_inner_iter=60)
+    run = lambda: solve_large_blocked_family(bp, theta, x0, opts, mesh)
+
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launches()
+    subproblem.reset_operator_builds()
+    (x, y, info), cold = _walled(run)
+    launches = dict(kern.LAUNCHES)
+    builds = {f"{fact}/{dt}": k for (fact, dt), k in subproblem.OPERATOR_BUILDS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    warm = []
+    for _ in range(2):
+        (x2, _, info2), wall = _walled(run)
+        warm.append(wall)
+    inner = int(info.inner_iters)
+    warm_diff = float((x2 - x).abs().max())
+    active = float(((x - bp.xl < 1e-6) | (bp.xu - x < 1e-6)).float().mean())
+    print(f"config 4 (n={n}, d={d}, m={CONFIG4['m']}, f32, one-rank NCCL mesh): {_info_line(info)}, "
+          f"active fraction {active:.3f}")
+    print(f"config 4: data {data_s:.2f} s, cold {cold:.3f} s, warm {', '.join(f'{w:.3f}' for w in warm)} s, "
+          f"warm s per inner iteration {min(warm) / max(inner, 1):.4f}, peak device memory {peak / 2**30:.2f} GiB, "
+          f"max |dx| warm vs cold {warm_diff:.3e}")
+    print(f"config 4: operator builds in the cold run (factorization/dtype: count) = {builds}")
+    print(f"config 4: kernel launches in the cold run {launches}")
+    _require(x.shape == (n,) and x.dtype == torch.float32 and bool(torch.isfinite(x).all()),
+             "config 4: x must be finite float32 of shape (n,)")
+    _require(bool(info.converged), "config 4: the solve must converge")
+    _require(list(builds) == ["normal/float32"] and builds["normal/float32"] > 0,
+             f"config 4: the operator must be the Gram matrix in float32 only, built {builds}")
+    _check_launched("config 4", launches, CONFIG4_KERNELS)
+    _require(bool(info2.converged) and warm_diff <= SMALL_ATOL,
+             "config 4: a warm run disagrees with the cold run")
+    verdict = _config4_oracle("config 4", bp, theta, x, alpha)
+    _require(bool(verdict["ok"]), "config 4: the KKT oracle rejects the point")
+
+    res = {"launches": launches, "cold_s": cold, "warm_s": warm, "inner": inner, "peak_bytes": peak,
+           "data_s": data_s}
+    if profile:
+        res.update(_profile_config4(run))
+    del bp, theta, x0, x, x2
+    torch.cuda.empty_cache()
+
+    # The explicit-collective path (spmd_axis="block") on the same one-rank
+    # group, every operator layout and reduce schedule, against the plain solve.
+    # crit_tol 1e-3: at sqrt(eps(f32)) the f32 solve may stall at this size.
+    bp, theta, x0 = blocked_hard_family(n=2048, d=8192, seed=CONFIG4["seed"], dtype=torch.float32, device=dev)
+    small = dict(max_outer_iter=20, max_inner_iter=60, crit_tol=1e-3)
+    (xr, _, ir), wall = _walled(lambda: solve_large_blocked_family(bp, theta, x0, SolverOptions(**small), mesh))
+    print(f"config 4 plain solve (n=2048, d=8192): {_info_line(ir)}, {wall:.3f} s")
+    for layout, schedule in (("replicated", "xla"), ("sharded", "xla"), ("sharded", "ring")):
+        o = SolverOptions(**small, gram_layout=layout, reduce_schedule=schedule)
+        (xs, _, i_s), wall = _walled(lambda: solve_large_blocked_shardmap(bp, theta, x0, o, mesh))
+        diff = float((xs - xr).abs().max())
+        print(f"config 4 explicit collectives (n=2048, d=8192, {layout}/{schedule}): {_info_line(i_s)}, "
+              f"{wall:.3f} s, max |dx| vs the plain solve {diff:.3e}")
+        _require(bool(i_s.converged) == bool(ir.converged) and diff <= SHARDMAP_ATOL,
+                 f"config 4: the explicit-collective path ({layout}/{schedule}) disagrees with the plain solve")
+
+    # The card against the port's CPU run (plain kernel versions on the CPU).
+    for dtype, (crit_tol, atol) in CARD_CPU.items():
+        o = SolverOptions(max_outer_iter=20, max_inner_iter=60, crit_tol=crit_tol)
+        xs = {}
+        for where in ("cpu", "cuda"):
+            bp, theta, x0 = blocked_hard_family(n=1024, d=2048, seed=CONFIG4["seed"], dtype=dtype, device=where)
+            (xw, _, iw), wall = _walled(lambda: solve_large_blocked_family(bp, theta, x0, o, mesh))
+            print(f"config 4 n=1024 {dtype} on {where}: {_info_line(iw)}, {wall:.3f} s")
+            _require(bool(iw.converged), f"config 4 n=1024 {dtype} on {where}: not converged")
+            xs[where] = xw.cpu()
+        diff = float((xs["cpu"] - xs["cuda"]).abs().max())
+        print(f"config 4 n=1024 {dtype}: card vs CPU max |dx| {diff:.3e} (tolerance {atol:g})")
+        _require(diff <= atol, f"config 4 n=1024 {dtype}: the card's run disagrees with the CPU run")
+    dist.destroy_process_group()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"config 4 phase: {res['phase_s']:.1f} s")
+    return res
+
+
+def _profile_config4(run) -> dict:
+    """One traced warm config-4 run: device busy share, device kernels, and
+    the Gram GEMM (the largest kernel) by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall = _walled(run)[1]
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in events)
+    print(f"profile config 4: traced wall {wall:.3f} s, device busy {dev_us / 1e6:.3f} s "
+          f"({100 * dev_us / 1e6 / wall:.1f}%), {sum(e.count for e in events)} device kernels")
+    gemm = [e for e in events if "sgemm" in e.key]
+    gemm_us = sum(e.self_device_time_total for e in gemm)
+    print(f"profile config 4: Gram GEMM (sgemm kernels) {gemm_us / 1e3:.2f} ms over {sum(e.count for e in gemm)} calls, "
+          f"{100 * gemm_us / max(dev_us, 1):.1f}% of device time")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"profile config 4: {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<7d} "
+              f"({100 * e.self_device_time_total / max(dev_us, 1):.1f}% of device time) {e.key[:90]}")
+    return {"traced_wall_s": wall, "device_busy_s": dev_us / 1e6, "gemm_s": gemm_us / 1e6}
+
+
 def phase_profile(kern) -> None:
     """Where the warm time of each path goes: bulk vs certification wall,
     and the device's busy share from torch.profiler (sum of kernel times
@@ -1175,6 +1361,7 @@ def main() -> None:
     res = phase_slice(kern)
     res3 = phase_config3(kern)
     res1 = phase_config1(kern, smi)
+    res4 = phase_config4(kern, "--profile" in sys.argv[1:])
     if "--profile" in sys.argv[1:]:
         phase_profile(kern)
     src = "benlsip_tpu_torch/kernels/csrc/"
@@ -1199,9 +1386,10 @@ def main() -> None:
         if name == "blocked_qr_r":
             # Configs 1 and 2 (n = 3) have no wide QR and launch it 0 times.
             k["launches_config3_host"] = res3["launches_host"][name]
-        k.update({"launches": own2 + own3 + own1 + own1_b1, "launches_config2": own2, "launches_config3": own3,
+        own4 = res4["launches"][name]
+        k.update({"launches": own2 + own3 + own1 + own1_b1 + own4, "launches_config2": own2, "launches_config3": own3,
                   "launches_config1": own1, "launches_config1_host": res1["host"]["launches"][name],
-                  "launches_config1_single_f32": own1_b1, **rec[name]})
+                  "launches_config1_single_f32": own1_b1, "launches_config4": own4, **rec[name]})
         kernels.append(k)
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

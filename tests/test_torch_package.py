@@ -53,6 +53,9 @@ PORT_MODULES = [
     "benlsip_tpu_torch.batch.vmap_solve",
     "benlsip_tpu_torch.batch.polish",
     "benlsip_tpu_torch.batch.refine",
+    "benlsip_tpu_torch.dist.collectives",
+    "benlsip_tpu_torch.dist.mesh",
+    "benlsip_tpu_torch.dist.sharded",
     "benlsip_tpu_torch.problems.classic",
     "benlsip_tpu_torch.problems.generators",
     "benlsip_tpu_torch.problems.hs48",
@@ -205,7 +208,6 @@ def test_options_match_jax_field_by_field():
 
 
 @pytest.mark.parametrize("knob", [
-    {"spmd_axis": "x"}, {"gram_layout": "sharded"}, {"reduce_schedule": "ring"},
     {"verbose": True}, {"matmul_precision": "default"},
 ])
 def test_unported_option_raises(knob):
@@ -216,6 +218,7 @@ def test_unported_option_raises(knob):
 @pytest.mark.parametrize("knob", [
     {"linear_residuals": True}, {"gram_hessian": "on"}, {"gram_hessian": "off"},
     {"gn_factorization": "cholqr2"},
+    {"spmd_axis": "x"}, {"gram_layout": "sharded"}, {"reduce_schedule": "ring"},
 ])
 def test_ported_operator_option_accepted(knob):
     assert getattr(SolverOptions(**knob), next(iter(knob))) == next(iter(knob.values()))
