@@ -39,7 +39,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .._batched import full, mtv, mv, norm, tree_map, vdot
+from .._batched import full, mtv, mv, norm, sel, tree_map, vdot
+from .._loops import host_any, host_count, masked_while
 from ..ops.constraints import Polyhedron
 from ..solver.options import SolverOptions
 from ..solver.outer import SolveInfo
@@ -116,7 +117,7 @@ def _factor_qr(JZ: Tensor, EZ: Tensor, fixed: Tensor, reg: float, dual_reg: floa
     route's; the range-space solve needs none)."""
     from ..ops.qr import qr_r, thin_qr
 
-    sreg = torch.sqrt(torch.tensor(reg, dtype=JZ.dtype, device=JZ.device))
+    sreg = torch.sqrt(torch.full((), reg, dtype=JZ.dtype, device=JZ.device))
     dbot = torch.where(fixed, torch.ones((), dtype=JZ.dtype, device=JZ.device), sreg)
     RJ = qr_r(torch.cat([JZ, torch.diag_embed(dbot)], dim=-2))        # (B, n, n)
     Wt = torch.linalg.solve_triangular(RJ.mT, EZ.mT, upper=False)    # (B, n, q)
@@ -319,6 +320,99 @@ def _take_batched(bp: BatchedProblem, theta, idx: Tensor):
     return map_poly_fields(bp, take), tree_map(take, theta)
 
 
+class PolishState(NamedTuple):
+    """The fused certification's per-lane state: the polished point and
+    its certificate, and the re-polishes each lane has had."""
+
+    x: Tensor
+    y: Tensor
+    ok: Tensor
+    pix: Tensor
+    feas: Tensor
+    obj: Tensor
+    att: Tensor
+
+
+class FusedPolish:
+    """The fused certification of one batch: `first_round` (f32 QR
+    factors, f64 chord, certificate), then passes over buckets of at most
+    `straggler_bucket` uncertified lanes, served least-attempted first,
+    polished again and scattered back — `repolish` in the static shapes of
+    the JAX program (what `batch/fused_small` captures), or
+    `repolish_dynamic` with buckets cut to the lanes owed a pass (the eager
+    pipeline's).  Each uncertified lane gets up to `rounds - 1`
+    re-polishes."""
+
+    def __init__(self, bp32, theta32, bp64, theta64, options: SolverOptions, num_steps: int,
+                 active_tol: float, reg: float, refactor_steps: int, rounds: int, straggler_bucket: int):
+        self.rs, self.chord = _split_steps(num_steps, refactor_steps)
+        opts = options.resolve_tols(torch.float64)
+        self.tols = float(opts.crit_tol), float(opts.feas_tol)
+        self.data = bp32, theta32, bp64, theta64
+        self.active_tol, self.reg, self.rounds = active_tol, reg, rounds
+        self.K = max(straggler_bucket, 1)
+
+    def _round(self, b32, t32, b64, t64, x64: Tensor):
+        return _f32_factor_then_f64_chord(
+            b32, t32, x64, b64, t64, x64.device, self.rs, self.chord, "qr", self.active_tol, self.reg, 0.0,
+            *self.tols, promote=False,
+        )
+
+    def first_round(self, X32: Tensor) -> PolishState:
+        out = self._round(*self.data, X32.to(torch.float64))
+        return PolishState(*out, att=torch.zeros_like(out[2], dtype=torch.int32))
+
+    def eligible(self, s: PolishState) -> Tensor:
+        """The lanes still owed a re-polish."""
+        return (~s.ok) & (s.att < self.rounds - 1)
+
+    def _bucket(self, s: PolishState, K: int) -> Tensor:
+        """The first K lanes by (attempts, index): eligible least-attempted
+        lanes first.  A stable sort, not `topk`, whose order among equal
+        scores is unspecified on CUDA."""
+        score = torch.where(self.eligible(s), (self.rounds - s.att).to(torch.float32), 0.0)
+        return torch.sort(score, descending=True, stable=True).indices[:K]
+
+    def _polish_lanes(self, s: PolishState, idx: Tensor):
+        bp32, theta32, bp64, theta64 = self.data
+        return self._round(*_take_batched(bp32, theta32, idx), *_take_batched(bp64, theta64, idx), s.x[idx])
+
+    def repolish(self, s: PolishState) -> PolishState:
+        """The re-polish passes while a lane is owed one (`_loops.masked_while`),
+        at most ⌈B / bucket⌉·(rounds − 1) of them: every pass but the last
+        serves a full bucket, and each lane is served at most `rounds - 1`
+        times."""
+        B = s.x.shape[0]
+        passes = -(-B // min(self.K, B)) * max(self.rounds - 1, 0)
+        return masked_while(self.eligible, self._pass, s, self.eligible(s), passes)
+
+    def _pass(self, s: PolishState, act: Tensor) -> PolishState:
+        """One pass in static shapes (the JAX package's `lax.while_loop`
+        body): a bucket of min(straggler_bucket, B) lanes, of which only
+        the eligible take the new state, certified or not."""
+        idx = self._bucket(s, min(self.K, s.x.shape[0]))
+        upd = self.eligible(s)[idx]
+        new = self._polish_lanes(s, idx)
+
+        def scatter(t: Tensor, t_new: Tensor) -> Tensor:
+            out = t.clone()
+            out[idx] = sel(upd, t_new, t[idx])
+            return out
+
+        return PolishState(*[scatter(t, t_new) for t, t_new in zip(s, new)], att=scatter(s.att, s.att[idx] + 1))
+
+    def repolish_dynamic(self, s: PolishState) -> PolishState:
+        """The re-polish passes with a host decision each: a bucket of the
+        min(straggler_bucket, eligible) lanes served first, written back in
+        place, until no lane is owed a pass (no cap on the passes)."""
+        while (n_elig := host_count(self.eligible(s))) > 0:
+            idx = self._bucket(s, min(self.K, n_elig))
+            for t, t_new in zip(s, self._polish_lanes(s, idx)):
+                t[idx] = t_new
+            s.att[idx] += 1
+        return s
+
+
 def sqp_polish_fused(
     bp32: BatchedProblem,
     theta32,
@@ -336,40 +430,17 @@ def sqp_polish_fused(
     """Device-resident split polish: f32 QR factors + f64 chord +
     certification, then bucketed re-polish passes for uncertified lanes.
 
-    (The name is the JAX one; eager PyTorch runs it as several launches.)
-    Each uncertified lane gets up to `rounds - 1` re-polishes, served
-    least-attempted first in buckets of at most `straggler_bucket` lanes;
-    unlike the JAX version there is no cap on the number of passes, so no
-    straggler is left without its re-polish.  All inputs live on X32's
-    device.  Returns (X, Y, converged, pix, feas, objective) in f64.
+    (The name is the JAX one; eager PyTorch runs it as several launches,
+    `FusedPolish.repolish_dynamic`.)  Each uncertified lane gets up to
+    `rounds - 1` re-polishes, served least-attempted first in buckets of at
+    most `straggler_bucket` lanes; unlike the JAX version there is no cap
+    on the number of passes, so no straggler is left without its
+    re-polish.  All inputs live on X32's device.  Returns (X, Y, converged,
+    pix, feas, objective) in f64.
     """
-    rs, chord = _split_steps(num_steps, refactor_steps)
-    opts = options.resolve_tols(torch.float64)
-    dev = X32.device
-
-    def polish_round(b32, t32, b64, t64, x64):
-        return _f32_factor_then_f64_chord(
-            b32, t32, x64, b64, t64, dev, rs, chord, "qr", active_tol, reg, 0.0,
-            float(opts.crit_tol), float(opts.feas_tol), promote=False,
-        )
-
-    x, y, ok, pix, feas, obj = polish_round(bp32, theta32, bp64, theta64, X32.to(torch.float64))
-    att = torch.zeros_like(ok, dtype=torch.int32)
-    K = max(straggler_bucket, 1)
-    while True:
-        eligible = (~ok) & (att < rounds - 1)
-        n_elig = int(eligible.sum())
-        if n_elig == 0:
-            break
-        score = torch.where(eligible, (rounds - att).to(torch.float32), 0.0)
-        idx = torch.sort(score, descending=True, stable=True).indices[: min(K, n_elig)]
-        bp32_k, th32_k = _take_batched(bp32, theta32, idx)
-        bp64_k, th64_k = _take_batched(bp64, theta64, idx)
-        nx, ny, nok, npix, nfeas, nobj = polish_round(bp32_k, th32_k, bp64_k, th64_k, x[idx])
-        x[idx], y[idx], ok[idx] = nx, ny, nok
-        pix[idx], feas[idx], obj[idx] = npix, nfeas, nobj
-        att[idx] += 1
-    return x, y, ok, pix, feas, obj
+    fp = FusedPolish(bp32, theta32, bp64, theta64, options, num_steps, active_tol, reg,
+                     refactor_steps, rounds, straggler_bucket)
+    return tuple(fp.repolish_dynamic(fp.first_round(X32))[:6])
 
 
 def _gather_uncertified(ok: Tensor) -> Tensor:
@@ -433,16 +504,26 @@ def polish_then_refine(
         # Re-polish only the uncertified lanes; the re-polished state is
         # taken certified or not, so a further round starts from it.
         for _ in range(rounds - 1):
-            if bool(ok.all()):
+            if not host_any(~ok):
                 break
             idx = _gather_uncertified(ok)
             bp_r, theta_r = _take_batched(bp64, theta64, idx)
             new = sqp_polish(bp_r, theta_r, X[idx], options, **kw)
             for t, t_new in zip(out, new):
                 t[idx] = t_new
+    return finish_polish(bp64, theta64, (X, Y, ok, pix, feas, obj), options, num_steps, chunk)
+
+
+def finish_polish(bp64, theta64, polished, options: SolverOptions, num_steps: int, chunk: int,
+                  fallback_device=None) -> Tuple[Tensor, Tensor, SolveInfo]:
+    """The polished lanes' (X, Y, SolveInfo) — converged where certified,
+    no outer iterations, `num_steps` inner ones, mu at its start — after
+    one host sync to ask whether a lane is uncertified; those go to
+    `fallback_full_refine`, on `fallback_device` when given (the results
+    come back there), else where they are."""
+    X, Y, ok, pix, feas, obj = polished
     B = X.shape[0]
-    opts = options.resolve_tols(torch.float64)
-    zeros_i = torch.zeros((B,), dtype=torch.int32, device=dev)
+    zeros_i = torch.zeros((B,), dtype=torch.int32, device=X.device)
     info = SolveInfo(
         converged=ok,
         status=torch.where(ok, SOLVE_CONVERGED, SOLVE_MAX_OUTER).to(torch.int32),
@@ -450,13 +531,19 @@ def polish_then_refine(
         inner_iters=torch.full_like(zeros_i, num_steps),
         pix=pix,
         feas=feas,
-        mu=full(B, opts.mu0, X),
+        mu=full(B, options.mu0, X),
         objective=obj,
         minor_iters=zeros_i.clone(),
         cg_iters=zeros_i.clone(),
     )
-    if bool(ok.all()):
+    if not host_any(~ok):
         return X, Y, info
+    if fallback_device is not None:
+        from .refine import _cast_problem
+
+        host = torch.device(fallback_device)
+        bp64, theta64 = _cast_problem(bp64, torch.float64, host), tree_map(lambda a: a.to(host), theta64)
+        X, Y, info = X.to(host), Y.to(host), SolveInfo(*[t.to(host) for t in info])
     return fallback_full_refine(bp64, theta64, X, Y, info, options, chunk)
 
 
@@ -471,7 +558,7 @@ def fallback_full_refine(bp64, theta64, X: Tensor, Y: Tensor, info: SolveInfo, o
     bp_f, theta_f = _take_batched(bp64, theta64, idx)
     Xf, Yf, inf_f = refine_f64(bp_f, theta_f, X[idx], options, chunk=chunk)
     bad = ~inf_f.converged
-    if bool(bad.any()):
+    if host_any(bad):
         sel2 = _gather_uncertified(~bad)
         bp_r, theta_r = _take_batched(bp_f, theta_f, sel2)
         Xf2, Yf2, inf_f2 = refine_f64(bp_r, theta_r, Xf[sel2], options, chunk=chunk)

@@ -18,7 +18,10 @@ CPU (for n ≥ 64 after f32 factors on the device, `batch/polish.py`), and
 the results come back on the CPU.  The scheduling knobs of the JAX
 pipeline keep their parameters; "auto" resolves to the plain path and an
 explicit non-default value raises `NotImplementedError` until its route is
-ported.
+ported.  `fuse=True` is ported: with the polish and the device
+certification it runs `batch/fused_small.solve_small_fused` (CUDA-graph
+replays on the card); "auto" stays the plain path until a measurement on
+the card says otherwise.
 """
 from __future__ import annotations
 
@@ -67,6 +70,12 @@ def _resolve_bulk_max_inner(bulk_max_inner, n: int, polish: bool):
     return 8 if (polish and n <= 8) else None
 
 
+def true_f32_matmuls() -> None:
+    """Bulk matmuls stay true f32 (the JAX package's matmul_precision="highest")."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def _require_plain(name: str, value, plain) -> None:
     if value != plain and value != "auto":
         raise NotImplementedError(f"solve_mixed_precision({name}={value!r}): not ported yet")
@@ -98,11 +107,15 @@ def solve_mixed_precision(
     the full f64 solver instead, on the certification's device.
     bulk_crit_tol relaxes the bulk phase's criticality tolerance (None:
     the f32 floor); bulk_max_inner caps its inner
-    iterations ("auto": 8 for n ≤ 8).  fuse, bulk_compact,
-    sort_by_difficulty and pipeline_overlap keep the JAX signature; only
-    their plain settings are ported, as is only a float32 bulk_dtype.
+    iterations ("auto": 8 for n ≤ 8).  fuse=True stages the polished
+    device pipeline as `solve_small_fused` (with polish=False or
+    certify="host" it is the plain path, as in JAX where it fuses only the
+    device certification).  bulk_compact, sort_by_difficulty and
+    pipeline_overlap keep the JAX signature; only their plain settings are
+    ported, as is only a float32 bulk_dtype.
     """
-    _require_plain("fuse", fuse, False)
+    if fuse not in (True, False, "auto"):
+        raise ValueError(f"fuse={fuse!r}: expected True, False or 'auto'")
     _require_plain("bulk_compact", bulk_compact, None)
     _require_plain("sort_by_difficulty", sort_by_difficulty, False)
     _require_plain("pipeline_overlap", pipeline_overlap, False)
@@ -112,12 +125,17 @@ def solve_mixed_precision(
     if bulk_dtype != torch.float32:
         raise NotImplementedError(f"solve_mixed_precision(bulk_dtype={bulk_dtype}): not ported yet")
 
-    # Bulk matmuls stay true f32 (the JAX package's matmul_precision="highest").
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    dev = X0.device
     bulk_max_inner = _resolve_bulk_max_inner(bulk_max_inner, X0.shape[-1], polish)
+    if fuse is True and polish and not host:
+        from .fused_small import solve_small_fused
+
+        return solve_small_fused(
+            bp, theta, X0, options, chunk=chunk, polish_steps=polish_steps,
+            bulk_crit_tol=bulk_crit_tol, bulk_max_inner=bulk_max_inner,
+        )
+
+    true_f32_matmuls()
+    dev = X0.device
     theta32 = _cast_tree(theta, torch.float32)
     bp32 = _cast_problem(bp, torch.float32, dev)
     X0_32 = X0.to(torch.float32)

@@ -30,6 +30,14 @@ library with a plain C interface on first use, into `_build/` keyed on a
 hash of the sources and flags, and loaded with ctypes.  Each wrapper adds
 one to its entry of `LAUNCHES` when it launches its kernel, and nowhere
 else, so a run can show that the main path went through the kernels.
+
+A wrapper called inside a CUDA graph capture records its kernel into the
+graph instead (`_launch` is stream-ordered, allocates nothing itself, and
+the kernels call only `cudaGetLastError` and `cudaFuncSetAttribute`): it
+adds one to `CAPTURED`, not to `LAUNCHES`.  What the replays run is
+counted by the graphs' owner (`batch/fused_small.replay_counts`: captured
+launches of each WHILE body times the trips its loop ran).  The library
+must be built and loaded before a capture; a first load inside one raises.
 """
 from __future__ import annotations
 
@@ -72,12 +80,14 @@ LAUNCHES = {
     "batched_cholesky": 0, "batched_cho_solve": 0, "batched_thin_qr": 0,
     "masked_aat_cholesky": 0, "project_tangent": 0, "blocked_qr_r": 0,
 }
+CAPTURED = dict.fromkeys(LAUNCHES, 0)   # launches recorded into CUDA graphs
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Set every kernel's launch and capture count to 0."""
+    for counts in (LAUNCHES, CAPTURED):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -169,11 +179,81 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     lib.benlsip_error_string.argtypes = [ctypes.c_int]
     lib.benlsip_error_string.restype = ctypes.c_char_p
+    # The conditional WHILE nodes of graph capture (`csrc/graph_conditional.cu`).
+    lib.benlsip_while_begin.argtypes = [_PTR, _PTR, _PTR, ctypes.POINTER(ctypes.c_ulonglong),
+                                        ctypes.POINTER(ctypes.c_void_p)]
+    lib.benlsip_while_set.argtypes = [ctypes.c_ulonglong, _PTR, _PTR]
+    lib.benlsip_while_end.argtypes = [_PTR]
+    for fn in (lib.benlsip_while_begin, lib.benlsip_while_set, lib.benlsip_while_end):
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: {load_library().benlsip_error_string(rc).decode()} (cudaError {rc})")
+
+
+def while_begin(pred: Tensor, parent: torch.cuda.Stream, body: torch.cuda.Stream) -> tuple:
+    """In the graph being captured on `parent`, add a WHILE node that runs
+    while its handle is set, set it from the bool `pred` (a 0-dim CUDA
+    tensor), and start capturing `body` into the node's body; returns the
+    handle and the body graph (a cudaGraph_t)."""
+    handle, graph = ctypes.c_ulonglong(), ctypes.c_void_p()
+    _check(load_library().benlsip_while_begin(pred.data_ptr(), parent.cuda_stream, body.cuda_stream,
+                                              ctypes.byref(handle), ctypes.byref(graph)), "while_begin")
+    return handle.value, graph.value
+
+
+def while_set(handle: int, pred: Tensor, stream: torch.cuda.Stream) -> None:
+    """Capture on `stream` the kernel that sets `handle` from `pred`."""
+    _check(load_library().benlsip_while_set(handle, pred.data_ptr(), stream.cuda_stream), "while_set")
+
+
+def while_end(body: torch.cuda.Stream) -> None:
+    """End the capture of the WHILE node's body begun by `while_begin`."""
+    _check(load_library().benlsip_while_end(body.cuda_stream), "while_end")
+
+
+@functools.lru_cache(maxsize=None)
+def _driver() -> ctypes.CDLL:
+    drv = ctypes.CDLL("libcuda.so.1")
+    drv.cuGraphGetNodes.argtypes = [_PTR, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t)]
+    drv.cuGraphNodeGetType.argtypes = [_PTR, ctypes.POINTER(ctypes.c_int)]
+    return drv
+
+
+# CUgraphNodeType of kernel nodes, and of memcpy and memset nodes.
+_KERNEL_NODE, _COPY_NODES = 0, (1, 2)
+
+
+def graph_nodes(graph: int) -> tuple:
+    """(kernel nodes, copy and memset nodes) of the cudaGraph_t `graph`
+    (the driver's CUgraph), the bodies of its WHILE nodes apart: a body's
+    counts times the trips its loop ran are the device operations a replay
+    ran there, which a profiler's trace does not show."""
+    drv, n = _driver(), ctypes.c_size_t()
+
+    def check(rc: int, call: str) -> None:
+        if rc != 0:
+            raise RuntimeError(f"graph_nodes: {call} failed (CUresult {rc})")
+
+    check(drv.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(drv.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    counts, kind = [0, 0], ctypes.c_int()
+    for node in nodes:
+        check(drv.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        counts[0] += kind.value == _KERNEL_NODE
+        counts[1] += kind.value in _COPY_NODES
+    return tuple(counts)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn(base: str, dtype: torch.dtype):
+    if load_library.cache_info().currsize == 0 and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{base}: the kernel library would be built and loaded inside a CUDA graph "
+                           "capture; call load_library() before capturing")
     return getattr(load_library(), f"{base}_{'f32' if dtype == torch.float32 else 'f64'}")
 
 
@@ -184,10 +264,8 @@ def _launch(name: str, base: str, t: Tensor, *args) -> None:
     else:
         with torch.cuda.device(t.device):
             rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        msg = load_library().benlsip_error_string(rc).decode()
-        raise RuntimeError(f"{name}: kernel launch failed: {msg} (cudaError {rc})")
-    LAUNCHES[name] += 1
+    _check(rc, f"{name}: kernel launch")
+    (CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES)[name] += 1
 
 
 def _require_cuda(name: str, *ts: Tensor, strided: tuple = ()) -> None:

@@ -7,8 +7,9 @@ with an exact vectorized line search on the concave dual; see the JAX
 module for the algorithm and the stall / cold-restart rescue.
 
 Batched: each lane runs its own Newton iteration; the loop is a masked
-state machine (one host sync per trip) in which a lane stops updating once
-its own predicate is false — the JAX package's `vmap` over `while_loop`.
+state machine (`_loops.masked_while`, at most `max_iter` trips) in which a
+lane stops updating once its own predicate is false — the JAX package's
+`vmap` over `while_loop`.
 As in the JAX module, the Newton matrix is factored by the library
 Cholesky (`chol_linalg`, the JAX `_chol_xla`) and solved through the
 kernel gate (`cho_solve_lower`).
@@ -19,7 +20,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .._batched import full, mtv, mv, norm, sel, sel_tuple, vdot
+from .._batched import full, mtv, mv, norm, sel, vdot
+from .._loops import masked_while
 from .cholesky import chol_linalg, cho_solve_lower
 from .constraints import Polyhedron
 
@@ -99,7 +101,7 @@ def projection_polyhedron(
 
     fn_zero = norm(F_of(torch.zeros((B, m), dtype=dtype, device=dev)))
 
-    def body(c: _NewtonCarry) -> _NewtonCarry:
+    def body(c: _NewtonCarry, act: Tensor) -> _NewtonCarry:
         # Cold-restart rescue: spend the first stall trigger on lam <- 0.
         do_restart = (c.stall >= 4) & ~c.restarted
         c = _NewtonCarry(
@@ -177,9 +179,7 @@ def projection_polyhedron(
         full(B, lam0 is None, fn0, torch.bool),
     )
     run = cond(c) if active is None else active & cond(c)
-    while bool(run.any()):
-        c = sel_tuple(run, body(c), c)
-        run = run & cond(c)
+    c = masked_while(cond, body, c, run, max_iter)   # `it` caps the trips at max_iter
     lam_fin = sel(c.Fnorm <= c.fbest, c.lam, c.lam_best)
     ret = (v_of(lam_fin),)
     if return_lam:

@@ -14,7 +14,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .._batched import full, norm, sel, sel_tuple, vdot
+from .._batched import full, norm, sel, vdot
+from .._loops import masked_while
 from ..ops.al import AlHessian, hv, vhv
 from ..ops.constraints import ActiveSet, Polyhedron, nb_fix
 from ..ops.project import project_tangent
@@ -26,21 +27,19 @@ Tensor = torch.Tensor
 def factor_to_boundary(p: Tensor, w: Tensor, w_l: Tensor, w_u: Tensor, atol: float = 1e-10) -> Tensor:
     """Largest gamma ≥ 0 per lane with w + gamma·p inside [w_l, w_u];
     components with |p_i| < atol don't bind."""
-    inf = torch.tensor(math.inf, dtype=p.dtype, device=p.device)
-    lo = torch.where(p <= -atol, (w_l - w) / p, inf)
-    hi = torch.where(p >= atol, (w_u - w) / p, inf)
+    lo = torch.where(p <= -atol, (w_l - w) / p, math.inf)
+    hi = torch.where(p >= atol, (w_u - w) / p, math.inf)
     return torch.clamp_min(torch.minimum(lo.amin(-1), hi.amin(-1)), 0.0)
 
 
 def linesearch(g_model: Tensor, H: AlHessian, w: Tensor, w_l: Tensor, w_u: Tensor, fixed: Tensor,
                axis: Optional[str] = None) -> Tensor:
     """Exact model line search along w, capped by the free-variable box."""
-    inf = torch.tensor(math.inf, dtype=w.dtype, device=w.device)
     wHw = vhv(H, w, axis)
     gw = vdot(g_model, w)
-    alpha_opt = torch.where(wHw > 0, -gw / torch.where(wHw > 0, wHw, 1.0), inf)
-    lo = torch.where(~fixed & (w < 0), w_l / torch.where(w < 0, w, 1.0), inf)
-    hi = torch.where(~fixed & (w > 0), w_u / torch.where(w > 0, w, 1.0), inf)
+    alpha_opt = torch.where(wHw > 0, -gw / torch.where(wHw > 0, wHw, 1.0), math.inf)
+    lo = torch.where(~fixed & (w < 0), w_l / torch.where(w < 0, w, 1.0), math.inf)
+    hi = torch.where(~fixed & (w > 0), w_u / torch.where(w > 0, w, 1.0), math.inf)
     alpha = torch.minimum(alpha_opt, torch.minimum(lo.amin(-1), hi.amin(-1)))
     return torch.where(torch.isfinite(alpha), alpha, 1.0)
 
@@ -148,12 +147,11 @@ def projected_cg(
             torch.where(max_iter >= 1, CG_RUNNING, CG_MAX_ITER),
         ).to(torch.int32),
     )
-    # The JAX loop's static trip bound 2(n - m) skips it entirely when ≤ 0.
+    # The JAX loop's static trip bound 2(n - m) skips it entirely when ≤ 0;
+    # `it` caps the trips at 2(n - m - #fix) + 1.
     if 2 * (n - m) > 0:
         run = c.status == CG_RUNNING
         if active is not None:
             run = run & active
-        while bool(run.any()):
-            c = sel_tuple(run, body(c), c)
-            run = run & (c.status == CG_RUNNING)
+        c = masked_while(lambda c: c.status == CG_RUNNING, lambda c, act: body(c), c, run, 2 * (n - m) + 1)
     return c.w, c.status, c.it - 1

@@ -14,7 +14,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .._batched import full, norm, sel, sel_tuple, vdot
+from .._batched import full, norm, sel, vdot
+from .._loops import masked_while
 from ..ops.al import AlHessian, hv, vhv
 from ..ops.constraints import (
     ActiveSet,
@@ -39,13 +40,12 @@ def _all(B: int, like: Tensor) -> Tensor:
 def next_breakpoint(d: Tensor, s: Tensor, d_l: Tensor, d_u: Tensor, fixed: Tensor) -> Tuple[Tensor, Tensor]:
     """Smallest theta per lane with a free component of s + theta·d at a
     bound: (theta, index); theta = +inf when no free direction moves."""
-    inf = torch.tensor(math.inf, dtype=d.dtype, device=d.device)
     theta_i = torch.where(
         d < 0,
         (d_l - s) / torch.where(d < 0, d, 1.0),
-        torch.where(d > 0, (d_u - s) / torch.where(d > 0, d, 1.0), inf),
+        torch.where(d > 0, (d_u - s) / torch.where(d > 0, d, 1.0), math.inf),
     )
-    theta_i = torch.where(fixed, inf, theta_i)
+    theta_i = torch.where(fixed, math.inf, theta_i)
     ind = torch.argmin(theta_i, dim=-1)   # first index on ties, like jnp.argmin
     return theta_i.gather(-1, ind.unsqueeze(-1)).squeeze(-1), ind
 
@@ -95,7 +95,7 @@ def cauchy_step(
     def cond(c: _CauchyCarry):
         return (~c.done) & (c.fixed.sum(-1) < n - m)
 
-    def body(c: _CauchyCarry) -> _CauchyCarry:
+    def body(c: _CauchyCarry, act: Tensor) -> _CauchyCarry:
         theta, ind = next_breakpoint(c.d, c.s, d_l, d_u, c.fixed)
         delta_t = torch.where(c.phi_pp > 0, -c.phi_p / torch.where(c.phi_pp > 0, c.phi_pp, 1.0), 0.0)
 
@@ -128,11 +128,10 @@ def cauchy_step(
             at_min | interior_min,
         )
 
-    if n - m > 0:  # the JAX loop's static trip bound
+    # Each trip fixes one more coordinate or ends the walk: at most n - m.
+    if n - m > 0:
         run = cond(c) if active is None else active & cond(c)
-        while bool(run.any()):
-            c = sel_tuple(run, body(c), c)
-            run = run & cond(c)
+        c = masked_while(cond, body, c, run, n - m)
     return c.s, ActiveSet(fixed=c.fixed, chol=c.chol)
 
 
@@ -183,18 +182,24 @@ def cauchy_step_projected(
         qs = 0.5 * vhv(H, s, axis) + gts
         return s, qs <= kappa1 * gts
 
+    def body(c: _TrialCarry, act: Tensor) -> _TrialCarry:
+        s_new, ok_new = trial(c.t, act)
+        return _TrialCarry(s_new, ok_new, c.t / gamma_c, c.k + 1)
+
     s, ok = trial(t0, active)
-    t, k = t0 / gamma_c, full(B, 1, t0, torch.int32)
-    run = active & ~ok & (k < max_trials)
-    while bool(run.any()):
-        s_new, ok_new = trial(t, run)
-        s = sel(run, s_new, s)
-        ok = torch.where(run, ok_new, ok)
-        t = torch.where(run, t / gamma_c, t)
-        k = torch.where(run, k + 1, k)
-        run = run & ~ok & (k < max_trials)
+    c = _TrialCarry(s, ok, t0 / gamma_c, full(B, 1, t0, torch.int32))
+    # k counts the trials: at most max_trials - 1 after the first.
+    c = masked_while(lambda c: ~c.ok & (c.k < max_trials), body, c, active & ~ok & (c.k < max_trials), max_trials)
+    s = c.s
     fixed = step_active_bounds(poly, x, s, delta, atol)
     return s, make_active_set(poly, fixed, reg=chol_reg)
+
+
+class _TrialCarry(NamedTuple):
+    s: Tensor
+    ok: Tensor
+    t: Tensor
+    k: Tensor
 
 
 class _MinorCarry(NamedTuple):
@@ -284,11 +289,9 @@ def inner_step(
             approx_solved, cg_stop,
         )
 
-    if min(opts.max_minor_iter, n - m) > 0:  # the JAX loop's static trip bound
-        run = active & cond(c)
-        while bool(run.any()):
-            c = sel_tuple(run, body(c, run), c)
-            run = run & cond(c)
+    # j caps the trips at max_minor ≤ min(max_minor_iter, n - m).
+    if min(opts.max_minor_iter, n - m) > 0:
+        c = masked_while(cond, body, c, active & cond(c), min(opts.max_minor_iter, n - m))
     pred = vdot(g, c.s) + 0.5 * vhv(H, c.s, ax)
     stats = InnerStats(minor_iters=c.j - 1, cg_iters=c.cg_total)
     return c.s, pred, ActiveSet(fixed=c.fixed, chol=c.chol), stats

@@ -14,7 +14,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .._batched import full, norm, sel, sel_tuple, vdot
+from .._batched import full, norm, sel, vdot
+from .._loops import masked_while
 from ..ops.al import _psum
 from ..ops.constraints import Polyhedron
 from .multipliers import least_squares_multipliers
@@ -147,6 +148,17 @@ def outer_body(fns, poly: Polyhedron, opts: SolverOptions, atol: float, c: Outer
     )
 
 
+def outer_loop(fns, poly: Polyhedron, opts: SolverOptions, atol: float, c: OuterCarry, run: Tensor,
+               gram_cache: Optional[dict] = None) -> OuterCarry:
+    """Outer iterations of the lanes in `run` until each is done (`outer`
+    caps them at max_outer_iter)."""
+    return masked_while(
+        lambda c: ~outer_done(c, opts),
+        lambda c, act: outer_body(fns, poly, opts, atol, c, active=act, gram_cache=gram_cache),
+        c, run, opts.max_outer_iter + 1,
+    )
+
+
 def carry_info(out: OuterCarry, opts: SolverOptions, objective: Tensor) -> SolveInfo:
     return SolveInfo(
         converged=out.critical,
@@ -177,10 +189,7 @@ def solve_fixed_point(fns, poly: Polyhedron, x0: Tensor, opts: SolverOptions,
     c = outer_init(fns, poly, x0, opts, y0)
     # Constant-J problems: one JᵀJ product for the whole solve.
     gram_cache = linear_gram_cache(fns, c.x, opts)
-    run = ~outer_done(c, opts)
-    while bool(run.any()):
-        c = sel_tuple(run, outer_body(fns, poly, opts, atol, c, active=run, gram_cache=gram_cache), c)
-        run = run & ~outer_done(c, opts)
+    c = outer_loop(fns, poly, opts, atol, c, ~outer_done(c, opts), gram_cache)
     # At a critical exit return the converged multiplier y + mu·c.
     y_final = sel(c.critical, c.y + c.mu.unsqueeze(-1) * c.cx, c.y)
     rx = fns.residuals(c.x)

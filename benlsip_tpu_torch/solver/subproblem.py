@@ -14,7 +14,8 @@ Under `opts.spmd_axis` (the explicit-collective blocked mode) every rank
 runs this loop on its own rows of J and r.  Each host-side loop decision
 (`run.any()`, `upd.any()`) is made from values that are psummed or
 computed from replicated data, so every rank takes every branch the same
-way and meets every collective.
+way and meets every collective.  Outside eager mode (`_loops`) the
+refresh is computed unconditionally and selected per lane.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .._batched import full, norm, sel, sel_tuple
+from .._loops import any_lane, masked_while
 from ..ops.al import (
     AlHessian,
     al_gradient,
@@ -236,7 +238,7 @@ def solve_subproblem(
         # other lanes keeping their Jacobians, and selected per lane.
         g, H = c.g, c.H
         upd = accept & act
-        if bool(upd.any()):
+        if any_lane(upd):
             Jn = sel(upd, fns.jac_res(x_next), c.H.J)
             Cn = sel(upd, fns.jac_nlcons(x_next), c.H.C)
             y_bar = y + mu.unsqueeze(-1) * cx_next
@@ -259,9 +261,7 @@ def solve_subproblem(
         )
 
     run = cond(c) if active is None else active & cond(c)
-    while bool(run.any()):
-        c = sel_tuple(run, body(c, run), c)
-        run = run & cond(c)
+    c = masked_while(cond, body, c, run, opts.max_inner_iter)   # k caps the trips
     return SubproblemResult(
         x=c.x, rx=c.rx, cx=c.cx, pix=c.pix, inner_iters=c.k - 1,
         minor_iters=c.minor_total, cg_iters=c.cg_total,

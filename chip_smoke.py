@@ -28,6 +28,19 @@ Phases (any failure raises and the script exits non-zero):
    certify at max(pix) ≤ sqrt(eps(f64)) ≈ 1.49e-8, the independent numpy
    KKT oracle must agree on 128 sampled instances, and a small batch must
    agree with the port's CPU run (the plain versions);
+4b. the fused config-2 path: each of the four path kernels captured
+   alone into a CUDA graph and replayed equals its eager call; then
+   `solve_mixed_precision(..., fuse=True)` (`batch/fused_small.py`: the
+   bulk of a chunk and the certification as CUDA graphs whose loops are
+   conditional WHILE nodes) on the same family, cold and warm: 1024/1024
+   certified at ≤ 1.49e-8, the oracle on 128, within rtol 1e-6 / atol 1e-8
+   of the unfused run and of the same stages run eagerly, every path
+   kernel captured and run by the replays (counted exactly: a WHILE body's
+   captured launches times the trips its loop ran, at least what the same
+   stages launch eagerly), no kernel launched outside the graphs in a warm
+   call; host syncs per warm call fused beside unfused, the replays'
+   device kernels, capture and instantiate seconds, and 5 warm walls of
+   each taken in turns;
 5. the config-3 path: `solve_mixed_precision` on
    `dense_quadratic_family(64, n=192, d=1024, m=6, seed=3)` on cuda:0 (the
    materialized CholeskyQR2 operator in the bulk, the fused
@@ -47,7 +60,8 @@ Phases (any failure raises and the script exits non-zero):
    or projection kernel; the 18 classic HS/MGH problems, each converged,
    feasible, at its published optimum and passed by the oracle;
    `solve_mixed_precision` on `sphere_family(1024, seed=0)` (one nonlinear
-   constraint per instance) in both certify modes, at least 90% certified
+   constraint per instance) in both certify modes and with fuse=True (walls
+   side by side), at least 90% certified
    at pix, feas ≤ 1.49e-8, oracle on 128 certified lanes with (c, C), the
    first 64 instances against the port's CPU run; `solve_qp`,
    `with_inequalities` and `least_squares` once each against a dense KKT
@@ -67,8 +81,12 @@ Phases (any failure raises and the script exits non-zero):
    certification, how many lanes the fused polish certifies alone and with
    its re-polish buckets, and the device's busy share and kernel count from
    torch.profiler, with the time and calls of cuSOLVER's `geqr2*` and of
-   the panel QR kernel; for config 4 one traced warm run, the busy share
-   and the largest device kernels by name (the Gram GEMM first).
+   the panel QR kernel; the fused config-2 path's device span (CUDA
+   events), its device kernels (exact, from the graphs) and its busy share
+   (the device time of the same stages traced eagerly, over the fused
+   wall) beside the unfused path's; for config 4 one traced warm run,
+   the busy share and the largest device kernels by name (the Gram GEMM
+   first).
 
 It imports nothing of JAX and nothing of the JAX package: the KKT oracle
 is the port's own copy.  The last two lines are the kernels' JSON record
@@ -76,8 +94,10 @@ is the port's own copy.  The last two lines are the kernels' JSON record
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -106,6 +126,9 @@ PEAK_F32_FLOPS = 67e12
 # `masked_aat_cholesky`, which holds its body.  Config 3 (n = 192) also
 # runs the panel QR kernel; config 2 (n = 3) has no wide QR.
 PATH_KERNELS = ("masked_aat_cholesky", "project_tangent", "batched_cho_solve", "batched_thin_qr")
+# Their CUDA function names, as a profiler trace shows them.
+DEVICE_NAMES = {"masked_aat_cholesky": "masked_aat_cholesky_kernel", "project_tangent": "project_tangent_kernel",
+                "batched_cho_solve": "cho_solve_kernel", "batched_thin_qr": "mgs_qr_kernel"}
 CONFIG3_KERNELS = PATH_KERNELS + ("blocked_qr_r",)
 # Device kernels of one warm run before the panel QR kernel (H100 80GB HBM3, 700 W).
 DEVICE_KERNELS_BEFORE = {"config 2": "68,888-68,892", "config 3": "17,405-17,413"}
@@ -797,6 +820,238 @@ def _walled(fn):
     return out, time.perf_counter() - t0
 
 
+# The fused path against the unfused one on the card: the JAX package's
+# fused-vs-unfused bar (tests/test_polish.py), two certified f64 points.
+FUSED_RTOL, FUSED_ATOL = 1e-6, 1e-8
+
+
+@contextlib.contextmanager
+def _stages_eagerly():
+    """Run `fuse=True`'s stages as plain calls on the card: the graphs'
+    comparison."""
+    from benlsip_tpu_torch.batch import fused_small
+
+    fused_small._USE_GRAPHS = False
+    try:
+        yield
+    finally:
+        fused_small._USE_GRAPHS = True
+
+
+def _check_while_nodes() -> None:
+    """Two nested masked loops captured as WHILE nodes (`_loops` capture
+    mode) and replayed equal the eager loops, again after the loops' data
+    change in place: the trip counts are decided on the device."""
+    from typing import NamedTuple
+
+    from benlsip_tpu_torch import _loops
+
+    class Carry(NamedTuple):
+        v: torch.Tensor
+        k: torch.Tensor
+
+    dev = torch.device("cuda:0")
+    bound = torch.tensor([2, 5, 5, 7], dtype=torch.int32, device=dev)
+    run = torch.tensor([True, True, False, True], device=dev)
+    c0 = Carry(torch.zeros(4, device=dev), torch.zeros(4, dtype=torch.int32, device=dev))
+
+    def outer_body(c, act):
+        inner = _loops.masked_while(lambda d: d.k < 3, lambda d, a: Carry(d.v + 0.5, d.k + 1),
+                                    Carry(c.v, torch.zeros_like(c.k)), act, 5)
+        return Carry(inner.v + 1, c.k + 1)
+
+    loop = lambda: _loops.masked_while(lambda c: c.k < bound, outer_body, c0, run, 9)   # cap: the largest bound
+    graph = torch.cuda.CUDAGraph()
+    with _loops.loop_mode("capture"), torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+        got = loop()
+    for new_bound in ([2, 5, 5, 7], [1, 9, 1, 3]):
+        bound.copy_(torch.tensor(new_bound, dtype=torch.int32))
+        graph.replay()
+        want = loop()
+        _require(torch.equal(got.v, want.v) and torch.equal(got.k, want.k),
+                 f"WHILE nodes: replay {got} differs from the eager loops {want} at bounds {new_bound}")
+    print(f"fused: nested masked loops as WHILE nodes, replayed at two sets of bounds, equal the eager loops ({got.k.tolist()} trips)")
+
+
+def _check_captured_kernels(kern) -> None:
+    """Each kernel of the config-2 path captured alone into a CUDA graph at
+    the path's shapes and replayed: the replay equals the eager call."""
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(7)
+    A, fixed, r = _fused_case(rng, 512, 1, 3, False, dev)
+    fixed[510:] = fixed[0]
+    L = kern.masked_aat_cholesky(A, fixed)
+    b = torch.as_tensor(rng.standard_normal((512, 1)), dtype=torch.float32, device=dev)
+    S = torch.as_tensor(rng.standard_normal((1024, 35, 3)), dtype=torch.float32, device=dev)
+    W = torch.as_tensor(rng.standard_normal((1024, 3, 1)), dtype=torch.float32, device=dev)
+    calls = {
+        "masked_aat_cholesky": lambda: kern.masked_aat_cholesky(A, fixed),
+        "project_tangent": lambda: kern.project_tangent(A, L, fixed, r),
+        "batched_cho_solve": lambda: kern.batched_cho_solve(L, b),
+        "batched_thin_qr": lambda: kern.batched_thin_qr(S) + kern.batched_thin_qr(W),
+    }
+    stream = torch.cuda.Stream()
+    for name, fn in calls.items():
+        want = fn()
+        before = kern.CAPTURED[name]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            got = fn()
+        graph.replay()
+        _sync()
+        got, want = (got,) if torch.is_tensor(got) else got, (want,) if torch.is_tensor(want) else want
+        _require(kern.CAPTURED[name] > before, f"{name}: the capture recorded no launch")
+        _require(all(torch.equal(g, w) for g, w in zip(got, want)), f"{name}: the graph's replay differs from the eager call")
+    print(f"fused: each path kernel captured at config-2 shapes and replayed equals its eager call ({', '.join(calls)})")
+
+
+def phase_fused(kern, smi: str, profile: bool) -> dict:
+    """The fused config-2 path: `solve_mixed_precision(..., fuse=True)` as
+    CUDA-graph replays (`batch/fused_small.py`) on the config-2 family, cold
+    and warm, against the unfused run and the same fused code run eagerly."""
+    from benlsip_tpu_torch import _loops
+    from benlsip_tpu_torch.batch import fused_small
+    from benlsip_tpu_torch.batch.refine import solve_mixed_precision
+    from benlsip_tpu_torch.problems.generators import exp_fit_family
+    from benlsip_tpu_torch.solver.options import SolverOptions
+
+    t_phase = time.perf_counter()
+    print(f"fused: torch {torch.__version__}, CUDA {torch.version.cuda}; torch's own conditional-node capture "
+          f"(CUDAGraph.begin_capture_to_if_node) {'present' if hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node') else 'absent'}; "
+          "the port adds conditional WHILE nodes through csrc/graph_conditional.cu")
+    _check_while_nodes()
+    _check_captured_kernels(kern)
+    dev = torch.device("cuda:0")
+    opts = SolverOptions(max_outer_iter=40, max_inner_iter=120)
+    B = 1024
+    bp, theta, X0 = exp_fit_family(B, d=32, seed=42, dtype=torch.float64, device=dev)
+    fused = lambda: solve_mixed_precision(bp, theta, X0, opts, fuse=True)
+    plain = lambda: solve_mixed_precision(bp, theta, X0, opts)
+
+    kern.reset_launches()
+    fused_small.reset_graph_stats()
+    _loops.reset_host_syncs()
+    (X, Y, info), cold = _walled(fused)
+    cold_syncs = _loops.HOST_SYNCS
+    captured = dict(kern.CAPTURED)
+    stats = list(fused_small.GRAPH_STATS)
+    kern.reset_launches()
+    _loops.reset_host_syncs()
+    fused_small.reset_replay_counts()
+    (X2, _, info2), warm0 = _walled(fused)
+    syncs = {"fused": _loops.HOST_SYNCS}
+    launches, replay = dict(kern.LAUNCHES), fused_small.replay_counts()
+    executed = replay["launches"]
+    _check_certified("fused config 2", X, info, B, 3)
+    _require(torch.equal(X2, X) and torch.equal(info2.converged, info.converged), "fused config 2: the warm run differs from the cold run")
+    _require(not any(launches.values()), f"fused config 2: a warm call launched kernels outside its graphs: {launches}")
+    capture_s = sum(s["capture_s"] for s in stats)
+    instantiate_s = sum(s["instantiate_s"] for s in stats)
+    for s in stats:
+        print(f"fused graph {s['stage']}: capture {s['capture_s']:.3f} s, instantiate {s['instantiate_s']:.3f} s, captured launches {s['captured_launches']}")
+    print(f"fused config 2, B={B}: certified {int(info.converged.sum())}/{B}, max pix {float(info.pix.max()):.3e}, cold {cold:.3f} s "
+          f"({len(stats)} graphs, capture {capture_s:.3f} s, instantiate {instantiate_s:.3f} s, {cold_syncs} host syncs), "
+          f"first warm {warm0:.3f} s on {smi}")
+
+    # Against the unfused run on the card, and the same fused code run eagerly.
+    _loops.reset_host_syncs()
+    (Xu, _, iu), _ = _walled(plain)
+    syncs["unfused"] = _loops.HOST_SYNCS
+    du = float((X - Xu).abs().max())
+    _require(torch.equal(iu.converged, info.converged) and torch.allclose(X, Xu, rtol=FUSED_RTOL, atol=FUSED_ATOL),
+             f"fused config 2: disagrees with the unfused run (max |dX| {du:.3e})")
+    with _stages_eagerly():
+        fused()
+        kern.reset_launches()
+        _loops.reset_host_syncs()
+        (Xe, _, ie), eager_wall = _walled(fused)
+    syncs["fused_eager"] = _loops.HOST_SYNCS
+    eager_launches = dict(kern.LAUNCHES)
+    de = float((X - Xe).abs().max())
+    print(f"fused config 2: max |dX| captured vs unfused {du:.3e} (rtol {FUSED_RTOL:g}, atol {FUSED_ATOL:g}), captured vs the "
+          f"same stages run eagerly {de:.3e} ({'identical' if de == 0 else 'not identical'}; eager fused wall {eager_wall:.3f} s)")
+    _require(torch.equal(ie.converged, info.converged) and torch.allclose(X, Xe, rtol=FUSED_RTOL, atol=FUSED_ATOL),
+             f"fused config 2: the graphs disagree with the same stages run eagerly (max |dX| {de:.3e})")
+    print(f"fused config 2: host syncs per warm call: unfused {syncs['unfused']}, fused as graphs {syncs['fused']}, "
+          f"fused stages run eagerly {syncs['fused_eager']}")
+    # The replays run every trip the eager loops run, and branches the host
+    # skips eagerly when no lane needs them.
+    print(f"fused config 2: a warm call's {replay['replays']} graph replays ran {replay['loop_trips']} WHILE-node trips, "
+          f"{replay['device_kernels']} device kernels and {replay['device_copies']} copies (node counts x trips); "
+          f"path kernels run by the replays {executed}, "
+          f"launched by the same stages run eagerly {eager_launches}")
+    for name in PATH_KERNELS:
+        _require(captured[name] > 0 and executed[name] > 0, f"fused config 2: kernel {name} captured {captured[name]}, run by the replays {executed[name]}")
+    _require(all(executed[k] >= eager_launches[k] for k in PATH_KERNELS),
+             f"fused config 2: the replays ran fewer path kernels ({executed}) than the same stages eagerly ({eager_launches})")
+
+    # The oracle on 128 sampled instances.
+    fns = bp.instance_fns(theta)
+    r, J = fns.residuals(X).cpu().numpy(), fns.jac_res(X).cpu().numpy()
+    Xh, A, b_rhs = X.cpu().numpy(), bp.A.cpu().numpy(), bp.b.cpu().numpy()
+    xl, xu = bp.xl.cpu().numpy(), bp.xu.cpu().numpy()
+    sample = np.random.default_rng(0).choice(B, size=128, replace=False)
+    agree = _oracle_agreement("fused config 2", [(Xh[i], r[i], J[i], None, None, A, b_rhs[i], xl, xu) for i in sample])
+    _require(agree == 128, f"fused config 2: oracle agrees on {agree}/128")
+
+    # Warm walls in turns: unfused, fused, fused, unfused, ...
+    walls = {"fused": [], "unfused": []}
+    for i in range(5):
+        for name in (("unfused", "fused") if i % 2 == 0 else ("fused", "unfused")):
+            walls[name].append(_walled(fused if name == "fused" else plain)[1])
+    for name, w in walls.items():
+        print(f"fused config 2: warm wall {name} (5 calls in turns) median {float(np.median(w)):.4f} s, "
+              f"range {min(w):.4f}-{max(w):.4f} s, all {[round(x, 4) for x in w]} on {smi}")
+    res = {"cold_s": cold, "warm_s": walls, "syncs": syncs, "captured": captured, "executed": executed,
+           "device_kernels": replay["device_kernels"], "capture_s": capture_s, "instantiate_s": instantiate_s,
+           "graphs": len(stats)}
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        # A trace holds each node of a graph's top level once a launch, not
+        # the kernels that its WHILE bodies run trip after trip: for the
+        # fused path the traced kernels and busy time undercount.  The
+        # device's span from the call's first to its last operation (CUDA
+        # events; gaps inside the graph included) bounds its busy time, the
+        # graphs count its kernels exactly, and its kernel time is that of
+        # the same stages traced eagerly (the same kernels on the same data).
+        spans = {}
+        for name, fn in (("fused", fused), ("unfused", plain)):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            _sync()
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            _sync()
+            wall, span = time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+            spans[name] = (wall, span)
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                traced = _walled(fn)[1]
+            events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+            dev_us = sum(e.self_device_time_total for e in events)
+            on_device = {k: sum(e.count for e in events if re.search(rf"\b{DEVICE_NAMES[k]}[<(]", e.key))
+                         for k in PATH_KERNELS}
+            print(f"profile fused config 2 ({name}): wall {wall:.4f} s, device span {span:.4f} s ({100 * span / wall:.1f}%); "
+                  f"traced wall {traced:.3f} s, traced device time {dev_us / 1e6:.4f} s ({100 * dev_us / 1e6 / traced:.1f}%), "
+                  f"{sum(e.count for e in events)} traced device kernels, path kernels in the trace {on_device}")
+            for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+                print(f"profile fused config 2 ({name}): {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<7d} {e.key[:80]}")
+        with _stages_eagerly(), torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced = _walled(fused)[1]
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_s = sum(e.self_device_time_total for e in events) / 1e6
+        wall, span = spans["fused"]
+        print(f"profile fused config 2 (graphs): {replay['device_kernels']} device kernels + {replay['device_copies']} copies "
+              f"run by a warm call's replays (exact); the same stages traced eagerly: {sum(e.count for e in events)} device "
+              f"operations, {dev_s:.4f} s of device time (traced wall {traced:.3f} s); busy share of the fused call "
+              f"{100 * dev_s / wall:.1f}% of its wall {wall:.4f} s, {100 * dev_s / span:.1f}% of its device span on {smi}")
+        res["busy_share"] = dev_s / wall
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"fused phase: {res['phase_s']:.1f} s")
+    return res
+
+
 def _check_certified(tag: str, X, info, B: int, n: int) -> None:
     n_cert, pix_max = int(info.converged.sum()), float(info.pix.max())
     if X.shape != (B, n) or X.dtype != torch.float64 or not torch.isfinite(X).all():
@@ -987,6 +1242,7 @@ def _classic_battery() -> dict:
 def _sphere_batch(kern, smi: str) -> dict:
     """Config 1, step 4: the batched nonlinear-constraint path at full width."""
     from benlsip_tpu_torch._batched import tree_map
+    from benlsip_tpu_torch.batch import fused_small
     from benlsip_tpu_torch.batch.refine import _cast_problem, solve_mixed_precision
     from benlsip_tpu_torch.problems.generators import sphere_family
     from benlsip_tpu_torch.solver.options import SolverOptions
@@ -996,19 +1252,27 @@ def _sphere_batch(kern, smi: str) -> dict:
     bp, theta, X0 = sphere_family(B, seed=0)   # device=None: the card
     _require(X0.device.type == "cuda", "sphere_family: the default device must be the card")
     out, xs = {}, {}
-    for certify in ("auto", "host"):
+    # certify="auto" and "host", then the fused path (CUDA-graph replays,
+    # device certification); for the fused path the launch counts are those
+    # its warm call's replays ran (the fallback refine's launches beside).
+    for mode, kw in (("auto", {"certify": "auto"}), ("host", {"certify": "host"}), ("fused", {"fuse": True})):
+        run = lambda: solve_mixed_precision(bp, theta, X0, opts, chunk=chunk, **kw)
         kern.reset_launches()
-        (X, Y, info), cold = _walled(lambda: solve_mixed_precision(bp, theta, X0, opts, chunk=chunk, certify=certify))
+        (X, Y, info), cold = _walled(run)
         launches = dict(kern.LAUNCHES)
-        (X2, _, info2), warm = _walled(lambda: solve_mixed_precision(bp, theta, X0, opts, chunk=chunk, certify=certify))
+        kern.reset_launches()
+        fused_small.reset_replay_counts()
+        (X2, _, info2), warm = _walled(run)
+        if mode == "fused":
+            launches = {k: v + kern.LAUNCHES[k] for k, v in fused_small.replay_counts()["launches"].items()}
         ok = info.converged
         n_cert = int(ok.sum())
-        tag = f"config 1 sphere_family B={B} certify={certify}"
+        tag = f"config 1 sphere_family B={B} {'fuse=True' if mode == 'fused' else 'certify=' + mode}"
         print(f"{tag}: certified {n_cert}/{B}, max pix {float(info.pix[ok].max()):.3e}, max feas {float(info.feas[ok].max()):.3e}, "
               f"cold {cold:.3f} s, warm {warm:.3f} s on {smi}, launches {launches}")
         _require(X.shape == (B, 3) and Y.shape == (B, 1) and X.dtype == torch.float64 and bool(torch.isfinite(X[ok]).all()),
                  f"{tag}: X (B, 3) and Y (B, 1) must be finite float64")
-        _require(X.device.type == ("cpu" if certify == "host" else "cuda"), f"{tag}: results on the wrong device")
+        _require(X.device.type == ("cpu" if mode == "host" else "cuda"), f"{tag}: results on the wrong device")
         _require(n_cert >= 0.9 * B, f"{tag}: only {n_cert}/{B} certified")
         _require(float(info.pix[ok].max()) <= CERT_PIX and float(info.feas[ok].max()) <= CERT_PIX, f"{tag}: a certified lane misses 1.49e-8")
         _require(torch.equal(info2.converged, ok) and float((X2 - X)[ok].abs().max()) <= SMALL_ATOL, f"{tag}: the warm run disagrees with the cold run")
@@ -1025,11 +1289,14 @@ def _sphere_batch(kern, smi: str) -> dict:
         sample = np.random.default_rng(0).choice(np.flatnonzero(ok.cpu().numpy()), size=128, replace=False)
         agree = _oracle_agreement(tag, [(Xn[i], r[i], J[i], c[i], C[i], A, b_rhs, xl, xu) for i in sample])
         _require(agree == 128, f"{tag}: oracle agrees on {agree}/128")
-        out[certify] = {"launches": launches, "cold_s": cold, "warm_s": warm, "certified": n_cert}
-        xs[certify] = (X.cpu(), ok.cpu())
-    both = xs["auto"][1] & xs["host"][1]
-    print(f"config 1 sphere_family: certify=host vs auto max |dX| {float((xs['host'][0] - xs['auto'][0])[both].abs().max()):.3e} "
-          f"on the {int(both.sum())} lanes certified by both")
+        out[mode] = {"launches": launches, "cold_s": cold, "warm_s": warm, "certified": n_cert}
+        xs[mode] = (X.cpu(), ok.cpu())
+    for mode in ("host", "fused"):
+        both = xs["auto"][1] & xs[mode][1]
+        print(f"config 1 sphere_family: {mode} vs certify=auto max |dX| {float((xs[mode][0] - xs['auto'][0])[both].abs().max()):.3e} "
+              f"on the {int(both.sum())} lanes certified by both")
+    print(f"config 1 sphere_family warm walls on {smi}: certify=auto {out['auto']['warm_s']:.3f} s, certify=host "
+          f"{out['host']['warm_s']:.3f} s, fuse=True {out['fused']['warm_s']:.3f} s")
 
     # The card against the port's CPU run on the first 64 instances.
     first = lambda a: a[:64]
@@ -1359,6 +1626,7 @@ def main() -> None:
     phase_build(kern)
     rec = phase_kernels(kern)
     res = phase_slice(kern)
+    resf = phase_fused(kern, smi, "--profile" in sys.argv[1:])
     res3 = phase_config3(kern)
     res1 = phase_config1(kern, smi)
     res4 = phase_config4(kern, "--profile" in sys.argv[1:])
@@ -1389,7 +1657,14 @@ def main() -> None:
         own4 = res4["launches"][name]
         k.update({"launches": own2 + own3 + own1 + own1_b1 + own4, "launches_config2": own2, "launches_config3": own3,
                   "launches_config1": own1, "launches_config1_host": res1["host"]["launches"][name],
-                  "launches_config1_single_f32": own1_b1, "launches_config4": own4, **rec[name]})
+                  "launches_config1_single_f32": own1_b1, "launches_config4": own4,
+                  # The fused paths run as CUDA-graph replays: launches captured into their
+                  # graphs in the cold call, and the launches a warm call's replays ran
+                  # (a WHILE body's captured launches times its loop's trips; for
+                  # config 1 with the eager fallback refine's).
+                  "captured_config2_fused": resf["captured"][name],
+                  "launches_config2_fused": resf["executed"][name],
+                  "launches_config1_fused": res1["fused"]["launches"][name], **rec[name]})
         kernels.append(k)
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

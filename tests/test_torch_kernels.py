@@ -163,7 +163,7 @@ def test_build_is_keyed_on_sources():
     assert p1 == p2 and p1.parent == tk.BUILD_DIR and p1.suffix == ".so"
     assert {s.name for s in tk.CSRC.glob("*.cu")} == {
         "cholesky.cu", "cho_solve.cu", "thin_qr.cu", "masked_aat_cholesky.cu", "project_tangent.cu",
-        "blocked_qr.cu",
+        "blocked_qr.cu", "graph_conditional.cu",
     }
     assert "--use_fast_math" not in tk.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in tk.NVCC_FLAGS
     # Separately rounded products everywhere but in the panel QR, and the

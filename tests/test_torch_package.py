@@ -30,6 +30,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_MODULES = [
     "benlsip_tpu_torch",
     "benlsip_tpu_torch._device",
+    "benlsip_tpu_torch._loops",
     "benlsip_tpu_torch.compat",
     "benlsip_tpu_torch.interop",
     "benlsip_tpu_torch.baselines.kkt_oracle",
@@ -53,6 +54,7 @@ PORT_MODULES = [
     "benlsip_tpu_torch.batch.vmap_solve",
     "benlsip_tpu_torch.batch.polish",
     "benlsip_tpu_torch.batch.refine",
+    "benlsip_tpu_torch.batch.fused_small",
     "benlsip_tpu_torch.dist.collectives",
     "benlsip_tpu_torch.dist.mesh",
     "benlsip_tpu_torch.dist.sharded",
@@ -225,7 +227,7 @@ def test_ported_operator_option_accepted(knob):
 
 
 @pytest.mark.parametrize("kw", [
-    {"fuse": True}, {"bulk_compact": 2}, {"sort_by_difficulty": True},
+    {"fuse": True, "bulk_compact": 2}, {"bulk_compact": 2}, {"sort_by_difficulty": True},
     {"pipeline_overlap": True}, {"bulk_dtype": torch.bfloat16},
 ])
 def test_unported_pipeline_knob_raises(kw):
