@@ -61,3 +61,13 @@ def tree_map(fn, tree):
 def full(B: int, value, like: Tensor, dtype=None) -> Tensor:
     """(B,) tensor filled with `value` on `like`'s device (dtype defaults to like's)."""
     return torch.full((B,), value, dtype=dtype or like.dtype, device=like.device)
+
+
+def cat_batches(parts):
+    """Concatenate consecutive sub-batches along the batch axis: each part
+    a tensor or a (Named)tuple of them, nested alike."""
+    first = parts[0]
+    if isinstance(first, tuple):
+        fields = [cat_batches(f) for f in zip(*parts)]
+        return type(first)(*fields) if hasattr(first, "_fields") else tuple(fields)
+    return first if len(parts) == 1 else torch.cat(parts)

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import threading
 from typing import Callable, NamedTuple, Optional, TypeVar
 
 import torch
@@ -51,6 +52,7 @@ MODES = ("eager", "capture", "all_trips")
 HOST_SYNCS = 0
 # Eager loops that ran more trips than their `trip_cap`, since the process began.
 CAP_OVERRUNS = 0
+_SYNCS_LOCK = threading.Lock()
 _mode = "eager"
 # Conditional bodies being captured, and per (device, nesting depth) the
 # stream a body is captured on and the private memory pool it allocates from.
@@ -95,18 +97,31 @@ def reset_host_syncs() -> None:
     HOST_SYNCS = 0
 
 
+def _count_sync() -> None:
+    # The overlapped pipeline certifies on a worker thread while the main
+    # thread runs the bulk: the increment must not lose a count.
+    global HOST_SYNCS
+    with _SYNCS_LOCK:
+        HOST_SYNCS += 1
+
+
 def host_any(mask: Tensor) -> bool:
     """bool(mask.any()) on the host: one counted sync."""
-    global HOST_SYNCS
-    HOST_SYNCS += 1
+    _count_sync()
     return bool(mask.any())
 
 
 def host_count(mask: Tensor) -> int:
     """int(mask.sum()) on the host: one counted sync."""
-    global HOST_SYNCS
-    HOST_SYNCS += 1
+    _count_sync()
     return int(mask.sum())
+
+
+def host_nonzero(mask: Tensor) -> Tensor:
+    """Indices of the true lanes of a (B,) mask, as a CPU tensor: one
+    counted sync."""
+    _count_sync()
+    return torch.nonzero(mask.cpu()).squeeze(-1)
 
 
 @contextlib.contextmanager

@@ -16,7 +16,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from .._batched import tree_map
+from .._batched import cat_batches, tree_map
 from ..ops.constraints import Polyhedron
 from ..solver.api import NLSFunctions, autodiff_jacobian, empty_jac_nlcons, empty_nlconstraints
 from ..solver.options import SolverOptions
@@ -147,9 +147,16 @@ def solve_batched_chunked(
                 options,
             )
         )
-    if len(outs) == 1:
-        return outs[0]
-    X = torch.cat([o[0] for o in outs])
-    Y = torch.cat([o[1] for o in outs])
-    info = SolveInfo(*[torch.cat([getattr(o[2], f) for o in outs]) for f in SolveInfo._fields])
-    return X, Y, info
+    return cat_batches(outs)
+
+
+def solve_sequential(
+    bp: BatchedProblem, theta, X0: Tensor, options: SolverOptions = SolverOptions(),
+) -> Tuple[Tensor, Tensor, SolveInfo]:
+    """Loop-of-solves reference path: each instance alone, as a batch of
+    one through `solve_fixed_point`.  The batched path is held to it."""
+    one = lambda i: (lambda a: a[i:i + 1])
+    return cat_batches([
+        solve_batched(map_poly_fields(bp, one(i)), tree_map(one(i), theta), X0[i:i + 1], options)
+        for i in range(X0.shape[0])
+    ])

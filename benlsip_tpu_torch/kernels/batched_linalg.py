@@ -48,6 +48,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -81,6 +82,7 @@ LAUNCHES = {
     "masked_aat_cholesky": 0, "project_tangent": 0, "blocked_qr_r": 0,
 }
 CAPTURED = dict.fromkeys(LAUNCHES, 0)   # launches recorded into CUDA graphs
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -265,7 +267,9 @@ def _launch(name: str, base: str, t: Tensor, *args) -> None:
         with torch.cuda.device(t.device):
             rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     _check(rc, f"{name}: kernel launch")
-    (CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES)[name] += 1
+    counts = CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES
+    with _COUNT_LOCK:     # the overlapped pipeline launches from two threads
+        counts[name] += 1
 
 
 def _require_cuda(name: str, *ts: Tensor, strided: tuple = ()) -> None:

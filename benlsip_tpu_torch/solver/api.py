@@ -21,6 +21,7 @@ XLA knob and has no counterpart here.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Callable, Optional, Tuple
 
 import torch
@@ -43,6 +44,13 @@ class NLSFunctions:
     jac_nlcons: Callable[[Tensor], Tensor]
 
 
+# Forward-mode AD levels are global to the process, not to a thread: two
+# threads inside `jacfwd` at once corrupt each other's levels (the
+# overlapped pipeline certifies on a worker thread while the main thread
+# runs the bulk), so Jacobian evaluations take turns.
+_FORWARD_AD = threading.RLock()
+
+
 def autodiff_jacobian(fn: Callable) -> Callable:
     """Forward-mode Jacobian of a per-instance fn(x, *args) in x, in x's
     dtype: `torch.func.jacfwd` can hand back a float64 Jacobian for a
@@ -50,7 +58,8 @@ def autodiff_jacobian(fn: Callable) -> Callable:
     jac = torch.func.jacfwd(fn)
 
     def jac_in_x_dtype(x, *args):
-        return jac(x, *args).to(x.dtype)
+        with _FORWARD_AD:
+            return jac(x, *args).to(x.dtype)
 
     return jac_in_x_dtype
 

@@ -178,6 +178,16 @@ def carry_info(out: OuterCarry, opts: SolverOptions, objective: Tensor) -> Solve
     )
 
 
+def finalize(fns, c: OuterCarry, opts: SolverOptions):
+    """(X, Y, SolveInfo) of a carry: at a critical exit the converged
+    multiplier y + mu·c, and the objective ½‖r(x)‖².  Every driver of the
+    outer loop (`solve_fixed_point`, `batch/compact`,
+    `harness/checkpoint`) ends here."""
+    y_final = sel(c.critical, c.y + c.mu.unsqueeze(-1) * c.cx, c.y)
+    rx = fns.residuals(c.x)
+    return c.x, y_final, carry_info(c, opts, objective=_psum(0.5 * vdot(rx, rx), opts.spmd_axis))
+
+
 def solve_fixed_point(fns, poly: Polyhedron, x0: Tensor, opts: SolverOptions,
                       y0: Optional[Tensor] = None):
     """Run the full TRALCNLLS iteration from x0 (B, n) for every lane;
@@ -190,7 +200,4 @@ def solve_fixed_point(fns, poly: Polyhedron, x0: Tensor, opts: SolverOptions,
     # Constant-J problems: one JᵀJ product for the whole solve.
     gram_cache = linear_gram_cache(fns, c.x, opts)
     c = outer_loop(fns, poly, opts, atol, c, ~outer_done(c, opts), gram_cache)
-    # At a critical exit return the converged multiplier y + mu·c.
-    y_final = sel(c.critical, c.y + c.mu.unsqueeze(-1) * c.cx, c.y)
-    rx = fns.residuals(c.x)
-    return c.x, y_final, carry_info(c, opts, objective=_psum(0.5 * vdot(rx, rx), opts.spmd_axis))
+    return finalize(fns, c, opts)

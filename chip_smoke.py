@@ -9,7 +9,8 @@ Phases (any failure raises and the script exits non-zero):
 1. the card's name and power limit (nvidia-smi); TF32 is off;
 2. build the CUDA kernels of benlsip_tpu_torch from csrc/ (nvcc, sm_90a);
 3. each of the six kernels against its plain PyTorch version on the card,
-   in float32, at every path's shapes (batches of one included) and the
+   in float32, at every path's shapes (batches of one included, config
+   5's polish QR at 16,384 instances) and the
    kernel tests' shapes, with
    the NaN, positive-diagonal, empty-batch and refused-operand checks; the
    two fused kernels also with a batch-shared (stride-0) A, ragged n,
@@ -77,7 +78,29 @@ Phases (any failure raises and the script exits non-zero):
    schedule) on the same group against the plain solve at n=2048,
    d=8192, and the card against the port's CPU run at n=1024 in float32
    and float64;
-8. with `--profile` only: each path's warm wall split into bulk and
+8. the config-5 path (BASELINE config 5, the 100k-instance sweep):
+   (a) `solve_mixed_precision` on `exp_fit_family(16384, d=32, seed=7)`
+   (float64 master data) on cuda:0 through the plain route (cold, launch
+   counts read around it), converged-instance compaction
+   (`bulk_compact=2`) and `fuse=True` (cold and warm): 16384/16384
+   certified at ≤ 1.49e-8 on each, compaction's X identical to the plain
+   route's, the fused route within rtol 1e-6 / atol 1e-8 of it, the oracle
+   on 256 sampled instances, the path kernels launched (and captured and
+   run by the fused replays); the survivors of stage A, host syncs per warm
+   call, warm walls in turns (5 each, fewer if the phase's 300 s budget
+   says so, and then it says so) and certified instances per second,
+   beside the numpy baseline (`solve_exp_fit_numpy`) on the first 64
+   instances; (b) `sort_by_difficulty` and `pipeline_overlap` in both
+   certify modes once each (at B = 4096 where (a) and (b) at 16,384
+   would pass the budget, and then it says so): every lane certified, X
+   within 1e-8 of the plain route, each wall beside the plain one and
+   the overlap's beside the sum of its stages; (c) `run_sweep` of
+   `exp_fit_family(102400)` in sweep chunks of 16,384 through
+   `fuse=True`, checkpointed into a temporary directory, then the same
+   sweep stopped after 2 chunks and resumed: 102,400 certified, the
+   resumed result bitwise equal to the uninterrupted one, resumed from
+   chunk 2; wall, rate and checkpoint bytes per step;
+9. with `--profile` only: each path's warm wall split into bulk and
    certification, how many lanes the fused polish certifies alone and with
    its re-polish buckets, and the device's busy share and kernel count from
    torch.profiler, with the time and calls of cuSOLVER's `geqr2*` and of
@@ -86,7 +109,8 @@ Phases (any failure raises and the script exits non-zero):
    (the device time of the same stages traced eagerly, over the fused
    wall) beside the unfused path's; for config 4 one traced warm run,
    the busy share and the largest device kernels by name (the Gram GEMM
-   first).
+   first); for config 5 the same split, and the compacted bulk's wall
+   and one traced compacted run.
 
 It imports nothing of JAX and nothing of the JAX package: the KKT oracle
 is the port's own copy.  The last two lines are the kernels' JSON record
@@ -97,6 +121,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -303,7 +328,7 @@ def phase_kernels(kern) -> dict:
     if not torch.equal(torch.isnan(L), torch.isnan(kern.batched_cholesky_plain(K))):
         raise AssertionError("cholesky: NaN pattern differs from the plain version")
 
-    for B, D, N in ((1024, 35, 3), (1024, 3, 1), (64, 192, 6), (200, 32, 3), (140, 16, 8),
+    for B, D, N in ((1024, 35, 3), (1024, 3, 1), (16384, 35, 3), (16384, 3, 1), (64, 192, 6), (200, 32, 3), (140, 16, 8),
                     (1024, 3, 2), (1024, 7, 3), (1, 3, 1), (1, 3, 2), (1, 7, 3), (1, 35, 3), (1, 192, 6)):
         A = torch.as_tensor(rng.standard_normal((B, D, N)), dtype=f32, device=dev)
         Q, R = kern.batched_thin_qr(A)
@@ -674,11 +699,14 @@ def _time_kernels(kern, rng, rec) -> None:
     # The narrow QR at the other call sites' shapes: the multiplier estimate's
     # thin_qr(Cᵀ) (config 2's polish has the same shape), the config-1
     # polish's qr_r([JZ; D]) and thin_qr(Wᵀ), and one instance.
-    for shape in ((1024, 3, 1), (1024, 7, 3), (1024, 3, 2), (1, 3, 1)):
+    # Config 5's polish runs both at the sweep chunk's 16,384 lanes, where
+    # the library call takes about a second: 5 calls a turn there.
+    for shape in ((1024, 3, 1), (1024, 7, 3), (1024, 3, 2), (1, 3, 1), (16384, 35, 3), (16384, 3, 1)):
         W = torch.as_tensor(rng.standard_normal(shape), dtype=f32, device=dev)
         _time_extra(rec, "batched_thin_qr", shape, _qr_bound(*shape), {
             "plain": lambda W=W: kern.batched_thin_qr_plain(W), "kernel": lambda W=W: kern.batched_thin_qr(W),
-            "library": lambda W=W: torch.linalg.qr(W, mode="reduced")})
+            "library": lambda W=W: torch.linalg.qr(W, mode="reduced")},
+            *((5, 2) if shape[0] > 1024 else ()))
     # One instance (a float32 `solve` at B = 1), n = 3, m = 1.
     A, fixed, r = (t[:1].contiguous() for t in _fused_case(rng, 3, 1, 3, False, dev))
     L = kern.masked_aat_cholesky(A, fixed)
@@ -715,11 +743,11 @@ def _time_kernels(kern, rng, rec) -> None:
         "library": lambda: torch.cholesky_solve(b.unsqueeze(-1), L)})
 
 
-def _time_extra(rec: dict, name: str, shape: tuple, bound: dict, fns: dict) -> None:
+def _time_extra(rec: dict, name: str, shape: tuple, bound: dict, fns: dict, reps: int = 200, warm: int = 10) -> None:
     """Time one kernel at one more shape, in turns with its plain version
     and its library call (or the call site it replaces); the record's keys
     carry the shape as a suffix."""
-    t = _in_turns(fns)
+    t = _in_turns(fns, reps, warm)
     yard = "library" if "library" in fns else "old_site"
     suffix = "_" + "x".join(map(str, shape))
     rec[name].update({"ms" + suffix: t["kernel"], "plain_ms" + suffix: t["plain"], f"{yard}_ms" + suffix: t[yard],
@@ -1526,6 +1554,215 @@ def _profile_config4(run) -> dict:
     return {"traced_wall_s": wall, "device_busy_s": dev_us / 1e6, "gemm_s": gemm_us / 1e6}
 
 
+# BASELINE config 5, the 100k-instance sweep, as the JAX package's bench
+# runs it (`bench.py:275-326` there): one sweep chunk of 16,384 exponential
+# fits, then the sweep of 102,400 in chunks of 16,384 with checkpoints.
+CONFIG5 = dict(B=16384, d=32, seed=7, sweep_B=102400, sweep_chunk=16384, stage_outer=2)
+CONFIG5_BUDGET_S = 300.0      # the phase's own budget on the card
+CONFIG5_TURNS = 5             # warm walls of each route, in turns
+CONFIG5_SMALL_B = 4096        # (b)'s batch when (a) + (b) at B would pass the budget
+ROUTE_ATOL = 1e-8             # the other routes against the plain route's certified X
+
+
+def _oracle_exp_fit(tag: str, bp, theta, X, sample: int, seed: int) -> int:
+    """The port's numpy KKT oracle on `sample` instances of an exp-fit family
+    (shared A, per-instance b), drawn as the JAX package's bench draws them."""
+    B = X.shape[0]
+    idx = np.random.default_rng(seed).choice(B, size=sample, replace=False)
+    it = torch.as_tensor(idx, device=X.device)
+    fns = bp.instance_fns({k: v[it] for k, v in theta.items()})
+    r, J = fns.residuals(X[it]).cpu().numpy(), fns.jac_res(X[it]).cpu().numpy()
+    Xh, A, b_rhs = X[it].cpu().numpy(), bp.A.cpu().numpy(), bp.b[it].cpu().numpy()
+    xl, xu = bp.xl.cpu().numpy(), bp.xu.cpu().numpy()
+    return _oracle_agreement(tag, [(Xh[i], r[i], J[i], None, None, A, b_rhs[i], xl, xu) for i in range(sample)])
+
+
+def phase_config5(kern, smi: str) -> dict:
+    """Config 5 (`exp_fit_family(16384, d=32, seed=7)`): (a) the plain,
+    compacted (`bulk_compact=2`) and fused routes at full width, gated on
+    certification, identity and the oracle, with launches, host syncs and
+    warm walls in turns, beside the numpy baseline; (b) the sorted and the
+    overlapped routes; (c) the checkpointed 102,400-instance sweep, stopped
+    after two chunks and resumed."""
+    import tempfile
+
+    from benlsip_tpu_torch import _loops
+    from benlsip_tpu_torch.baselines.numpy_ref import solve_exp_fit_numpy
+    from benlsip_tpu_torch.batch import compact, fused_small, refine
+    from benlsip_tpu_torch.batch.refine import solve_mixed_precision
+    from benlsip_tpu_torch.harness.sweep import CheckpointedSweep, run_sweep
+    from benlsip_tpu_torch.problems.generators import exp_fit_family
+    from benlsip_tpu_torch.solver.options import SolverOptions
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda:0")
+    opts = SolverOptions(max_outer_iter=40, max_inner_iter=120)
+    B = CONFIG5["B"]
+    (bp, theta, X0), data_s = _walled(lambda: exp_fit_family(B, d=CONFIG5["d"], seed=CONFIG5["seed"],
+                                                             dtype=torch.float64, device=dev))
+    routes = {"plain": {}, "compact": {"bulk_compact": CONFIG5["stage_outer"]}, "fused": {"fuse": True}}
+    call = {name: (lambda kw=kw: solve_mixed_precision(bp, theta, X0, opts, **kw)) for name, kw in routes.items()}
+
+    # (a) Cold plain run with the launches read around it, then the first
+    # call of the compacted route and the cold and a warm call of the fused
+    # one (which captures its graphs).
+    kern.reset_launches()
+    (X, Y, info), cold = _walled(call["plain"])
+    launches = {"plain": dict(kern.LAUNCHES)}
+    _check_certified("config 5 plain", X, info, B, 3)
+    _check_launched("config 5", launches["plain"])
+    out, first = {"plain": (X, Y, info)}, {"plain": cold}
+    kern.reset_launches()
+    compact.reset_stats()
+    out["compact"], first["compact"] = _walled(call["compact"])
+    launches["compact"], stats = dict(kern.LAUNCHES), list(compact.STATS)
+    kern.reset_launches()
+    fused_small.reset_graph_stats()
+    out["fused"], first["fused"] = _walled(call["fused"])
+    captured, graphs = dict(kern.CAPTURED), list(fused_small.GRAPH_STATS)
+    fused_small.reset_replay_counts()
+    out["fused"], fused_warm = _walled(call["fused"])
+    executed = fused_small.replay_counts()["launches"]
+    for name, (Xr, _, ir) in out.items():
+        _check_certified(f"config 5 {name}", Xr, ir, B, 3)
+    _check_launched("config 5 compact", launches["compact"])
+    for k in PATH_KERNELS:
+        _require(captured[k] > 0 and executed[k] > 0,
+                 f"config 5 fused: kernel {k} captured {captured[k]}, run by the replays {executed[k]}")
+    Xk, Xf = out["compact"][0], out["fused"][0]
+    dk, df = float((Xk - X).abs().max()), float((Xf - X).abs().max())
+    _require(len(stats) == 1, f"config 5 compact: {len(stats)} compacted bulk solves in one call")
+    surv = stats[0]
+    print(f"config 5, B={B}: data {data_s:.2f} s; plain cold {cold:.3f} s; compact first {first['compact']:.3f} s; "
+          f"fused cold {first['fused']:.3f} s ({len(graphs)} graphs captured: "
+          f"{', '.join(f'{g['stage']} {g['capture_s']:.3f}+{g['instantiate_s']:.3f} s' for g in graphs)}), "
+          f"fused first warm {fused_warm:.3f} s on {smi}")
+    for name, (Xr, _, ir) in out.items():
+        print(f"config 5 {name}: certified {int(ir.converged.sum())}/{B}, max pix {float(ir.pix.max()):.3e}")
+    print(f"config 5 compact (horizon {CONFIG5['stage_outer']}): {surv['survivors']} of {surv['lanes']} lanes survive "
+          f"stage A ({100 * surv['survivors'] / surv['lanes']:.2f}%), in {surv['buckets']} bucket(s); max |dX| against "
+          f"the plain route {dk:.3e} ({'identical' if torch.equal(Xk, X) else 'NOT identical'})")
+    print(f"config 5 fused: max |dX| against the plain route {df:.3e}")
+    print(f"config 5 launches: plain cold {launches['plain']}; compact {launches['compact']}; fused captured "
+          f"{captured}, run by a warm call's replays {executed}")
+    _require(torch.equal(Xk, X) and torch.equal(out["compact"][2].converged, info.converged),
+             f"config 5: compaction's X differs from the plain route's (max |dX| {dk:.3e})")
+    _require(torch.allclose(Xf, X, rtol=FUSED_RTOL, atol=FUSED_ATOL),
+             f"config 5: the fused route disagrees with the plain route (max |dX| {df:.3e})")
+    agree = _oracle_exp_fit("config 5", bp, theta, X, 256, 5)
+    _require(agree == 256, f"config 5: oracle agrees on {agree}/256")
+
+    # Warm walls in turns, as many turns as the budget leaves room for
+    # beside (b) and (c), estimated from the walls so far (the plain one
+    # from its cold call): (b) is about four plain walls (the sorted route
+    # takes two), at B=4096 one more plain run there and each a third of the
+    # wall at 16,384 (on an H100: 7.5 s against 23.5 s); (c) is about 1.7
+    # sweeps of fused chunks (the uninterrupted one, then 2 + 5 chunks).
+    # The first turn also counts each route's host syncs.
+    est = {"plain": cold, "compact": first["compact"], "fused": fused_warm}
+    per_turn = sum(est.values())
+    sweep_est = 1.7 * CONFIG5["sweep_B"] / B * est["fused"] + 5.0
+    elapsed = time.perf_counter() - t_phase
+    small_b = elapsed + CONFIG5_TURNS * per_turn + 4 * est["plain"] + sweep_est > CONFIG5_BUDGET_S
+    b_cost = 5 * est["plain"] / 3 if small_b else 4 * est["plain"]
+    turns = max(1, min(CONFIG5_TURNS, int((CONFIG5_BUDGET_S - elapsed - b_cost - sweep_est) // per_turn)))
+    if turns < CONFIG5_TURNS:
+        print(f"config 5: {turns} warm call(s) of each route in turns, not {CONFIG5_TURNS}: the phase's budget of "
+              f"{CONFIG5_BUDGET_S:.0f} s leaves no room for more (a turn takes about {per_turn:.1f} s)")
+    walls, syncs = {name: [] for name in routes}, {}
+    for i in range(turns):
+        for name in (list(routes) if i % 2 == 0 else list(routes)[::-1]):
+            _loops.reset_host_syncs()
+            walls[name].append(_walled(call[name])[1])
+            syncs.setdefault(name, _loops.HOST_SYNCS)
+    rates = {}
+    for name, w in walls.items():
+        med = float(np.median(w))
+        rates[name] = B / med
+        print(f"config 5 {name}: warm wall ({len(w)} in turns) median {med:.4f} s, range {min(w):.4f}-{max(w):.4f} s, "
+              f"all {[round(x, 4) for x in w]}; {rates[name]:.1f} certified instances/s; host syncs per warm call "
+              f"{syncs[name]} on {smi}")
+
+    # The single-core numpy baseline on the first 64 instances.
+    k = 64
+    th_np = {key: v[:k].cpu().numpy() for key, v in theta.items()}
+    t0 = time.perf_counter()
+    _, conv_np = solve_exp_fit_numpy(th_np["t"], th_np["y"], bp.A.cpu().numpy(), bp.b[:k].cpu().numpy(),
+                                     bp.xl.cpu().numpy(), bp.xu.cpu().numpy(), X0[:k].cpu().numpy())
+    np_wall = time.perf_counter() - t0
+    np_rate = max(conv_np, 1) / np_wall
+    print(f"config 5 numpy baseline (one core, first {k} instances): {conv_np}/{k} converged in {np_wall:.3f} s, "
+          f"{np_rate:.1f} instances/s; plain / compact / fused over it: "
+          f"{rates['plain'] / np_rate:.1f}x / {rates['compact'] / np_rate:.1f}x / {rates['fused'] / np_rate:.1f}x")
+
+    # (b) The sorted and the overlapped routes, once each, against the
+    # plain route (certify="auto", on the card) on the same data.
+    Bb = CONFIG5_SMALL_B if small_b else B
+    if small_b:
+        print(f"config 5 (b): at B={Bb}, not {B}: (a) + (b) at B={B} would pass the phase's budget")
+        bp_b, th_b, X0_b = exp_fit_family(Bb, d=CONFIG5["d"], seed=CONFIG5["seed"], dtype=torch.float64, device=dev)
+        (Xb, _, ib), plain_b = _walled(lambda: solve_mixed_precision(bp_b, th_b, X0_b, opts))
+        _check_certified("config 5 (b) plain", Xb, ib, Bb, 3)
+    else:
+        bp_b, th_b, X0_b, Xb, plain_b = bp, theta, X0, X, float(np.median(walls["plain"]))
+    other = {"sorted": {"sort_by_difficulty": True}, "overlap host": {"pipeline_overlap": True, "certify": "host"},
+             "overlap device": {"pipeline_overlap": True, "certify": "device"}}
+    res_b = {}
+    for name, kw in other.items():
+        (Xo, _, io), wall = _walled(lambda: solve_mixed_precision(bp_b, th_b, X0_b, opts, **kw))
+        _check_certified(f"config 5 {name}", Xo, io, Bb, 3)
+        d = float((Xo.to(dev) - Xb).abs().max())
+        line = (f"config 5 {name} (B={Bb}): certified {int(io.converged.sum())}/{Bb}, wall {wall:.3f} s beside the plain "
+                f"route's {plain_b:.3f} s, max |dX| against it {d:.3e}")
+        if "overlap" in name:
+            st = dict(refine.OVERLAP_STAGES)
+            line += (f"; its stages: bulk {st['bulk_s']:.3f} s (main thread) + certification {st['certify_s']:.3f} s "
+                     f"(worker) = {st['bulk_s'] + st['certify_s']:.3f} s, overlap wall {st['wall_s']:.3f} s")
+            res_b[name + " stages"] = st
+        print(line + f" on {smi}")
+        _require(d <= ROUTE_ATOL, f"config 5 {name}: X differs from the plain route's by {d:.3e} (> {ROUTE_ATOL:g})")
+        res_b[name] = wall
+    res_b["plain"], res_b["B"] = plain_b, Bb
+
+    # (c) The 102,400-instance sweep in chunks of 16,384 through the fused
+    # route, checkpointed; then the same sweep stopped after two chunks and
+    # resumed, which must give the same bits.
+    SB, SC = CONFIG5["sweep_B"], CONFIG5["sweep_chunk"]
+    del bp_b, th_b, X0_b
+    bp_s, th_s, X0_s = exp_fit_family(SB, d=CONFIG5["d"], seed=CONFIG5["seed"], dtype=torch.float64, device=dev)
+    kw = dict(sweep_chunk=SC, pipeline_kwargs={"fuse": True})
+    with tempfile.TemporaryDirectory() as tmp:
+        Xs, Ys, i_s, resumed0, sweep_wall = run_sweep(bp_s, th_s, X0_s, opts, tmp + "/full", **kw)
+        step_bytes = os.path.getsize(os.path.join(tmp, "full", os.listdir(tmp + "/full")[0]))
+        stopped = CheckpointedSweep(bp_s, opts, tmp + "/stopped", **kw)
+        t0 = time.perf_counter()
+        try:
+            stopped.run(th_s, X0_s, stop_after_chunks=2)
+            raise AssertionError("config 5 sweep: stop_after_chunks=2 did not stop the sweep")
+        except RuntimeError as e:
+            if "rerun to resume" not in str(e):
+                raise
+        Xr, Yr, ir_, resumed = CheckpointedSweep(bp_s, opts, tmp + "/stopped", **kw).run(th_s, X0_s)
+        resume_wall = time.perf_counter() - t0
+    n_cert = int(i_s.converged.sum())
+    same = torch.equal(Xr, Xs) and torch.equal(Yr, Ys) and all(torch.equal(a, b) for a, b in zip(ir_, i_s))
+    print(f"config 5 sweep (B={SB}, sweep_chunk={SC}, fuse=True, checkpointed): certified {n_cert}/{SB}, max pix "
+          f"{float(i_s.pix.max()):.3e}, wall {sweep_wall:.3f} s, {n_cert / sweep_wall:.1f} certified instances/s, "
+          f"checkpoint {step_bytes} bytes per step on {smi}")
+    print(f"config 5 sweep stopped after 2 chunks and resumed: resumed_from {resumed}, "
+          f"{resume_wall:.3f} s in all, bitwise equal to the uninterrupted sweep: {same}")
+    _require(Xs.shape == (SB, 3) and Xs.device.type == "cpu" and resumed0 == 0, "config 5 sweep: bad result")
+    _require(n_cert == SB and float(i_s.pix.max()) <= CERT_PIX, f"config 5 sweep: {n_cert}/{SB} certified")
+    _require(resumed == 2 and same, f"config 5 sweep: resumed_from {resumed}, bitwise equal {same}")
+
+    res = {"launches": launches["plain"], "launches_compact": launches["compact"], "captured": captured,
+           "executed": executed, "cold_s": cold, "walls": walls, "syncs": syncs, "survivors": surv,
+           "numpy_rate": np_rate, "b": res_b, "sweep_s": sweep_wall, "step_bytes": step_bytes}
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"config 5 phase: {res['phase_s']:.1f} s")
+    return res
+
+
 def phase_profile(kern) -> None:
     """Where the warm time of each path goes: bulk vs certification wall,
     and the device's busy share from torch.profiler (sum of kernel times
@@ -1577,6 +1814,8 @@ def phase_profile(kern) -> None:
                      dict(max_outer_iter=30, max_inner_iter=100), 100, 64),
         "config 1": (sphere_family(1024, seed=0, dtype=torch.float64, device=dev),
                      dict(max_outer_iter=100, max_inner_iter=300), 8, 512),
+        "config 5": (exp_fit_family(CONFIG5["B"], d=CONFIG5["d"], seed=CONFIG5["seed"], dtype=torch.float64, device=dev),
+                     dict(max_outer_iter=40, max_inner_iter=120), 8, 512),
     }
     for tag, ((bp, theta, X0), caps, bulk_inner, chunk) in paths.items():
         opts = SolverOptions(**caps)
@@ -1616,6 +1855,22 @@ def phase_profile(kern) -> None:
                       f"over {sum(e.count for e in hits)} calls")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
             print(f"profile {tag}: {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<7d} {e.key[:90]}")
+        if tag == "config 5":
+            # The compacted route: its bulk alone (stage A, then the
+            # survivor buckets) and one traced pipeline run.
+            from benlsip_tpu_torch.batch.compact import solve_batched_compact
+
+            fn = lambda: solve_batched_compact(bp32, th32, X0.float(), bulk_opts, chunk=chunk,
+                                               stage_outer=CONFIG5["stage_outer"])
+            fn()
+            print(f"profile config 5 compact: warm wall bulk {_walled(fn)[1]:.3f} s")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                wall = _walled(lambda: solve_mixed_precision(bp, theta, X0, opts, chunk=chunk,
+                                                             bulk_compact=CONFIG5["stage_outer"]))[1]
+            events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+            dev_us = sum(e.self_device_time_total for e in events)
+            print(f"profile config 5 compact: traced wall {wall:.3f} s, device busy {dev_us / 1e6:.3f} s "
+                  f"({100 * dev_us / 1e6 / wall:.1f}%), {sum(e.count for e in events)} device kernels")
 
 
 def main() -> None:
@@ -1630,6 +1885,7 @@ def main() -> None:
     res3 = phase_config3(kern)
     res1 = phase_config1(kern, smi)
     res4 = phase_config4(kern, "--profile" in sys.argv[1:])
+    res5 = phase_config5(kern, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(kern)
     src = "benlsip_tpu_torch/kernels/csrc/"
@@ -1654,10 +1910,16 @@ def main() -> None:
         if name == "blocked_qr_r":
             # Configs 1 and 2 (n = 3) have no wide QR and launch it 0 times.
             k["launches_config3_host"] = res3["launches_host"][name]
-        own4 = res4["launches"][name]
-        k.update({"launches": own2 + own3 + own1 + own1_b1 + own4, "launches_config2": own2, "launches_config3": own3,
+        own4, own5 = res4["launches"][name], res5["launches"][name]
+        k.update({"launches": own2 + own3 + own1 + own1_b1 + own4 + own5, "launches_config2": own2,
+                  "launches_config3": own3,
                   "launches_config1": own1, "launches_config1_host": res1["host"]["launches"][name],
                   "launches_config1_single_f32": own1_b1, "launches_config4": own4,
+                  # Config 5: the plain route's cold run, the compacted route's
+                  # first call, and the fused route as config 2's fused path.
+                  "launches_config5": own5, "launches_config5_compact": res5["launches_compact"][name],
+                  "captured_config5_fused": res5["captured"][name],
+                  "launches_config5_fused": res5["executed"][name],
                   # The fused paths run as CUDA-graph replays: launches captured into their
                   # graphs in the cold call, and the launches a warm call's replays ran
                   # (a WHILE body's captured launches times its loop's trips; for

@@ -34,6 +34,7 @@ PORT_MODULES = [
     "benlsip_tpu_torch.compat",
     "benlsip_tpu_torch.interop",
     "benlsip_tpu_torch.baselines.kkt_oracle",
+    "benlsip_tpu_torch.baselines.numpy_ref",
     "benlsip_tpu_torch.kernels.batched_linalg",
     "benlsip_tpu_torch.ops.al",
     "benlsip_tpu_torch.ops.cholesky",
@@ -55,6 +56,12 @@ PORT_MODULES = [
     "benlsip_tpu_torch.batch.polish",
     "benlsip_tpu_torch.batch.refine",
     "benlsip_tpu_torch.batch.fused_small",
+    "benlsip_tpu_torch.batch.compact",
+    "benlsip_tpu_torch.batch.buckets",
+    "benlsip_tpu_torch.harness.metrics",
+    "benlsip_tpu_torch.harness.checkpoint",
+    "benlsip_tpu_torch.harness.sweep",
+    "benlsip_tpu_torch.harness.profile",
     "benlsip_tpu_torch.dist.collectives",
     "benlsip_tpu_torch.dist.mesh",
     "benlsip_tpu_torch.dist.sharded",
@@ -227,12 +234,15 @@ def test_ported_operator_option_accepted(knob):
 
 
 @pytest.mark.parametrize("kw", [
-    {"fuse": True, "bulk_compact": 2}, {"bulk_compact": 2}, {"sort_by_difficulty": True},
-    {"pipeline_overlap": True}, {"bulk_dtype": torch.bfloat16},
+    {"fuse": True, "bulk_compact": 2}, {"fuse": True, "sort_by_difficulty": True},
+    {"fuse": True, "pipeline_overlap": True}, {"bulk_dtype": torch.bfloat16},
+    {"bulk_dtype": torch.bfloat16, "bulk_compact": 2},
 ])
 def test_unported_pipeline_knob_raises(kw):
+    # A bf16 bulk is not ported; fuse=True with a scheduling route would
+    # drop the route silently (the JAX pipeline does), so the port refuses.
     bp, th, X0 = exp_fit_family(2, d=8, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError if kw.get("fuse") else NotImplementedError):
         solve_mixed_precision(bp, th, X0, SolverOptions(), **kw)
 
 
