@@ -38,7 +38,7 @@ import torch
 
 from .._batched import cat_batches, tree_map
 from .._loops import host_nonzero, masked_while
-from ..solver.options import SolverOptions
+from ..solver.options import SolverOptions, matmul_precision
 from ..solver.outer import (
     OuterCarry,
     SolveInfo,
@@ -68,14 +68,15 @@ def _stage(bp: BatchedProblem, theta, X0: Tensor, opts: SolverOptions, atol: flo
     B, n = X0.shape
     fns = bp.instance_fns(theta)
     poly = bp.polyhedron(n, X0.dtype, B, X0.device)
-    c = outer_init(fns, poly, X0, opts)
-    gram_cache = linear_gram_cache(fns, c.x, opts)
-    cond = lambda c: ~(outer_done(c, opts) | (c.outer > stage_outer))
-    c = masked_while(
-        cond, lambda c, act: outer_body(fns, poly, opts, atol, c, active=act, gram_cache=gram_cache),
-        c, cond(c), stage_outer + 1,
-    )
-    return (c,) + finalize(fns, c, opts) + (outer_done(c, opts),)
+    with matmul_precision(opts.matmul_precision):
+        c = outer_init(fns, poly, X0, opts)
+        gram_cache = linear_gram_cache(fns, c.x, opts)
+        cond = lambda c: ~(outer_done(c, opts) | (c.outer > stage_outer))
+        c = masked_while(
+            cond, lambda c, act: outer_body(fns, poly, opts, atol, c, active=act, gram_cache=gram_cache),
+            c, cond(c), stage_outer + 1,
+        )
+        return (c,) + finalize(fns, c, opts) + (outer_done(c, opts),)
 
 
 def _resume(bp: BatchedProblem, theta, c: OuterCarry, opts: SolverOptions, atol: float):
@@ -84,9 +85,10 @@ def _resume(bp: BatchedProblem, theta, c: OuterCarry, opts: SolverOptions, atol:
     B, n = c.x.shape
     fns = bp.instance_fns(theta)
     poly = bp.polyhedron(n, c.x.dtype, B, c.x.device)
-    gram_cache = linear_gram_cache(fns, c.x, opts)
-    c = outer_loop(fns, poly, opts, atol, c, ~outer_done(c, opts), gram_cache)
-    return finalize(fns, c, opts)
+    with matmul_precision(opts.matmul_precision):
+        gram_cache = linear_gram_cache(fns, c.x, opts)
+        c = outer_loop(fns, poly, opts, atol, c, ~outer_done(c, opts), gram_cache)
+        return finalize(fns, c, opts)
 
 
 def solve_batched_compact(

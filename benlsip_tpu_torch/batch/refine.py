@@ -28,18 +28,29 @@ device certification runs `batch/fused_small.solve_small_fused`
 path until a measurement on the card says otherwise.  The routes exclude
 each other: the JAX pipeline runs one and silently ignores the others,
 where the port raises `ValueError`.
+
+Two knobs make the bulk cheaper and leave the certification as it is (the
+polish absorbs the slack): `bulk_dtype=torch.bfloat16` runs the bulk on a
+bf16 copy of the float32 working set (the small kernels in their bf16
+instantiations), and `bulk_matmul_precision` runs it under another
+`SolverOptions.matmul_precision` (TF32 on the card for "default").  The
+bulk's X is cast to float32 before the certification, which always runs
+with TF32 off.  The JAX fused and overlapped dispatches drop both knobs
+silently; here `fuse=True` refuses both, and `pipeline_overlap` refuses
+both because TF32 is a flag of the whole process, which the overlap's
+certification thread shares with the bulk.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
 import time
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .._batched import cat_batches, tree_map
-from ..solver.options import SolverOptions
+from ..solver.options import SolverOptions, allows_tf32
 from ..solver.outer import SolveInfo
 from .vmap_solve import BatchedProblem, map_poly_fields, solve_batched_chunked
 
@@ -83,7 +94,10 @@ def _resolve_bulk_max_inner(bulk_max_inner, n: int, polish: bool):
 
 
 def true_f32_matmuls() -> None:
-    """Bulk matmuls stay true f32 (the JAX package's matmul_precision="highest")."""
+    """Matmuls stay true f32 (the JAX package's matmul_precision="highest"):
+    the pipeline starts with TF32 off, so the certification always runs
+    without it; a bulk's matmul_precision turns it on inside the bulk's
+    solve only (`solver/options.matmul_precision`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -98,8 +112,21 @@ def _resolve_bulk_compact(bulk_compact, B: int, chunk: int, polish: bool,
     return None
 
 
-def _exclusive_routes(fuse, bulk_compact, sort_by_difficulty: bool, pipeline_overlap: bool, polish: bool) -> None:
+def _exclusive_routes(fuse, bulk_compact, sort_by_difficulty: bool, pipeline_overlap: bool, polish: bool,
+                      bulk_dtype: torch.dtype, bulk_matmul_precision, options: SolverOptions) -> None:
     """Raise where a route would silently ignore another knob."""
+    if bulk_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"solve_mixed_precision: bulk_dtype={bulk_dtype}; expected torch.float32 or torch.bfloat16")
+    if bulk_matmul_precision is not None:
+        allows_tf32(bulk_matmul_precision)
+    for route, on in (("fuse=True", fuse is True), ("pipeline_overlap", pipeline_overlap)):
+        if not on:
+            continue
+        if bulk_dtype != torch.float32:
+            raise ValueError(f"solve_mixed_precision: {route} runs the bulk in float32; it takes no bulk_dtype={bulk_dtype}")
+        if bulk_matmul_precision is not None or allows_tf32(options.matmul_precision):
+            raise ValueError(f"solve_mixed_precision: {route} runs the bulk with TF32 off; it takes no "
+                             "bulk_matmul_precision and no SolverOptions.matmul_precision that turns TF32 on")
     chosen = [name for name, on in (("fuse=True", fuse is True), ("bulk_compact", bulk_compact is not None),
                                     ("sort_by_difficulty", sort_by_difficulty),
                                     ("pipeline_overlap", pipeline_overlap)) if on]
@@ -123,6 +150,7 @@ def solve_mixed_precision(
     certify: str = "auto",
     pipeline_overlap: bool = False,
     bulk_dtype: torch.dtype = torch.float32,
+    bulk_matmul_precision: Optional[str] = None,
     bulk_max_inner="auto",
     bulk_compact="auto",
     fuse="auto",
@@ -145,18 +173,20 @@ def solve_mixed_precision(
     pipeline_overlap certifies chunk i on a worker thread while the bulk
     of chunk i+1 runs.  Each gives the plain path's per-instance results,
     and each is a route of its own: two of them, or one with fuse=True,
-    raise `ValueError`.  Only a float32 bulk_dtype is ported.
+    raise `ValueError`.  bulk_dtype (float32 or bfloat16) is the bulk's
+    working dtype; bulk_matmul_precision (polish=True only) its
+    `SolverOptions.matmul_precision`.  fuse=True and pipeline_overlap take
+    neither (see the module docstring).
     """
     if fuse not in (True, False, "auto"):
         raise ValueError(f"fuse={fuse!r}: expected True, False or 'auto'")
     bulk_compact = _resolve_bulk_compact(bulk_compact, X0.shape[0], min(chunk, X0.shape[0]), polish,
                                          sort_by_difficulty)
-    _exclusive_routes(fuse, bulk_compact, sort_by_difficulty, pipeline_overlap, polish)
+    _exclusive_routes(fuse, bulk_compact, sort_by_difficulty, pipeline_overlap, polish, bulk_dtype,
+                      bulk_matmul_precision, options)
     if certify not in ("auto", "device", "host"):
         raise ValueError(f"certify={certify!r}: expected 'auto', 'device' or 'host'")
     host = certify == "host"
-    if bulk_dtype != torch.float32:
-        raise NotImplementedError(f"solve_mixed_precision(bulk_dtype={bulk_dtype}): not ported yet")
 
     bulk_max_inner = _resolve_bulk_max_inner(bulk_max_inner, X0.shape[-1], polish)
     if fuse is True and polish and not host:
@@ -176,22 +206,35 @@ def solve_mixed_precision(
     bulk_opts = options
     if polish and bulk_crit_tol is not None:
         bulk_opts = dataclasses.replace(bulk_opts, crit_tol=bulk_crit_tol)
+    if polish and bulk_matmul_precision is not None:
+        # Like bulk_crit_tol and bulk_max_inner, a polish=True knob: with
+        # polish=False the full refine restarts from the bulk's point and
+        # nothing absorbs a degraded bulk.
+        bulk_opts = dataclasses.replace(bulk_opts, matmul_precision=bulk_matmul_precision)
     if polish and bulk_max_inner is not None:
         bulk_opts = dataclasses.replace(
             bulk_opts, max_inner_iter=min(bulk_max_inner, options.max_inner_iter)
         )
     if pipeline_overlap:
         return _overlapped_pipeline(bp, theta, bp32, theta32, X0_32, options, bulk_opts, chunk, polish_steps, host)
+    # The bulk's working set: the float32 copy itself, or a bf16 cast of it
+    # (the float32 copy stays for the polish's factors).
+    bp_b, theta_b, X0_b = bp32, theta32, X0_32
+    if bulk_dtype != torch.float32:
+        bp_b = _cast_problem(bp32, bulk_dtype, dev)
+        theta_b = _cast_tree(theta32, bulk_dtype)
+        X0_b = X0_32.to(bulk_dtype)
     if bulk_compact is not None:
         from .compact import solve_batched_compact
 
-        X32, _, _ = solve_batched_compact(bp32, theta32, X0_32, bulk_opts, chunk=chunk, stage_outer=bulk_compact)
+        Xb, _, _ = solve_batched_compact(bp_b, theta_b, X0_b, bulk_opts, chunk=chunk, stage_outer=bulk_compact)
     elif sort_by_difficulty:
         from .buckets import solve_batched_sorted
 
-        X32, _, _ = solve_batched_sorted(bp32, theta32, X0_32, bulk_opts, chunk=sort_chunk)
+        Xb, _, _ = solve_batched_sorted(bp_b, theta_b, X0_b, bulk_opts, chunk=sort_chunk)
     else:
-        X32, _, _ = solve_batched_chunked(bp32, theta32, X0_32, bulk_opts, chunk=chunk)
+        Xb, _, _ = solve_batched_chunked(bp_b, theta_b, X0_b, bulk_opts, chunk=chunk)
+    X32 = Xb.to(torch.float32)
     if polish:
         from .polish import polish_then_refine
 

@@ -17,6 +17,13 @@ and the three kernels that redesign them for this card:
   QR in shared memory, one thread block per instance, where the TPU
   kernel's gate left the factorization to the library.
 
+The five small kernels take float32, float64 and bfloat16, as the TPU
+kernels take float32 and bfloat16: a bf16 kernel computes in float32 and
+rounds each output once, and its plain version is the float32 plain
+version on the upcast inputs, rounded once (`_rounded_from_f32`).  The
+panel QR kernel takes float32 and float64 only (the JAX package has no wide
+QR kernel; `ops/qr.qr_r` factors a wide bf16 matrix in float32).
+
 Each wrapper keeps the JAX package's public layout — (B, M, M), (B, M) and
 (B, D, N), row-major — and none of the TPU's batch-last transposes or lane
 padding.  On a CUDA tensor it launches its kernel (or raises); on a CPU
@@ -29,7 +36,9 @@ source, all started together) and linked into one shared
 library with a plain C interface on first use, into `_build/` keyed on a
 hash of the sources and flags, and loaded with ctypes.  Each wrapper adds
 one to its entry of `LAUNCHES` when it launches its kernel, and nowhere
-else, so a run can show that the main path went through the kernels.
+else, so a run can show that the main path went through the kernels;
+`LAUNCHES_BY_DTYPE` counts the same launches by (kernel, dtype name), so it
+can also show which instantiation ran.
 
 A wrapper called inside a CUDA graph capture records its kernel into the
 graph instead (`_launch` is stream-ordered, allocates nothing itself, and
@@ -49,6 +58,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -82,7 +92,15 @@ LAUNCHES = {
     "masked_aat_cholesky": 0, "project_tangent": 0, "blocked_qr_r": 0,
 }
 CAPTURED = dict.fromkeys(LAUNCHES, 0)   # launches recorded into CUDA graphs
+# The same launches as LAUNCHES by (kernel, dtype name), e.g.
+# ("project_tangent", "bfloat16").
+LAUNCHES_BY_DTYPE: Counter = Counter()
 _COUNT_LOCK = threading.Lock()
+
+# The C entry points' suffix for each dtype; the panel QR kernel has no bf16.
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+_SMALL_DTYPES = tuple(_SUFFIX)
+_WIDE_DTYPES = (torch.float32, torch.float64)
 
 
 def reset_launches() -> None:
@@ -90,6 +108,7 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, CAPTURED):
         for k in counts:
             counts[k] = 0
+    LAUNCHES_BY_DTYPE.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +144,8 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "benlsip_cholesky": [_PTR, _PTR, _INT, _INT, _PTR],
     "benlsip_cho_solve": [_PTR] * 3 + [_INT, _INT, _PTR],
-    "benlsip_thin_qr": [_PTR] * 3 + [_INT] * 3 + [_PTR],
+    # A, Q, R, float workspace (bf16 only), B, D, N, stream
+    "benlsip_thin_qr": [_PTR] * 4 + [_INT] * 3 + [_PTR],
     # A, its batch stride, fixed, reg, L, B, M, n, stream
     "benlsip_masked_aat_cholesky": [_PTR, ctypes.c_longlong, _PTR, ctypes.c_double, _PTR] + [_INT] * 3 + [_PTR],
     # A, its batch stride, L, fixed, r, out, B, M, n, unmasked_output, stream
@@ -175,7 +195,7 @@ def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     lib = ctypes.CDLL(str(build()))
     for base, argtypes in _SIGNATURES.items():
-        for suffix in ("f32", "f64"):
+        for suffix in ("f32", "f64") + (() if base == "benlsip_blocked_qr_r" else ("bf16",)):
             fn = getattr(lib, f"{base}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -256,7 +276,7 @@ def _kernel_fn(base: str, dtype: torch.dtype):
     if load_library.cache_info().currsize == 0 and torch.cuda.is_current_stream_capturing():
         raise RuntimeError(f"{base}: the kernel library would be built and loaded inside a CUDA graph "
                            "capture; call load_library() before capturing")
-    return getattr(load_library(), f"{base}_{'f32' if dtype == torch.float32 else 'f64'}")
+    return getattr(load_library(), f"{base}_{_SUFFIX[dtype]}")
 
 
 def _launch(name: str, base: str, t: Tensor, *args) -> None:
@@ -267,26 +287,39 @@ def _launch(name: str, base: str, t: Tensor, *args) -> None:
         with torch.cuda.device(t.device):
             rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     _check(rc, f"{name}: kernel launch")
-    counts = CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES
+    captured = torch.cuda.is_current_stream_capturing()
     with _COUNT_LOCK:     # the overlapped pipeline launches from two threads
-        counts[name] += 1
+        if captured:
+            CAPTURED[name] += 1
+        else:
+            LAUNCHES[name] += 1
+            LAUNCHES_BY_DTYPE[name, str(t.dtype).removeprefix("torch.")] += 1
 
 
-def _require_cuda(name: str, *ts: Tensor, strided: tuple = ()) -> None:
-    """Raise unless every tensor is float32/float64 on one CUDA device and
-    contiguous; the tensors in `strided` are exempt from the last check."""
+def _require_cuda(name: str, *ts: Tensor, strided: tuple = (), dtypes: tuple = _SMALL_DTYPES) -> None:
+    """Raise unless every tensor is of one of `dtypes` on one CUDA device
+    and contiguous; the tensors in `strided` are exempt from the last check."""
     ts = strided + ts
     for t in ts:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: tensor on {t.device}; the kernel runs on CUDA tensors only")
-        if t.dtype == torch.bfloat16:
-            raise NotImplementedError(f"{name}: bf16 is not ported yet")
-        if t.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"{name}: dtype {t.dtype} (the kernel takes float32 or float64)")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: dtype {t.dtype} (the kernel takes {', '.join(str(d) for d in dtypes)})")
     if not all(t.is_contiguous() for t in ts[len(strided):]):
         raise ValueError(f"{name}: the kernel needs contiguous row-major tensors")
     if any(t.dtype != ts[0].dtype or t.device != ts[0].device for t in ts):
         raise ValueError(f"{name}: all tensors must share dtype and device")
+
+
+def _rounded_from_f32(plain, *args):
+    """The bf16 plain version of a kernel: `plain` on the float32 upcast of
+    every bf16 tensor argument, each output rounded once to bf16 (the bf16
+    kernel computes in float32 and rounds on its stores)."""
+    up = [a.float() if isinstance(a, Tensor) and a.dtype == torch.bfloat16 else a for a in args]
+    out = plain(*up)
+    if isinstance(out, tuple):
+        return tuple(o.to(torch.bfloat16) for o in out)
+    return out.to(torch.bfloat16)
 
 
 def _on_cpu(t: Tensor) -> bool:
@@ -306,6 +339,8 @@ def batched_cholesky_plain(K: Tensor) -> Tensor:
     """Plain PyTorch twin of the Cholesky kernel: unrolled
     Cholesky–Banachiewicz over the batch, no pivot clamping (NaN on a
     non-SPD pivot)."""
+    if K.dtype == torch.bfloat16:
+        return _rounded_from_f32(batched_cholesky_plain, K)
     B, M, _ = K.shape
     col = [[None] * M for _ in range(M)]
     for j in range(M):
@@ -352,6 +387,8 @@ def batched_cholesky(K: Tensor) -> Tensor:
 def batched_cho_solve_plain(L: Tensor, b: Tensor) -> Tensor:
     """Plain PyTorch twin of the solve kernel: unrolled forward then
     backward substitution for L Lᵀ x = b."""
+    if L.dtype == torch.bfloat16:
+        return _rounded_from_f32(batched_cho_solve_plain, L, b)
     M = L.shape[-1]
     y = [None] * M
     for i in range(M):
@@ -395,6 +432,8 @@ def batched_cho_solve(L: Tensor, b: Tensor) -> Tensor:
 def batched_thin_qr_plain(A: Tensor):
     """Plain PyTorch twin of the MGS QR kernel: column-by-column modified
     Gram–Schmidt with the column norm floored at finfo.tiny."""
+    if A.dtype == torch.bfloat16:
+        return _rounded_from_f32(batched_thin_qr_plain, A)
     B, D, N = A.shape
     tiny = torch.finfo(A.dtype).tiny
     R = torch.zeros((B, N, N), dtype=A.dtype, device=A.device)
@@ -425,7 +464,10 @@ def batched_thin_qr(A: Tensor):
         raise ValueError(f"batched_thin_qr: need N <= {MAX_DIM} and N <= D <= {MAX_QR_ROWS}, got D={D}, N={N}")
     Q = torch.empty_like(A)
     R = torch.empty((B, N, N), dtype=A.dtype, device=A.device)
-    _launch("batched_thin_qr", "benlsip_thin_qr", A, A.data_ptr(), Q.data_ptr(), R.data_ptr(), B, D, N)
+    # bf16 computes its columns in a float32 workspace; float32/64 in Q.
+    work = torch.empty_like(A, dtype=torch.float32) if A.dtype == torch.bfloat16 else None
+    _launch("batched_thin_qr", "benlsip_thin_qr", A, A.data_ptr(), Q.data_ptr(), R.data_ptr(),
+            None if work is None else work.data_ptr(), B, D, N)
     return Q, R
 
 
@@ -484,15 +526,17 @@ def blocked_qr_r_plain(S: Tensor) -> Tensor:
 def blocked_qr_r(S: Tensor) -> Tensor:
     """R factor of a batch of tall matrices: S (B, D, N), D ≥ N -> upper
     triangular R (B, N, N) with RᵀR = SᵀS and a positive diagonal.  S is
-    not written."""
+    not written.  float32 and float64 only, on either device."""
     if S.ndim != 3 or S.shape[1] < S.shape[2]:
         raise ValueError(f"blocked_qr_r: expected (B, D, N) with D >= N, got {tuple(S.shape)}")
+    if S.dtype not in _WIDE_DTYPES:
+        raise TypeError(f"blocked_qr_r: dtype {S.dtype} (the kernel takes float32 or float64)")
     B, D, N = S.shape
     if B == 0 or N == 0:
         return torch.zeros((B, N, N), dtype=S.dtype, device=S.device)
     if _on_cpu(S):
         return blocked_qr_r_plain(S)
-    _require_cuda("blocked_qr_r", S)
+    _require_cuda("blocked_qr_r", S, dtypes=_WIDE_DTYPES)
     layout = qr_panel_layout(D, S.element_size())
     if layout is None:
         raise ValueError(f"blocked_qr_r: a panel of D={D} rows does not fit in shared memory")
@@ -539,6 +583,8 @@ def masked_aat(A: Tensor, free: Tensor) -> Tensor:
 def masked_aat_cholesky_plain(A: Tensor, fixed: Tensor, reg: float = 0.0) -> Tensor:
     """Plain PyTorch twin of the fused factor kernel: the masked product,
     the jitter, then the plain Cholesky."""
+    if A.dtype == torch.bfloat16:
+        return _rounded_from_f32(masked_aat_cholesky_plain, A, fixed, reg)
     K = masked_aat(A, ~fixed)
     if reg:
         K = K + reg * torch.eye(A.shape[-2], dtype=A.dtype, device=A.device)
@@ -568,6 +614,8 @@ def masked_aat_cholesky(A: Tensor, fixed: Tensor, reg: float = 0.0) -> Tensor:
 def project_tangent_plain(A: Tensor, L: Tensor, fixed: Tensor, r: Tensor, unmasked_output: bool = False) -> Tensor:
     """Plain PyTorch twin of the fused projection kernel: mask, A Z r, the
     plain Cholesky solve, Aᵀw, mask, subtract."""
+    if A.dtype == torch.bfloat16:
+        return _rounded_from_f32(project_tangent_plain, A, L, fixed, r, unmasked_output)
     free = ~fixed
     rz = torch.where(free, r, 0.0)
     w = batched_cho_solve_plain(L, (A @ rz.unsqueeze(-1)).squeeze(-1))

@@ -11,40 +11,44 @@
 // kernel put the batch on the vector lanes in a batch-last layout; here one
 // thread owns one instance, M is a template parameter (1..16) so both
 // substitutions unroll and y, x stay in registers, and the caller's
-// row-major (B, M, M) / (B, M) layout is read directly.
+// row-major (B, M, M) / (B, M) layout is read directly.  In bf16 both
+// substitutions run in float and x is rounded once.
 #include "common.cuh"
 
 namespace {
 
 using benlsip::kThreads;
+using benlsip::load;
+using benlsip::store;
 
 template <typename T, int M>
 __global__ void __launch_bounds__(kThreads)
 cho_solve_kernel(const T* __restrict__ L, const T* __restrict__ rhs, T* __restrict__ X, int B) {
+  using C = benlsip::compute_t<T>;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const T* l = L + static_cast<size_t>(b) * M * M;
   const T* r = rhs + static_cast<size_t>(b) * M;
   T* x = X + static_cast<size_t>(b) * M;
 
-  T y[M];
+  C y[M];
 #pragma unroll
   for (int i = 0; i < M; ++i) {
-    T acc = r[i];
+    C acc = load(r + i);
 #pragma unroll
-    for (int k = 0; k < i; ++k) acc = acc - l[i * M + k] * y[k];
-    y[i] = acc / l[i * M + i];
+    for (int k = 0; k < i; ++k) acc = acc - load(l + i * M + k) * y[k];
+    y[i] = acc / load(l + i * M + i);
   }
-  T z[M];
+  C z[M];
 #pragma unroll
   for (int i = M - 1; i >= 0; --i) {
-    T acc = y[i];
+    C acc = y[i];
 #pragma unroll
-    for (int k = i + 1; k < M; ++k) acc = acc - l[k * M + i] * z[k];
-    z[i] = acc / l[i * M + i];
+    for (int k = i + 1; k < M; ++k) acc = acc - load(l + k * M + i) * z[k];
+    z[i] = acc / load(l + i * M + i);
   }
 #pragma unroll
-  for (int i = 0; i < M; ++i) x[i] = z[i];
+  for (int i = 0; i < M; ++i) store(x + i, z[i]);
 }
 
 template <typename T>
@@ -76,4 +80,9 @@ BENLSIP_API int benlsip_cho_solve_f32(const float* L, const float* rhs, float* X
 BENLSIP_API int benlsip_cho_solve_f64(const double* L, const double* rhs, double* X, int B, int M,
                                       void* stream) {
   return launch<double>(L, rhs, X, B, M, stream);
+}
+
+BENLSIP_API int benlsip_cho_solve_bf16(const __nv_bfloat16* L, const __nv_bfloat16* rhs,
+                                       __nv_bfloat16* X, int B, int M, void* stream) {
+  return launch<__nv_bfloat16>(L, rhs, X, B, M, stream);
 }

@@ -15,36 +15,40 @@
 // unroll fully and the packed lower triangle (M(M+1)/2 values) lives in
 // registers.  The layout stays the caller's row-major (B, M, M); the loads
 // of one warp are strided by M*M, which costs nothing measurable at these
-// sizes and saves the transposes the TPU layout needed.
+// sizes and saves the transposes the TPU layout needed.  In bf16 the
+// triangle is held and computed in float and L is rounded once at the end.
 #include "common.cuh"
 
 namespace {
 
 using benlsip::kThreads;
+using benlsip::load;
+using benlsip::store;
 using benlsip::tri;
 
 template <typename T, int M>
 __global__ void __launch_bounds__(kThreads)
 cholesky_kernel(const T* __restrict__ K, T* __restrict__ L, int B) {
+  using C = benlsip::compute_t<T>;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const T* k = K + static_cast<size_t>(b) * M * M;
   T* l = L + static_cast<size_t>(b) * M * M;
 
-  T c[M * (M + 1) / 2];
+  C c[M * (M + 1) / 2];
 #pragma unroll
   for (int j = 0; j < M; ++j) {
-    T acc = k[j * M + j];
+    C acc = load(k + j * M + j);
 #pragma unroll
     for (int q = 0; q < j; ++q) acc = acc - c[tri(j, q)] * c[tri(j, q)];
     // No pivot clamping: sqrt of a negative pivot is NaN (IEEE sqrt; the
     // library is built without --use_fast_math).
-    const T d = sqrt(acc);
+    const C d = sqrt(acc);
     c[tri(j, j)] = d;
-    const T inv_d = T(1) / d;
+    const C inv_d = C(1) / d;
 #pragma unroll
     for (int i = j + 1; i < M; ++i) {
-      T s = k[i * M + j];
+      C s = load(k + i * M + j);
 #pragma unroll
       for (int q = 0; q < j; ++q) s = s - c[tri(i, q)] * c[tri(j, q)];
       c[tri(i, j)] = s * inv_d;
@@ -53,7 +57,7 @@ cholesky_kernel(const T* __restrict__ K, T* __restrict__ L, int B) {
 #pragma unroll
   for (int i = 0; i < M; ++i) {
 #pragma unroll
-    for (int j = 0; j < M; ++j) l[i * M + j] = j <= i ? c[tri(i, j)] : T(0);
+    for (int j = 0; j < M; ++j) store(l + i * M + j, j <= i ? c[tri(i, j)] : C(0));
   }
 }
 
@@ -84,6 +88,11 @@ BENLSIP_API int benlsip_cholesky_f32(const float* K, float* L, int B, int M, voi
 
 BENLSIP_API int benlsip_cholesky_f64(const double* K, double* L, int B, int M, void* stream) {
   return launch<double>(K, L, B, M, stream);
+}
+
+BENLSIP_API int benlsip_cholesky_bf16(const __nv_bfloat16* K, __nv_bfloat16* L, int B, int M,
+                                      void* stream) {
+  return launch<__nv_bfloat16>(K, L, B, M, stream);
 }
 
 BENLSIP_API const char* benlsip_error_string(int code) {

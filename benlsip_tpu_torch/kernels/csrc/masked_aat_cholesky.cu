@@ -32,20 +32,25 @@
 //    without --use_fast_math);
 //  * the M*M entries of L are written round-robin by the lanes.
 //
-// Blocks hold four warps so that B = 64 still spreads over 16 SMs.
+// Blocks hold four warps so that B = 64 still spreads over 16 SMs.  In
+// bf16 the sums, the jitter and the factorisation run in float (reg is
+// rounded to float, as the float kernel rounds it) and L is rounded once.
 #include "common.cuh"
 
 namespace {
 
 using benlsip::kWarpsPerBlock;
+using benlsip::load;
+using benlsip::store;
 using benlsip::tri;
 using benlsip::warp_sum;
 
 template <typename T, int M>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 masked_aat_cholesky_kernel(const T* __restrict__ A, long long strideA,
-                           const unsigned char* __restrict__ fixed, T reg,
+                           const unsigned char* __restrict__ fixed, benlsip::compute_t<T> reg,
                            T* __restrict__ L, int B, int n) {
+  using C = benlsip::compute_t<T>;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (b >= B) return;  // uniform across the warp
@@ -54,14 +59,14 @@ masked_aat_cholesky_kernel(const T* __restrict__ A, long long strideA,
   T* l = L + static_cast<size_t>(b) * M * M;
 
   // Lower triangle of A Z A^T, packed: c[tri(i, k)] = sum_j free_j a_ij a_kj.
-  T c[M * (M + 1) / 2];
+  C c[M * (M + 1) / 2];
 #pragma unroll
-  for (int e = 0; e < M * (M + 1) / 2; ++e) c[e] = T(0);
+  for (int e = 0; e < M * (M + 1) / 2; ++e) c[e] = C(0);
   for (int j = lane; j < n; j += 32) {
     if (fx[j]) continue;
-    T col[M];
+    C col[M];
 #pragma unroll
-    for (int i = 0; i < M; ++i) col[i] = a[static_cast<size_t>(i) * n + j];
+    for (int i = 0; i < M; ++i) col[i] = load(a + static_cast<size_t>(i) * n + j);
 #pragma unroll
     for (int i = 0; i < M; ++i) {
 #pragma unroll
@@ -70,7 +75,7 @@ masked_aat_cholesky_kernel(const T* __restrict__ A, long long strideA,
   }
 #pragma unroll
   for (int e = 0; e < M * (M + 1) / 2; ++e) c[e] = warp_sum(c[e]);
-  if (reg != T(0)) {
+  if (reg != C(0)) {
 #pragma unroll
     for (int i = 0; i < M; ++i) c[tri(i, i)] = c[tri(i, i)] + reg;
   }
@@ -78,16 +83,16 @@ masked_aat_cholesky_kernel(const T* __restrict__ A, long long strideA,
   // Cholesky-Banachiewicz in place, the order of cholesky.cu.
 #pragma unroll
   for (int j = 0; j < M; ++j) {
-    T acc = c[tri(j, j)];
+    C acc = c[tri(j, j)];
 #pragma unroll
     for (int q = 0; q < j; ++q) acc = acc - c[tri(j, q)] * c[tri(j, q)];
     // No pivot clamping: sqrt of a negative pivot is NaN.
-    const T d = sqrt(acc);
+    const C d = sqrt(acc);
     c[tri(j, j)] = d;
-    const T inv_d = T(1) / d;
+    const C inv_d = C(1) / d;
 #pragma unroll
     for (int i = j + 1; i < M; ++i) {
-      T s = c[tri(i, j)];
+      C s = c[tri(i, j)];
 #pragma unroll
       for (int q = 0; q < j; ++q) s = s - c[tri(i, q)] * c[tri(j, q)];
       c[tri(i, j)] = s * inv_d;
@@ -99,7 +104,7 @@ masked_aat_cholesky_kernel(const T* __restrict__ A, long long strideA,
   for (int i = 0; i < M; ++i) {
 #pragma unroll
     for (int j = 0; j < M; ++j) {
-      if (lane == ((i * M + j) & 31)) l[i * M + j] = j <= i ? c[tri(i, j)] : T(0);
+      if (lane == ((i * M + j) & 31)) store(l + i * M + j, j <= i ? c[tri(i, j)] : C(0));
     }
   }
 }
@@ -116,7 +121,7 @@ int launch(const T* A, long long strideA, const unsigned char* fixed, double reg
 #define BENLSIP_CASE(MM)                                                        \
   case MM:                                                                      \
     masked_aat_cholesky_kernel<T, MM><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(   \
-        A, strideA, fixed, static_cast<T>(reg), L, B, n);                       \
+        A, strideA, fixed, static_cast<benlsip::compute_t<T>>(reg), L, B, n);   \
     break;
     BENLSIP_CASE(1) BENLSIP_CASE(2) BENLSIP_CASE(3) BENLSIP_CASE(4)
     BENLSIP_CASE(5) BENLSIP_CASE(6) BENLSIP_CASE(7) BENLSIP_CASE(8)
@@ -139,4 +144,11 @@ BENLSIP_API int benlsip_masked_aat_cholesky_f64(const double* A, long long strid
                                                 const unsigned char* fixed, double reg, double* L,
                                                 int B, int M, int n, void* stream) {
   return launch<double>(A, strideA, fixed, reg, L, B, M, n, stream);
+}
+
+BENLSIP_API int benlsip_masked_aat_cholesky_bf16(const __nv_bfloat16* A, long long strideA,
+                                                 const unsigned char* fixed, double reg,
+                                                 __nv_bfloat16* L, int B, int M, int n,
+                                                 void* stream) {
+  return launch<__nv_bfloat16>(A, strideA, fixed, reg, L, B, M, n, stream);
 }

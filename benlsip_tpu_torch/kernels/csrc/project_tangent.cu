@@ -32,6 +32,9 @@
 //
 // Blocks hold four warps so that B = 64 still spreads over 16 SMs.
 //
+// In bf16 every sum, the solve and the subtraction run in float and each
+// output entry is rounded once.
+//
 // The Unmasked variant writes sigma = r - A^T w with the same w (the
 // projection multipliers of `binding_bounds_coupled`): only the input is
 // masked, the output is not.
@@ -40,6 +43,8 @@
 namespace {
 
 using benlsip::kWarpsPerBlock;
+using benlsip::load;
+using benlsip::store;
 using benlsip::warp_sum;
 
 template <typename T, int M, bool Unmasked>
@@ -47,6 +52,7 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 project_tangent_kernel(const T* __restrict__ A, long long strideA, const T* __restrict__ L,
                        const unsigned char* __restrict__ fixed, const T* __restrict__ R,
                        T* __restrict__ Out, int B, int n) {
+  using C = benlsip::compute_t<T>;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (b >= B) return;  // uniform across the warp
@@ -57,46 +63,46 @@ project_tangent_kernel(const T* __restrict__ A, long long strideA, const T* __re
   T* out = Out + static_cast<size_t>(b) * n;
 
   // t = A Z r: per-lane partial sums over the free columns, then a warp sum.
-  T t[M];
+  C t[M];
 #pragma unroll
-  for (int i = 0; i < M; ++i) t[i] = T(0);
+  for (int i = 0; i < M; ++i) t[i] = C(0);
   for (int j = lane; j < n; j += 32) {
     if (fx[j]) continue;
-    const T rj = r[j];
+    const C rj = load(r + j);
 #pragma unroll
-    for (int i = 0; i < M; ++i) t[i] += a[static_cast<size_t>(i) * n + j] * rj;
+    for (int i = 0; i < M; ++i) t[i] += load(a + static_cast<size_t>(i) * n + j) * rj;
   }
 #pragma unroll
   for (int i = 0; i < M; ++i) t[i] = warp_sum(t[i]);
 
   // w = (L L^T)^{-1} t, the substitutions of cho_solve.cu, in every lane.
-  T y[M];
+  C y[M];
 #pragma unroll
   for (int i = 0; i < M; ++i) {
-    T acc = t[i];
+    C acc = t[i];
 #pragma unroll
-    for (int k = 0; k < i; ++k) acc = acc - l[i * M + k] * y[k];
-    y[i] = acc / l[i * M + i];
+    for (int k = 0; k < i; ++k) acc = acc - load(l + i * M + k) * y[k];
+    y[i] = acc / load(l + i * M + i);
   }
-  T w[M];
+  C w[M];
 #pragma unroll
   for (int i = M - 1; i >= 0; --i) {
-    T acc = y[i];
+    C acc = y[i];
 #pragma unroll
-    for (int k = i + 1; k < M; ++k) acc = acc - l[k * M + i] * w[k];
-    w[i] = acc / l[i * M + i];
+    for (int k = i + 1; k < M; ++k) acc = acc - load(l + k * M + i) * w[k];
+    w[i] = acc / load(l + i * M + i);
   }
 
   for (int j = lane; j < n; j += 32) {
     const bool is_fixed = fx[j] != 0;
     if (!Unmasked && is_fixed) {
-      out[j] = T(0);
+      store(out + j, C(0));
       continue;
     }
-    T s = T(0);
+    C s = C(0);
 #pragma unroll
-    for (int i = 0; i < M; ++i) s += a[static_cast<size_t>(i) * n + j] * w[i];
-    out[j] = r[j] - s;
+    for (int i = 0; i < M; ++i) s += load(a + static_cast<size_t>(i) * n + j) * w[i];
+    store(out + j, load(r + j) - s);
   }
 }
 
@@ -140,4 +146,13 @@ BENLSIP_API int benlsip_project_tangent_f64(const double* A, long long strideA, 
                                             void* stream) {
   return unmasked_output ? launch<double, true>(A, strideA, L, fixed, R, Out, B, M, n, stream)
                          : launch<double, false>(A, strideA, L, fixed, R, Out, B, M, n, stream);
+}
+
+BENLSIP_API int benlsip_project_tangent_bf16(const __nv_bfloat16* A, long long strideA,
+                                             const __nv_bfloat16* L, const unsigned char* fixed,
+                                             const __nv_bfloat16* R, __nv_bfloat16* Out, int B,
+                                             int M, int n, int unmasked_output, void* stream) {
+  return unmasked_output
+             ? launch<__nv_bfloat16, true>(A, strideA, L, fixed, R, Out, B, M, n, stream)
+             : launch<__nv_bfloat16, false>(A, strideA, L, fixed, R, Out, B, M, n, stream);
 }

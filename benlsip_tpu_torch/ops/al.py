@@ -17,6 +17,12 @@ axis the operator may also be kept row-sharded: `with_gram_rows` (this
 rank's rows of G) and `with_r_factor_cholqr2(layout="sharded")` (this
 rank's rows of R).  p == 0 (no nonlinear constraints) is carried as a
 zero-row C.
+
+A bfloat16 J follows the JAX package's three rules: the cached JᵀJ
+(`gram_j`, `gram_j_rows`) accumulates in float32, the row-sharded Gram
+keeps the operator's dtype, and CholeskyQR2 computes in float32 and
+returns R in bf16.  The Gram operator itself (`with_gram`) is a bf16
+product, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -85,13 +91,21 @@ def _mu(H: AlHessian) -> Tensor:
 def gram_j(J: Tensor, axis: Optional[str] = None) -> Tensor:
     """The (reduced) JᵀJ block of the Gram operator, (B, n, n).
     Affine-residual problems (SolverOptions.linear_residuals) compute it
-    once per solve and hand it to the builders' `Gj=` on every refresh."""
+    once per solve and hand it to `with_gram` / `with_r_factor_cholqr2` as
+    `Gj=` on every refresh.  A bf16 J accumulates in float32, the precision
+    the operator is built in."""
+    J = _compute(J)
     return _psum(J.mT @ J, axis)
+
+
+def _compute(t: Tensor) -> Tensor:
+    """t in the dtype an operator is built in: float32 for bf16."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def with_gram(H: AlHessian, axis: Optional[str] = None, Gj: Optional[Tensor] = None) -> AlHessian:
     """Materialize G = JᵀJ + mu CᵀC (`Gj` skips the JᵀJ product and its psum)."""
-    jtj = gram_j(H.J, axis) if Gj is None else Gj.to(H.J.dtype)
+    jtj = _psum(H.J.mT @ H.J, axis) if Gj is None else Gj.to(H.J.dtype)
     G = jtj if H.C.shape[-2] == 0 else jtj + _mu(H) * (H.C.mT @ H.C)
     return AlHessian(H.J, H.C, H.mu, G=G)
 
@@ -101,9 +115,11 @@ def gram_j_rows(J: Tensor, axis: str, schedule: str = "xla") -> Tensor:
     cache of the row-sharded layout.  "xla" reduce-scatters the local
     partial JᵀJ (`psum_scatter`); "ring" builds one (n/D, n) row chunk
     Jᵀ[:, chunk] J per ring hop (`ring_psum_scatter_lazy`), so the full
-    (n, n) partial never exists."""
+    (n, n) partial never exists.  A bf16 J accumulates in float32, as in
+    `gram_j`."""
     from ..dist.collectives import psum_scatter, ring_psum_scatter_lazy
 
+    J = _compute(J)
     per = _rows_per_rank(J.shape[-1], axis, "Gram")
     if schedule == "ring":
         def chunk(c, J_):
@@ -120,7 +136,8 @@ def with_gram_rows(
     keeps its n/D rows of G (n²/D memory; the refresh is a reduce-scatter,
     half an all-reduce's traffic) and every H·v pays one n-vector
     all_gather.  The mu CᵀC term is added on this rank's rows (C is
-    replicated and p small)."""
+    replicated and p small).  The rows keep the operator's dtype: a float32
+    cache of a bf16 J is cast back."""
     _rows_per_rank(H.J.shape[-1], axis, "Gram")
     rows = (gram_j_rows(H.J, axis, schedule) if Gj_rows is None else Gj_rows).to(H.J.dtype)
     if H.C.shape[-2]:
@@ -154,13 +171,15 @@ def with_r_factor_cholqr2(
     only.  Under `axis` the Gram is psummed once and the refinement is
     local; the explicit pass would need a second psum, so a broken lane
     keeps R = R₁ (shift grade, as in the JAX package).  layout="sharded"
-    keeps this rank's n/D rows of R (H·v: one n-vector psum)."""
+    keeps this rank's n/D rows of R (H·v: one n-vector psum).  A bf16
+    operator is built in float32 and R is rounded back to bf16."""
     from .qr import _rescued_chol_upper, cholqr2i_r, implicit_refine_upper
 
-    G = with_gram(H, axis, Gj).G
+    Hc = AlHessian(_compute(H.J), _compute(H.C), _compute(H.mu))
+    G = with_gram(Hc, axis, Gj).G
     if axis is None:
-        return AlHessian(H.J, H.C, H.mu, R=cholqr2i_r(_stacked(H), G))
-    R = implicit_refine_upper(G, _rescued_chol_upper(G))
+        return AlHessian(H.J, H.C, H.mu, R=cholqr2i_r(_stacked(Hc), G).to(H.J.dtype))
+    R = implicit_refine_upper(G, _rescued_chol_upper(G)).to(H.J.dtype)
     if layout == "sharded":
         return AlHessian(H.J, H.C, H.mu, R_rows=_own_rows(R, axis, -2, "R"))
     return AlHessian(H.J, H.C, H.mu, R=R)

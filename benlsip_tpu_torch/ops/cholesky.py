@@ -4,11 +4,14 @@ of `benlsip_tpu/ops/cholesky.py`).
 The active-set projections factor the fixed-size m×m matrix A Z Aᵀ,
 Z = diag(free) — see the JAX module for the equivalence with the
 reference's augmented ÃÃᵀ factorization.  Dispatch follows the JAX gate
-(`ops/cholesky.py:44-45,88,112` there): batched float32 factors with
-0 < M ≤ 16 go to the hand-written kernels (`kernels/batched_linalg.py`;
-on a CPU tensor the kernel wrapper runs its plain PyTorch version), and
-everything else — float64, larger M — goes to `torch.linalg`, exactly
-where the JAX package goes to XLA.
+(`ops/cholesky.py:44-45,88,112` there): batched float32 and bfloat16
+factors with 0 < M ≤ 16 go to the hand-written kernels
+(`kernels/batched_linalg.py`; on a CPU tensor the kernel wrapper runs its
+plain PyTorch version), and everything else — float64, larger M — goes to
+`torch.linalg`, exactly where the JAX package goes to XLA.  `torch.linalg`
+has no bfloat16 factorization or triangular solve on either device, so a
+bf16 operand there is factored or solved in float32 and rounded back, as
+the JAX package's `_chol_xla` / `_tri_solve_xla` do.
 
 Eager PyTorch fuses nothing around a kernel, so the two call sites of the
 active-set machinery are kernels as a whole: `factor_masked_aat` /
@@ -29,18 +32,20 @@ Tensor = torch.Tensor
 _KERNEL_MAX_M = kern.MAX_DIM
 
 
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _kernel_eligible(M: int, dtype: torch.dtype) -> bool:
-    if dtype == torch.bfloat16:
-        raise NotImplementedError("bf16 dispatch of the batched linalg kernels is not ported yet")
-    return 0 < M <= _KERNEL_MAX_M and dtype == torch.float32
+    return 0 < M <= _KERNEL_MAX_M and dtype in _KERNEL_DTYPES
 
 
 def chol_linalg(K: Tensor) -> Tensor:
     """torch.linalg Cholesky with LAPACK's failure signal: a factor whose
     matrix is not positive definite comes back as all-NaN (what
-    `jnp.linalg.cholesky` returns), never as an exception."""
+    `jnp.linalg.cholesky` returns), never as an exception.  bf16 factors
+    in float32 and rounds back (the JAX `_chol_xla`)."""
     if K.dtype == torch.bfloat16:
-        raise NotImplementedError("bf16 dispatch of the batched linalg kernels is not ported yet")
+        return chol_linalg(K.float()).to(K.dtype)
     L, info = torch.linalg.cholesky_ex(K)
     bad = (info != 0).reshape(info.shape + (1, 1))
     return torch.where(bad, torch.full_like(L, float("nan")), L)
@@ -53,9 +58,17 @@ def cholesky(K: Tensor) -> Tensor:
     return chol_linalg(K)
 
 
+def solve_triangular(R: Tensor, b: Tensor, upper: bool, left: bool = True) -> Tensor:
+    """`torch.linalg.solve_triangular`; bf16 solves in float32 and rounds
+    back (the JAX `_tri_solve_xla`)."""
+    if R.dtype == torch.bfloat16:
+        return torch.linalg.solve_triangular(R.float(), b.float(), upper=upper, left=left).to(R.dtype)
+    return torch.linalg.solve_triangular(R, b, upper=upper, left=left)
+
+
 def _tri_solve_pair(L: Tensor, b: Tensor) -> Tensor:
-    y = torch.linalg.solve_triangular(L, b, upper=False)
-    return torch.linalg.solve_triangular(L.mT, y, upper=True)
+    y = solve_triangular(L, b, upper=False)
+    return solve_triangular(L.mT, y, upper=True)
 
 
 masked_aat = kern.masked_aat

@@ -11,8 +11,9 @@ state machine (`_loops.masked_while`, at most `max_iter` trips) in which a
 lane stops updating once its own predicate is false — the JAX package's
 `vmap` over `while_loop`.
 As in the JAX module, the Newton matrix is factored by the library
-Cholesky (`chol_linalg`, the JAX `_chol_xla`) and solved through the
-kernel gate (`cho_solve_lower`).
+Cholesky (`chol_linalg`, the JAX `_chol_xla`: bf16 in a float32 round
+trip) and solved through the kernel gate (`cho_solve_lower`: the solve
+kernel in float32 and bf16).
 """
 from __future__ import annotations
 
@@ -28,6 +29,13 @@ from .constraints import Polyhedron
 Tensor = torch.Tensor
 
 _K_SEC = 17  # grid points per section round of the line search
+
+
+def line_search_geometry(dtype: torch.dtype):
+    """(grow_pows, n_section) of the dual line search: the JAX module's
+    float32 values (40, 6) for float32 and (60, 14) for every other dtype,
+    bfloat16 included, as there (`jnp.float32` is the only test)."""
+    return (40, 6) if dtype == torch.float32 else (60, 14)
 
 
 class _NewtonCarry(NamedTuple):
@@ -66,8 +74,7 @@ def projection_polyhedron(
         tol = eps ** 0.75
     if reg is None:
         reg = eps ** 0.5
-    grow_pows = 40 if dtype == torch.float32 else 60
-    n_section = 6 if dtype == torch.float32 else 14
+    grow_pows, n_section = line_search_geometry(dtype)
 
     A, b, l, u = poly
     B, m, n = A.shape

@@ -2,18 +2,22 @@
 `benlsip_tpu/ops/qr.py`).
 
 Dispatch starts from the JAX gate (`ops/qr.py:31-40` there): batched
-float32 matrices with 0 < N ≤ 16 columns and N ≤ D ≤ 2048 rows go to the
+float32 and bfloat16 matrices with 0 < N ≤ 16 columns and N ≤ D ≤ 2048 rows go to the
 hand-written modified Gram–Schmidt kernel (`kernels/batched_linalg.py`;
 its plain PyTorch version on a CPU tensor).  The bound N ≤ 16 is the TPU
 kernel's (it unrolls N(N+1)/2 column updates over a slab held in VMEM), not
-this card's: `qr_r`, which wants R only, sends 16 < N ≤ 256 at the same row
-bound and a batch of at least 4 to the panel kernel `blocked_qr_r` (block
+this card's: `qr_r`, which wants R only, sends float32 16 < N ≤ 256 at the
+same row bound and a batch of at least 4 to the panel kernel `blocked_qr_r` (block
 Gram–Schmidt in shared memory, one thread block per instance).  256
 columns, 2048 rows and 4 instances are the card's gate: where the kernel is
 measured no slower than the library call, which gives every matrix the
 whole card in turn and so wins on one or two large ones.
 `thin_qr` keeps the narrow gate (Gram–Schmidt's Q loses orthogonality with κ
-where its R does not), and everything else goes to `torch.linalg.qr`.  The
+where its R does not), and everything else goes to `torch.linalg.qr`.
+Neither `torch.linalg.qr` nor the panel kernel takes bfloat16: a bf16
+matrix outside the narrow gate is factored in float32 and its factors
+rounded back (the JAX package's `_xla_qr`), and CholeskyQR2 of a bf16
+matrix computes in float32 and returns bf16 (JAX `cholqr2i_r`).  The
 routes differ in sign conventions (Gram–Schmidt gives R a positive
 diagonal, Householder need not); every consumer here uses the factors in
 sign-invariant combinations (RᵀR, Q·T).
@@ -34,22 +38,25 @@ from ..kernels import batched_linalg as kern
 from .cholesky import chol_linalg
 
 Tensor = torch.Tensor
+_BF16 = torch.bfloat16
 
 
-def _kernel_eligible(S: Tensor, max_cols: int = kern.MAX_DIM, min_batch: int = 0) -> bool:
-    if S.dtype == torch.bfloat16:
-        raise NotImplementedError("bf16 dispatch of the batched linalg kernels is not ported yet")
+def _kernel_eligible(S: Tensor, max_cols: int = kern.MAX_DIM, min_batch: int = 0,
+                     dtypes: tuple = (torch.float32, _BF16)) -> bool:
     if S.ndim != 3:
         return False
     B, D, N = S.shape
     return (0 < N <= max_cols and N <= D <= kern.MAX_QR_ROWS and B >= min_batch
-            and S.dtype == torch.float32)
+            and S.dtype in dtypes)
 
 
 def thin_qr(S: Tensor):
     """Thin QR of a batch (B, D, N) -> (Q (B, D, K), R (B, K, N)), K = min(D, N)."""
     if _kernel_eligible(S):
         return kern.batched_thin_qr(S.contiguous())
+    if S.dtype == _BF16:
+        Q, R = torch.linalg.qr(S.float(), mode="reduced")
+        return Q.to(_BF16), R.to(_BF16)
     return torch.linalg.qr(S, mode="reduced")
 
 
@@ -57,7 +64,9 @@ def qr_r(S: Tensor) -> Tensor:
     """R factor only of a batch (B, D, N) -> (B, K, N): RᵀR = SᵀS."""
     if _kernel_eligible(S):
         return kern.batched_thin_qr(S.contiguous())[1]
-    if _kernel_eligible(S, kern.MAX_BLOCKED_QR_COLS, kern.MIN_BLOCKED_QR_BATCH):
+    if S.dtype == _BF16:
+        return qr_r(S.float()).to(_BF16)
+    if _kernel_eligible(S, kern.MAX_BLOCKED_QR_COLS, kern.MIN_BLOCKED_QR_BATCH, (torch.float32,)):
         return kern.blocked_qr_r(S.contiguous())
     return torch.linalg.qr(S, mode="r")[1]
 
@@ -132,7 +141,10 @@ def cholqr2i_r(S: Tensor, G: Optional[Tensor] = None) -> Tensor:
     """R factor of S (B, d, n) via CholeskyQR2 with the implicit refinement
     pass from the Gram G = SᵀS (formed here unless given): R₁ = chol(G),
     R₂ = chol(R₁⁻ᵀ G R₁⁻¹), R = R₂R₁.  A lane whose implicit refinement
-    breaks down (κ(S)²·eps ≳ 1) is rescued through the explicit pass on S."""
+    breaks down (κ(S)²·eps ≳ 1) is rescued through the explicit pass on S.
+    A bf16 S (and G) is computed with in float32; R comes back in S's dtype."""
+    if S.dtype == _BF16:
+        return cholqr2i_r(S.float(), None if G is None else G.float()).to(_BF16)
     if G is None:
         G = S.mT @ S
     R1 = _rescued_chol_upper(G)

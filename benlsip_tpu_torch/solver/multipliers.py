@@ -10,7 +10,7 @@ import torch
 
 from .._batched import mtv, mv
 from ..ops.al import _psum
-from ..ops.cholesky import chol_linalg, cho_solve_lower
+from ..ops.cholesky import chol_linalg, cho_solve_lower, solve_triangular
 
 Tensor = torch.Tensor
 
@@ -20,8 +20,9 @@ def least_squares_multipliers(x: Tensor, fns, method: str = "qr", axis: Optional
 
     method="normal": Cholesky of CCᵀ (the reference's algebra);
     method="qr": thin QR of Cᵀ (through the QR kernel gate) and a
-    triangular solve — the same solution, κ(C)-accurate.  Under `axis` J
-    and r hold this rank's rows and Jᵀr is summed over it.
+    triangular solve — the same solution, κ(C)-accurate (bf16: the kernel's
+    QR, the solve in float32 rounded back).  Under `axis` J and r hold this
+    rank's rows and Jᵀr is summed over it.
     """
     C = fns.jac_nlcons(x)
     B, p, _ = C.shape
@@ -35,5 +36,5 @@ def least_squares_multipliers(x: Tensor, fns, method: str = "qr", axis: Optional
 
     Q, R = thin_qr(C.mT)
     rhs = -mtv(Q, g)
-    return torch.linalg.solve_triangular(R, rhs.unsqueeze(-1), upper=True).squeeze(-1)
+    return solve_triangular(R, rhs.unsqueeze(-1), upper=True).squeeze(-1)
 

@@ -7,21 +7,52 @@ compile-time knob; eager PyTorch has no unrolled-program variant).
 Knobs whose route is not ported yet raise `NotImplementedError` at
 construction when set to a non-default value, so a request for an
 unported path never silently runs a different one.
+
+`matmul_precision` names the float32 matmul precision of a solve, as JAX's
+`default_matmul_precision` does.  On the card the only reduced precision
+is TF32: "highest" and "float32" keep float32 matmuls exact (TF32 off),
+"default", "high" and "tensorfloat32" turn TF32 on (JAX on an NVIDIA GPU
+reads "default" as TF32 too).  `solve_fixed_point` applies it to its whole
+iteration through `matmul_precision()` and restores the flag on exit.  The
+CPU has no TF32, so there the value changes no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 
 # Non-default values of these fields select routes the port does not have
-# yet (host iteration logs, reduced-precision matmuls).
+# yet (host iteration logs).
 _UNPORTED_DEFAULTS = {
     "verbose": False,
-    "matmul_precision": "highest",
 }
+# matmul_precision value -> whether float32 matmuls on the card may use TF32.
+MATMUL_PRECISIONS = {"highest": False, "float32": False, "default": True, "high": True, "tensorfloat32": True}
+
+
+def allows_tf32(precision: str) -> bool:
+    """Whether a matmul_precision value turns TF32 on."""
+    if precision not in MATMUL_PRECISIONS:
+        raise ValueError(f"matmul_precision={precision!r}: expected one of {', '.join(map(repr, MATMUL_PRECISIONS))}")
+    return MATMUL_PRECISIONS[precision]
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str) -> Iterator[None]:
+    """Run the block with `torch.backends.cuda.matmul.allow_tf32` set from
+    a matmul_precision value; the previous value comes back on exit, also
+    when the block raises.  The flag is global to the process."""
+    tf32 = allows_tf32(precision)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +101,7 @@ class SolverOptions:
     outer_stall_window: int = 6
 
     # Knobs absent in the reference
-    matmul_precision: str = "highest"  # "highest" = true f32 matmuls (TF32 off)
+    matmul_precision: str = "highest"  # "highest" = true f32 matmuls (TF32 off); see MATMUL_PRECISIONS
     project_x0: bool = True
     gram_hessian: str = "auto"
     gn_factorization: str = "auto"
@@ -99,6 +130,7 @@ class SolverOptions:
                     f"SolverOptions.{name}={getattr(self, name)!r}: this route is not "
                     f"ported to benlsip_tpu_torch yet (only {default!r})"
                 )
+        allows_tf32(self.matmul_precision)
 
     def resolve_tols(self, dtype: torch.dtype) -> "SolverOptions":
         """Fill None tolerances with sqrt(eps(dtype))."""

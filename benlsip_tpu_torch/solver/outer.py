@@ -19,7 +19,7 @@ from .._loops import masked_while
 from ..ops.al import _psum
 from ..ops.constraints import Polyhedron
 from .multipliers import least_squares_multipliers
-from .options import SolverOptions
+from .options import SolverOptions, matmul_precision
 from .status import SOLVE_CONVERGED, SOLVE_MAX_OUTER, SOLVE_STALLED
 from .subproblem import linear_gram_cache, solve_subproblem
 
@@ -191,13 +191,16 @@ def finalize(fns, c: OuterCarry, opts: SolverOptions):
 def solve_fixed_point(fns, poly: Polyhedron, x0: Tensor, opts: SolverOptions,
                       y0: Optional[Tensor] = None):
     """Run the full TRALCNLLS iteration from x0 (B, n) for every lane;
-    returns (X, Y, SolveInfo).  `fns` holds the batched callables."""
+    returns (X, Y, SolveInfo).  `fns` holds the batched callables.  The
+    whole iteration runs under `opts.matmul_precision` (TF32 on the card
+    for "default"), and the flag is restored on return or on an exception."""
     dtype = x0.dtype
     opts = opts.resolve_tols(dtype)
     atol = default_atol(dtype)
 
-    c = outer_init(fns, poly, x0, opts, y0)
-    # Constant-J problems: one JᵀJ product for the whole solve.
-    gram_cache = linear_gram_cache(fns, c.x, opts)
-    c = outer_loop(fns, poly, opts, atol, c, ~outer_done(c, opts), gram_cache)
-    return finalize(fns, c, opts)
+    with matmul_precision(opts.matmul_precision):
+        c = outer_init(fns, poly, x0, opts, y0)
+        # Constant-J problems: one JᵀJ product for the whole solve.
+        gram_cache = linear_gram_cache(fns, c.x, opts)
+        c = outer_loop(fns, poly, opts, atol, c, ~outer_done(c, opts), gram_cache)
+        return finalize(fns, c, opts)

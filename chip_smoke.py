@@ -100,7 +100,25 @@ Phases (any failure raises and the script exits non-zero):
    sweep stopped after 2 chunks and resumed: 102,400 certified, the
    resumed result bitwise equal to the uninterrupted one, resumed from
    chunk 2; wall, rate and checkpoint bytes per step;
-9. with `--profile` only: each path's warm wall split into bulk and
+9. the reduced-precision bulk: the five small kernels' bf16
+   instantiations against their bf16 plain versions (the float32 plain
+   version on the upcast inputs, rounded once) at every bf16 path's shape
+   and the kernel tests' shapes, NaN and refused operands included, within
+   one bf16 ulp plus the float32 kernel's slack, with the largest
+   difference in ulps; their times in turns (bf16 kernel, float32 kernel,
+   plain version, library round trip, and back) beside a bound in bf16
+   bytes; then `bulk_dtype=torch.bfloat16` on config 2 cold and warm
+   (1024/1024 certified at ≤ 1.49e-8, the oracle on 128, X within rtol 1e-7
+   / atol 1e-8 of the float32-bulk run, bf16 launches of the fused kernels
+   and the solve, lanes certified by the first polish from either start and
+   lanes sent to the f64 refine, 5 warm walls of each in turns, compaction
+   against the plain bf16 route), `sphere_family(1024)` with
+   `certify="host"` (every lane the float32 bulk certifies certified, bf16
+   QR launches), config 3 in bf16 (64/64, only `cholqr2/bfloat16` operator
+   builds in the bulk) and config 3 with `bulk_matmul_precision="default"`
+   (TF32 in the bulk only: 64/64, lanes certified by the polish and sent
+   to the f64 refine beside "highest", TF32 off after the call);
+10. with `--profile` only: each path's warm wall split into bulk and
    certification, how many lanes the fused polish certifies alone and with
    its re-polish buckets, and the device's busy share and kernel count from
    torch.profiler, with the time and calls of cuSOLVER's `geqr2*` and of
@@ -114,7 +132,8 @@ Phases (any failure raises and the script exits non-zero):
 
 It imports nothing of JAX and nothing of the JAX package: the KKT oracle
 is the port's own copy.  The last two lines are the kernels' JSON record
-(launch counts per path, times, bounds) and the result JSON.
+(launch counts per path, bf16 launches per bf16 path, times, bounds) and
+the result JSON.
 """
 from __future__ import annotations
 
@@ -286,12 +305,14 @@ def phase_build(kern) -> float:
                         on_path[f"{family} width=32"] = used
                     continue
                 for M in (1, 6):
-                    if f"IfLi{M}E" in entry:
-                        on_path[f"{family} M={M}"] = max(on_path.get(f"{family} M={M}", 0), used)
+                    for dt, mangled in (("", "f"), (" bf16", "13__nv_bfloat16")):
+                        if f"I{mangled}Li{M}E" in entry:
+                            key = f"{family}{dt} M={M}"
+                            on_path[key] = max(on_path.get(key, 0), used)
             elif "spill" in line and ("0 bytes spill stores" not in line or "0 bytes spill loads" not in line):
                 print(f"ptxas: {entry}: {line.strip()}")
         print(f"ptxas: most registers per thread by kernel: {regs}")
-        print(f"ptxas: registers per thread of the float32 instantiations on the paths: {on_path}")
+        print(f"ptxas: registers per thread of the float32 and bf16 instantiations on the paths: {on_path}")
     return dt
 
 
@@ -1873,6 +1894,373 @@ def phase_profile(kern) -> None:
                   f"({100 * dev_us / 1e6 / wall:.1f}%), {sum(e.count for e in events)} device kernels")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the reduced-precision bulk (bf16 kernels, bulk_dtype=bf16, TF32)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+SMALL_KERNELS = ("batched_cholesky", "batched_cho_solve", "batched_thin_qr", "masked_aat_cholesky", "project_tangent")
+# The bf16 paths: config 2 and config 3 run the fused kernels and the dual
+# Newton's solve in bf16; only sphere_family (p = 1) runs the QR kernel in
+# its bulk (the multiplier estimate's thin_qr(Cᵀ)).
+BF16_PATH_KERNELS = ("masked_aat_cholesky", "project_tangent", "batched_cho_solve")
+# The bulk's X against the float32 bulk's, both certified: the JAX package's
+# own bar for a bf16 bulk (tests/test_refine.py).
+BF16_RTOL, BF16_ATOL = 1e-7, 1e-8
+BF16_TURNS = 5
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 at |x| (8 significant bits), x float32."""
+    x = x.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(x)) - 7)
+
+
+def _check_bf16(name: str, got: torch.Tensor, want: torch.Tensor, atol32: float) -> tuple:
+    """A bf16 kernel against its plain version (the float32 plain version on
+    the upcast inputs, rounded once): NaN patterns equal, and every entry
+    within one bf16 ulp of the plain value plus the float32 kernel's own
+    slack `atol32` (sums taken in another order before the one rounding).
+    Returns (max abs err, max err in bf16 ulps, bitwise equal)."""
+    if got.dtype != BF16 or got.shape != want.shape:
+        raise AssertionError(f"{name}: got {got.dtype} {tuple(got.shape)}, want bf16 {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    if not torch.equal(torch.isnan(g), torch.isnan(w)):
+        raise AssertionError(f"{name}: NaN pattern differs from the plain version's")
+    ok = ~torch.isnan(w)
+    d, ulp = (g - w).abs()[ok], _bf16_ulp(w[ok])
+    if d.numel() and not bool((d <= ulp + atol32).all()):
+        raise AssertionError(f"{name}: bf16 kernel off its plain version by {float((d / ulp).max()):.2f} ulps "
+                             f"(max abs err {float(d.max()):.3e}, slack one ulp + {atol32:.2e})")
+    if not d.numel():
+        return 0.0, 0.0, True
+    return float(d.max()), float((d / ulp).max()), bool(torch.equal(got[ok], want[ok]))
+
+
+def _bf16_kernel_checks(kern) -> dict:
+    """Phase 3's checks of the five small kernels in bf16, at every bf16
+    path's shape and the kernel tests' shapes."""
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(9)
+    rec = {k: {"max_abs_err_bf16": 0.0, "max_ulps_bf16": 0.0, "bitwise_bf16": True} for k in SMALL_KERNELS}
+
+    def worst(name, res):
+        err, ulps, same = res
+        r = rec[name]
+        r["max_abs_err_bf16"], r["max_ulps_bf16"] = max(r["max_abs_err_bf16"], err), max(r["max_ulps_bf16"], ulps)
+        r["bitwise_bf16"] &= same
+
+    def spd(B, M):
+        A = rng.standard_normal((B, M, M))
+        return torch.as_tensor(A @ np.transpose(A, (0, 2, 1)) + M * np.eye(M), dtype=BF16, device=dev)
+
+    for B, M in ((512, 1), (64, 6), (1024, 3), (1024, 16), (1, 1), (1, 6), (1, 16)):
+        K = spd(B, M)
+        L = kern.batched_cholesky(K)
+        worst("batched_cholesky", _check_bf16(f"cholesky bf16 {B}x{M}x{M}", L, kern.batched_cholesky_plain(K), 0.0))
+        b = torch.as_tensor(rng.standard_normal((B, M)), dtype=BF16, device=dev)
+        worst("batched_cho_solve", _check_bf16(f"cho_solve bf16 {B}x{M}", kern.batched_cho_solve(L, b),
+                                               kern.batched_cho_solve_plain(L, b), 0.0))
+    K = spd(1024, 3)
+    K[5, 2, 2] = -50.0
+    L = kern.batched_cholesky(K).float()
+    if not (torch.isnan(L[5, 2, 2]) and torch.isfinite(L[torch.arange(1024, device=dev) != 5]).all()):
+        raise AssertionError("cholesky bf16: a non-SPD pivot must give NaN in its own instance only")
+
+    for B, D, N in ((512, 3, 1), (1024, 35, 3), (64, 192, 6), (1024, 7, 3), (1024, 3, 2), (1, 3, 1), (1, 35, 3)):
+        A = torch.as_tensor(rng.standard_normal((B, D, N)), dtype=BF16, device=dev)
+        Q, R = kern.batched_thin_qr(A)
+        Qp, Rp = kern.batched_thin_qr_plain(A)
+        worst("batched_thin_qr", _check_bf16(f"qr bf16 Q {B}x{D}x{N}", Q, Qp, KERNEL_ATOL))
+        worst("batched_thin_qr", _check_bf16(f"qr bf16 R {B}x{D}x{N}", R, Rp, KERNEL_ATOL * math.sqrt(D)))
+        if not (torch.diagonal(R.float(), dim1=1, dim2=2) > 0).all() or torch.tril(R.float(), -1).abs().max() != 0:
+            raise AssertionError("qr bf16: R must be upper triangular with a positive diagonal")
+
+    cases = [(512, 1, 3, False), (64, 6, 192, True), (64, 6, 192, False), (130, 3, 37, False), (130, 16, 200, True)]
+    for B, m, n, shared in cases + [(1, 1, 3, False), (1, 6, 192, False), (2, 2, 5, False)]:
+        if B <= 2:   # one instance, and the degenerate pair alone
+            A, fixed, r = (t[:1].contiguous() if B == 1 else t[1:].contiguous() for t in _fused_case(rng, 3, m, n, False, dev))
+        else:
+            A, fixed, r = _fused_case(rng, B, m, n, shared, dev)
+        # The degenerate lanes' ±1, ±2 are exact in bf16; a shared A stays a stride-0 view.
+        A = A[:1].to(BF16).expand(A.shape) if shared else A.to(BF16)
+        r = r.to(BF16)
+        tag = f"{B}x{m}x{n}{' shared' if shared else ''} bf16"
+        atol_f = KERNEL_ATOL * math.sqrt(n) * float(torch.linalg.vector_norm(A.float(), dim=-1).max())
+        for reg in (0.0, 1e-3):
+            worst("masked_aat_cholesky", _check_bf16(f"masked_aat_cholesky {tag} reg={reg}", kern.masked_aat_cholesky(A, fixed, reg),
+                                                     kern.masked_aat_cholesky_plain(A, fixed, reg), atol_f))
+        L = kern.masked_aat_cholesky(A, fixed, 1e-3 if B <= 2 else 0.0)
+        atol_p = KERNEL_ATOL * math.sqrt(n) * float(r.float().abs().max())
+        for unmasked in (False, True):
+            worst("project_tangent", _check_bf16(f"project_tangent {tag} unmasked={unmasked}",
+                                                 kern.project_tangent(A, L, fixed, r, unmasked_output=unmasked),
+                                                 kern.project_tangent_plain(A, L, fixed, r, unmasked_output=unmasked), atol_p))
+        if B > 2 and m >= 3 and not (torch.isnan(L[B - 2, 2, 1]) and torch.isfinite(L[: B - 2].float()).all()):
+            raise AssertionError(f"masked_aat_cholesky {tag}: NaN must stay in the degenerate lanes")
+
+    # Refused operands: mixed dtypes, bf16 in the panel QR kernel, a
+    # non-contiguous bf16 operand; an empty bf16 batch launches nothing.
+    A, fixed, r = _fused_case(rng, 8, 3, 10, False, dev)
+    Ab = A.to(BF16)
+    Lb = kern.masked_aat_cholesky(Ab, fixed)
+    before = dict(kern.LAUNCHES_BY_DTYPE)
+    refused = (
+        (ValueError, lambda: kern.project_tangent(Ab, Lb, fixed, r)),
+        (ValueError, lambda: kern.batched_cho_solve(Lb, r[:, :3].contiguous())),
+        (TypeError, lambda: kern.blocked_qr_r(torch.zeros((8, 64, 32), dtype=BF16, device=dev))),
+        (ValueError, lambda: kern.batched_cholesky(spd(8, 3).transpose(1, 2))),
+    )
+    for i, (exc, call) in enumerate(refused):
+        try:
+            call()
+        except exc:
+            continue
+        raise AssertionError(f"bf16: refused operand {i} was accepted")
+    shapes = (kern.batched_cholesky(torch.zeros((0, 3, 3), dtype=BF16, device=dev)).shape,
+              kern.batched_thin_qr(torch.zeros((0, 35, 3), dtype=BF16, device=dev))[1].shape)
+    if shapes != ((0, 3, 3), (0, 3, 3)) or dict(kern.LAUNCHES_BY_DTYPE) != before:
+        raise AssertionError(f"bf16 empty batches: shapes {shapes}, launches {dict(kern.LAUNCHES_BY_DTYPE)} vs {before}")
+    _sync()
+    for name in SMALL_KERNELS:
+        r = rec[name]
+        print(f"{name} bf16: max abs err {r['max_abs_err_bf16']:.3e} = {r['max_ulps_bf16']:.3f} bf16 ulps over every "
+              f"checked shape, bitwise equal to its plain version: {r['bitwise_bf16']}")
+    return rec
+
+
+def _bf16_times(kern, rec: dict) -> None:
+    """Each small kernel at the bf16 paths' shapes, taken in turns: the
+    bf16 kernel, the float32 kernel on the same values, the bf16 plain
+    version and the library round trip (float32 library call, rounded to
+    bf16), and back.  The bound counts bf16 bytes (the mask 1 byte)."""
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(10)
+    for B, m, n, shared in ((512, 1, 3, False), (64, 6, 192, True)):
+        A, fixed, r = _fused_case(rng, B, m, n, shared, dev)
+        fixed[B - 2:] = fixed[0]
+        if shared:
+            A = torch.as_tensor(rng.standard_normal((m, n)), dtype=torch.float32, device=dev).expand(B, m, n)
+        Ab, rb = A.to(BF16), r.to(BF16)
+        if shared:
+            Ab = Ab[:1].expand(B, m, n)
+        A32, r32 = Ab.float(), rb.float()
+        if shared:
+            A32 = A32[:1].expand(B, m, n)
+        Lb = kern.masked_aat_cholesky(Ab, fixed)
+        L32 = Lb.float()
+        Kb = (L32 @ L32.mT).to(BF16).contiguous()
+        K32 = Kb.float()
+        bb = torch.as_tensor(rng.standard_normal((B, m)), dtype=BF16, device=dev)
+        b32 = bb.float()
+        free = ~fixed
+        n_free = int(free.sum())
+        a_bytes = (1 if shared else B) * m * n * 2
+        shape = f"{B}x{m}x{n}"
+
+        def lib_factor():
+            K = (A32 * free.to(torch.float32).unsqueeze(-2)) @ A32.mT
+            return torch.linalg.cholesky_ex(K)[0].to(BF16)
+
+        def lib_project():
+            rz = torch.where(free, r32, 0.0)
+            w = torch.cholesky_solve((A32 @ rz.unsqueeze(-1)), L32).squeeze(-1)
+            return (rz - torch.where(free, (A32.mT @ w.unsqueeze(-1)).squeeze(-1), 0.0)).to(BF16)
+
+        cases = {
+            "masked_aat_cholesky": (shape, dict(
+                kernel_bf16=lambda: kern.masked_aat_cholesky(Ab, fixed), kernel_f32=lambda: kern.masked_aat_cholesky(A32, fixed),
+                plain=lambda: kern.masked_aat_cholesky_plain(Ab, fixed), library=lib_factor),
+                _bound(a_bytes + B * n + B * m * m * 2, m * (m + 1) * n_free + B * m ** 3 / 3)),
+            "project_tangent": (shape, dict(
+                kernel_bf16=lambda: kern.project_tangent(Ab, Lb, fixed, rb), kernel_f32=lambda: kern.project_tangent(A32, L32, fixed, r32),
+                plain=lambda: kern.project_tangent_plain(Ab, Lb, fixed, rb), library=lib_project),
+                _bound(a_bytes + B * m * m * 2 + B * n + 2 * B * n * 2, 4 * m * n_free + 2 * B * m * m)),
+            "batched_cholesky": (f"{B}x{m}x{m}", dict(
+                kernel_bf16=lambda: kern.batched_cholesky(Kb), kernel_f32=lambda: kern.batched_cholesky(K32),
+                plain=lambda: kern.batched_cholesky_plain(Kb), library=lambda: torch.linalg.cholesky_ex(K32)[0].to(BF16)),
+                _bound(2 * B * m * m * 2, B * m ** 3 / 3)),
+            "batched_cho_solve": (f"{B}x{m}", dict(
+                kernel_bf16=lambda: kern.batched_cho_solve(Lb, bb), kernel_f32=lambda: kern.batched_cho_solve(L32, b32),
+                plain=lambda: kern.batched_cho_solve_plain(Lb, bb),
+                library=lambda: torch.cholesky_solve(b32.unsqueeze(-1), L32).squeeze(-1).to(BF16)),
+                _bound(B * (m * m + 2 * m) * 2, 2 * B * m * m)),
+        }
+        for name, (tag, fns, bound) in cases.items():
+            _record_bf16_time(rec, name, tag, fns, bound)
+    for shape in ((512, 3, 1), (1024, 35, 3)):
+        Wb = torch.as_tensor(rng.standard_normal(shape), dtype=BF16, device=dev)
+        W32 = Wb.float()
+        B, D, N = shape
+        _record_bf16_time(rec, "batched_thin_qr", "x".join(map(str, shape)), dict(
+            kernel_bf16=lambda: kern.batched_thin_qr(Wb), kernel_f32=lambda: kern.batched_thin_qr(W32),
+            plain=lambda: kern.batched_thin_qr_plain(Wb),
+            library=lambda: tuple(t.to(BF16) for t in torch.linalg.qr(W32, mode="reduced"))),
+            _bound(B * (2 * D * N + N * N) * 2, 2 * B * D * N * N))
+
+
+def _record_bf16_time(rec: dict, name: str, shape: str, fns: dict, bound: dict) -> None:
+    t = _in_turns(fns)
+    suffix = f"_bf16_{shape}"
+    rec[name].update({"ms" + suffix: t["kernel_bf16"], "f32_kernel_ms" + suffix: t["kernel_f32"],
+                      "plain_ms" + suffix: t["plain"], "library_ms" + suffix: t["library"],
+                      "bound_ms" + suffix: bound["bound_ms"], "bound_by" + suffix: bound["bound_by"]})
+    print(f"{name} bf16 {shape}: kernel {t['kernel_bf16']:.4f} ms, float32 kernel {t['kernel_f32']:.4f} ms, "
+          f"plain {t['plain']:.4f} ms, library round trip {t['library']:.4f} ms, bound {bound['bound_us']:.4f} us "
+          f"({bound['bound_by']}: {bound['bytes']} B, {bound['flops']} flop)")
+
+
+def _bf16_launches(kern) -> dict:
+    """The bf16 launches of each small kernel since the last reset."""
+    return {name: kern.LAUNCHES_BY_DTYPE[name, "bfloat16"] for name in SMALL_KERNELS}
+
+
+def _first_polish(bp, theta, X0, opts, chunk: int, bulk_inner: int, bulk_dtype) -> int:
+    """Lanes the first fused polish (rounds = 1) certifies from the bulk's
+    point, the bulk run alone as the pipeline runs it."""
+    from benlsip_tpu_torch.batch.polish import sqp_polish_fused
+    from benlsip_tpu_torch.batch.refine import _cast_problem, _cast_tree
+    from benlsip_tpu_torch.batch.vmap_solve import solve_batched_chunked
+    from benlsip_tpu_torch.solver.options import SolverOptions
+
+    dev = X0.device
+    bp32, th32 = _cast_problem(bp, torch.float32, dev), _cast_tree(theta, torch.float32)
+    bulk_opts = SolverOptions(max_outer_iter=opts.max_outer_iter, max_inner_iter=min(bulk_inner, opts.max_inner_iter),
+                              crit_tol=1e-2)
+    Xb = solve_batched_chunked(_cast_problem(bp32, bulk_dtype, dev), _cast_tree(th32, bulk_dtype),
+                               X0.to(torch.float32).to(bulk_dtype), bulk_opts, chunk=chunk)[0].float()
+    bp64, th64 = _cast_problem(bp, torch.float64, dev), _cast_tree(theta, torch.float64)
+    return int(sqp_polish_fused(bp32, th32, Xb, bp64, th64, opts, num_steps=5, rounds=1)[2].sum())
+
+
+def _fallback_lanes(info) -> int:
+    """Lanes the pipeline sent to the full f64 refine: a polished lane
+    reports no outer iteration."""
+    return int((info.outer_iters > 0).sum())
+
+
+def _polished_lanes(info) -> int:
+    """Lanes the polish certified, its re-polish passes included."""
+    return int((info.converged & (info.outer_iters == 0)).sum())
+
+
+def phase_bf16(kern, smi: str) -> dict:
+    """The reduced-precision bulk: the five small kernels in bf16 against
+    their plain versions and timed in turns, then `bulk_dtype=torch.bfloat16`
+    on config 2 (cold, warm, oracle, against the float32 bulk, walls in
+    turns, compaction), `sphere_family(1024)` with `certify="host"`, config 3
+    in bf16, and config 3 with `bulk_matmul_precision="default"` (TF32)."""
+    from benlsip_tpu_torch.batch.refine import solve_mixed_precision
+    from benlsip_tpu_torch.problems.generators import dense_quadratic_family, exp_fit_family, sphere_family
+    from benlsip_tpu_torch.solver import subproblem
+    from benlsip_tpu_torch.solver.options import SolverOptions
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda:0")
+    rec = _bf16_kernel_checks(kern)
+    _bf16_times(kern, rec)
+    out = {"rec": rec}
+
+    # Config 2 with a bf16 bulk.
+    B = 1024
+    opts = SolverOptions(max_outer_iter=40, max_inner_iter=120)
+    bp, theta, X0 = exp_fit_family(B, d=32, seed=42, dtype=torch.float64, device=dev)
+    run = lambda dtype, **kw: solve_mixed_precision(bp, theta, X0, opts, bulk_dtype=dtype, **kw)
+    kern.reset_launches()
+    (X, Y, info), cold = _walled(lambda: run(BF16))
+    launches = _bf16_launches(kern)
+    (X2, _, info2), warm = _walled(lambda: run(BF16))
+    Xf, _, info_f = run(torch.float32)
+    _check_certified("config 2 bf16 bulk", X, info, B, 3)
+    _check_certified("config 2 bf16 bulk warm", X2, info2, B, 3)
+    dX = float((X - Xf).abs().max())
+    print(f"config 2 bf16 bulk, B={B}: certified {int(info.converged.sum())}/{B}, max pix {float(info.pix.max()):.3e}, "
+          f"cold {cold:.3f} s, warm {warm:.3f} s on {smi}; max |dX| vs the float32 bulk {dX:.3e}; bf16 launches {launches}")
+    _require(torch.allclose(X, Xf, rtol=BF16_RTOL, atol=BF16_ATOL), f"config 2 bf16: X off the float32 bulk's (max |dX| {dX:.3e})")
+    _require(torch.equal(X2, X), "config 2 bf16: the warm run disagrees with the cold run")
+    _check_launched("config 2 bf16 bulk", launches, BF16_PATH_KERNELS)
+    fns = bp.instance_fns(theta)
+    r, J = fns.residuals(X).cpu().numpy(), fns.jac_res(X).cpu().numpy()
+    Xh, A, b_rhs = X.cpu().numpy(), bp.A.cpu().numpy(), bp.b.cpu().numpy()
+    xl, xu = bp.xl.cpu().numpy(), bp.xu.cpu().numpy()
+    sample = np.random.default_rng(0).choice(B, size=128, replace=False)
+    agree = _oracle_agreement("config 2 bf16 bulk", [(Xh[i], r[i], J[i], None, None, A, b_rhs[i], xl, xu) for i in sample])
+    _require(agree == 128, f"config 2 bf16: oracle agrees on {agree}/128")
+    first = {name: _first_polish(bp, theta, X0, opts, 512, 8, dt) for name, dt in (("bf16", BF16), ("f32", torch.float32))}
+    fallback = {"bf16": _fallback_lanes(info), "f32": _fallback_lanes(info_f)}
+    print(f"config 2: lanes certified by the first polish from the bulk's point: bf16 {first['bf16']}/{B}, "
+          f"float32 {first['f32']}/{B}; lanes sent to the f64 refine: bf16 {fallback['bf16']}, float32 {fallback['f32']}")
+    walls = {"bf16": [], "f32": []}
+    for k in range(BF16_TURNS):
+        for name in (("bf16", "f32") if k % 2 == 0 else ("f32", "bf16")):
+            walls[name].append(_walled(lambda: run(BF16 if name == "bf16" else torch.float32))[1])
+    print(f"config 2 warm walls in turns on {smi}: bf16 bulk {['%.4f' % w for w in walls['bf16']]} s, "
+          f"float32 bulk {['%.4f' % w for w in walls['f32']]} s")
+    # Compaction with a bf16 bulk: the plain bf16 route's X, bit for bit
+    # where every op's per-lane result is independent of its batch.
+    Xc, _, info_c = run(BF16, bulk_compact=2)
+    _check_certified("config 2 bf16 bulk_compact=2", Xc, info_c, B, 3)
+    dXc = float((Xc - X).abs().max())
+    print(f"config 2 bf16 bulk_compact=2: max |dX| vs the plain bf16 route {dXc:.3e} (bitwise {torch.equal(Xc, X)})")
+    _require(torch.allclose(Xc, X, rtol=BF16_RTOL, atol=BF16_ATOL), "config 2 bf16: compaction off the plain route")
+    out["config2"] = {"launches": launches, "cold_s": cold, "warm_s": warm, "walls": walls, "first_polish": first,
+                      "fallback": fallback, "compact_dx": dXc}
+
+    # sphere_family(1024): the bulk's thin_qr(Cᵀ) in bf16; the host certification.
+    opts1 = SolverOptions(max_outer_iter=100, max_inner_iter=300)
+    bp1, th1, X01 = sphere_family(1024, seed=0, device=dev)
+    Xs32, _, is32 = solve_mixed_precision(bp1, th1, X01, opts1, chunk=512, certify="host")
+    kern.reset_launches()
+    (Xs, _, isb), wall_s = _walled(lambda: solve_mixed_precision(bp1, th1, X01, opts1, chunk=512, certify="host", bulk_dtype=BF16))
+    launches_s = _bf16_launches(kern)
+    ok32, okb = is32.converged, isb.converged
+    both = ok32 & okb
+    print(f"config 1 sphere_family B=1024 bf16 bulk certify=host: certified {int(okb.sum())}/1024 (float32 bulk "
+          f"{int(ok32.sum())}/1024), max pix {float(isb.pix[okb].max()):.3e}, wall {wall_s:.3f} s, max |dX| vs the "
+          f"float32 bulk on {int(both.sum())} lanes {float((Xs - Xs32)[both].abs().max()):.3e}; bf16 launches {launches_s}")
+    _require(bool(okb[ok32].all()), "sphere bf16: a lane the float32 bulk certifies is not certified")
+    _require(float(isb.pix[okb].max()) <= CERT_PIX and float(isb.feas[okb].max()) <= CERT_PIX, "sphere bf16: a certified lane misses 1.49e-8")
+    _check_launched("sphere bf16 bulk", launches_s, BF16_PATH_KERNELS + ("batched_thin_qr",))
+    out["sphere"] = {"launches": launches_s, "wall_s": wall_s, "certified": int(okb.sum())}
+
+    # Config 3 with a bf16 bulk: the CholeskyQR2 operator from a bf16 J.
+    B3, n3 = 64, 192
+    opts3 = SolverOptions(max_outer_iter=30, max_inner_iter=100)
+    bp3, th3, X03 = dense_quadratic_family(B3, n=n3, d=1024, m=6, seed=3, dtype=torch.float64, device=dev)
+    run3 = lambda **kw: solve_mixed_precision(bp3, th3, X03, opts3, chunk=B3, **kw)
+    X3f, _, i3f = run3()
+    kern.reset_launches()
+    subproblem.reset_operator_builds()
+    (X3, _, i3), wall3 = _walled(lambda: run3(bulk_dtype=BF16))
+    launches3 = _bf16_launches(kern)
+    builds = {f"{fact}/{dt}": k for (fact, dt), k in subproblem.OPERATOR_BUILDS.items()}
+    _check_certified("config 3 bf16 bulk", X3, i3, B3, n3)
+    print(f"config 3 bf16 bulk: certified {int(i3.converged.sum())}/{B3}, max pix {float(i3.pix.max()):.3e}, wall "
+          f"{wall3:.3f} s on {smi}, operator builds {builds}, lanes certified by the polish {_polished_lanes(i3)}/{B3}, "
+          f"sent to the f64 refine {_fallback_lanes(i3)}, max |dX| vs the float32 bulk {float((X3 - X3f).abs().max()):.3e}; "
+          f"bf16 launches {launches3}")
+    _require(builds.get("cholqr2/bfloat16", 0) > 0 and not [k for k in builds if k.endswith("/float32")],
+             f"config 3 bf16: the bulk must build the CholeskyQR2 operator in bf16 only, built {builds}")
+    _check_launched("config 3 bf16 bulk", launches3, BF16_PATH_KERNELS)
+
+    # Config 3 with bulk_matmul_precision="default": TF32 in the bulk only.
+    res3 = {}
+    for precision in ("highest", "default"):
+        kw = {} if precision == "highest" else {"bulk_matmul_precision": precision}
+        (Xp, _, ip), wall_p = _walled(lambda: run3(**kw))
+        _check_certified(f"config 3 bulk_matmul_precision={precision}", Xp, ip, B3, n3)
+        _require(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 must be off after the call")
+        res3[precision] = {"wall_s": wall_p, "polished": _polished_lanes(ip), "fallback": _fallback_lanes(ip),
+                           "dx_vs_highest": float((Xp - X3f).abs().max())}
+    print(f"config 3 bulk matmul precision on {smi}: " + "; ".join(
+        f"{p}: wall {v['wall_s']:.3f} s, lanes certified by the polish {v['polished']}/{B3}, sent to the f64 refine "
+        f"{v['fallback']}, max |dX| vs the highest run {v['dx_vs_highest']:.3e}" for p, v in res3.items()))
+    out["config3"] = {"launches": launches3, "wall_s": wall3, "builds": builds, "polished": _polished_lanes(i3),
+                      "fallback": _fallback_lanes(i3), "tf32": res3}
+    print(f"phase 9 (reduced-precision bulk): {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> None:
     smi = phase_card()   # raises without a CUDA device, before any output
     from benlsip_tpu_torch.kernels import batched_linalg as kern
@@ -1886,6 +2274,7 @@ def main() -> None:
     res1 = phase_config1(kern, smi)
     res4 = phase_config4(kern, "--profile" in sys.argv[1:])
     res5 = phase_config5(kern, smi)
+    resb = phase_bf16(kern, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(kern)
     src = "benlsip_tpu_torch/kernels/csrc/"
@@ -1927,6 +2316,12 @@ def main() -> None:
                   "captured_config2_fused": resf["captured"][name],
                   "launches_config2_fused": resf["executed"][name],
                   "launches_config1_fused": res1["fused"]["launches"][name], **rec[name]})
+        if name in SMALL_KERNELS:
+            # Phase 9: the bf16 instantiation's launches on each bf16 path's
+            # cold run, its check against the bf16 plain version and its times.
+            k.update({"launches_bf16_config2": resb["config2"]["launches"][name],
+                      "launches_bf16_config1_sphere": resb["sphere"]["launches"][name],
+                      "launches_bf16_config3": resb["config3"]["launches"][name], **resb["rec"][name]})
         kernels.append(k)
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

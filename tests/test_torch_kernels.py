@@ -122,9 +122,9 @@ def test_empty_and_degenerate_batches():
 
 
 def test_dispatch_gate():
-    # Eligible float32 CPU tensors run the plain version (no launch), f64
-    # and M > 16 go to torch.linalg, bf16 is not ported, and a tensor on a
-    # device that is neither cpu nor cuda is refused by the wrappers.
+    # Eligible float32 and bf16 CPU tensors run the plain version (no
+    # launch), f64 and M > 16 go to torch.linalg, and a tensor on a device
+    # that is neither cpu nor cuda is refused by the wrappers.
     tk.reset_launches()
     K32 = torch.from_numpy(spd_batch(7, 3))
     np.testing.assert_allclose(
@@ -143,10 +143,12 @@ def test_dispatch_gate():
     bad[0] = -torch.eye(3, dtype=torch.float64)
     Lb = tchol.cholesky(bad)
     assert torch.isnan(Lb[0]).all() and torch.isfinite(Lb[1:]).all()
-    with pytest.raises(NotImplementedError):
-        tchol.cholesky(K32.to(torch.bfloat16))
-    with pytest.raises(NotImplementedError):
-        tqr.qr_r(torch.zeros((2, 4, 2), dtype=torch.bfloat16))
+    Kb = K32.to(torch.bfloat16)
+    Lb = tchol.cholesky(Kb)
+    assert Lb.dtype == torch.bfloat16
+    np.testing.assert_array_equal(Lb.float().numpy(), tk.batched_cholesky_plain(Kb.float()).to(torch.bfloat16).float().numpy())
+    Rb = tqr.qr_r(torch.zeros((2, 4, 2), dtype=torch.bfloat16))
+    assert Rb.dtype == torch.bfloat16 and Rb.shape == (2, 2, 2) and torch.isfinite(Rb.float()).all()
     with pytest.raises(ValueError):
         tk.batched_cholesky(torch.zeros((2, 3, 3), device="meta"))
     assert sum(tk.LAUNCHES.values()) == 0

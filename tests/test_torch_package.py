@@ -217,7 +217,7 @@ def test_options_match_jax_field_by_field():
 
 
 @pytest.mark.parametrize("knob", [
-    {"verbose": True}, {"matmul_precision": "default"},
+    {"verbose": True}, {"verbose": 1},
 ])
 def test_unported_option_raises(knob):
     with pytest.raises(NotImplementedError):
@@ -228,6 +228,7 @@ def test_unported_option_raises(knob):
     {"linear_residuals": True}, {"gram_hessian": "on"}, {"gram_hessian": "off"},
     {"gn_factorization": "cholqr2"},
     {"spmd_axis": "x"}, {"gram_layout": "sharded"}, {"reduce_schedule": "ring"},
+    {"matmul_precision": "default"},
 ])
 def test_ported_operator_option_accepted(knob):
     assert getattr(SolverOptions(**knob), next(iter(knob))) == next(iter(knob.values()))
@@ -235,24 +236,26 @@ def test_ported_operator_option_accepted(knob):
 
 @pytest.mark.parametrize("kw", [
     {"fuse": True, "bulk_compact": 2}, {"fuse": True, "sort_by_difficulty": True},
-    {"fuse": True, "pipeline_overlap": True}, {"bulk_dtype": torch.bfloat16},
-    {"bulk_dtype": torch.bfloat16, "bulk_compact": 2},
+    {"fuse": True, "pipeline_overlap": True}, {"fuse": True, "bulk_dtype": torch.bfloat16},
+    {"pipeline_overlap": True, "bulk_dtype": torch.bfloat16},
 ])
 def test_unported_pipeline_knob_raises(kw):
-    # A bf16 bulk is not ported; fuse=True with a scheduling route would
-    # drop the route silently (the JAX pipeline does), so the port refuses.
+    # fuse=True with a scheduling route, and fuse=True or pipeline_overlap
+    # with a bf16 bulk, would drop the other knob silently (the JAX
+    # pipeline does), so the port refuses.
     bp, th, X0 = exp_fit_family(2, d=8, seed=0, device="cpu")
-    with pytest.raises(ValueError if kw.get("fuse") else NotImplementedError):
+    with pytest.raises(ValueError):
         solve_mixed_precision(bp, th, X0, SolverOptions(), **kw)
 
 
 def test_unported_routes_raise():
-    # bf16 dispatch of the kernels is not ported; every replicated operator
-    # route resolves.
+    # A bf16 qr_r takes the kernel's gate (its plain version on the CPU);
+    # every replicated operator route resolves.
+    from benlsip_tpu_torch.kernels import batched_linalg as kern
     from benlsip_tpu_torch.ops.qr import qr_r
 
-    with pytest.raises(NotImplementedError):
-        qr_r(torch.ones(2, 8, 3, dtype=torch.bfloat16))
+    S = torch.ones(2, 8, 3, dtype=torch.bfloat16)
+    assert torch.equal(qr_r(S), kern.batched_thin_qr_plain(S)[1]) and qr_r(S).dtype == torch.bfloat16
     assert resolve_operator_route(SolverOptions(), n=64, d_plus_p=256, dtype=torch.float32) == (True, "cholqr2")
     assert resolve_operator_route(SolverOptions(), n=64, d_plus_p=256, dtype=torch.float64) == (True, "normal")
     assert resolve_operator_route(SolverOptions(), n=3, d_plus_p=32, dtype=torch.float32) == (False, "qr")
