@@ -13,6 +13,11 @@ and the three kernels that redesign them for this card:
   with the masked Gram product in front of it, one launch per call site;
 * `project_tangent`: Z r − Z Aᵀ (L Lᵀ)⁻¹ A Z r, the solve kernel with
   the mask and both products with A around it, one launch per call site;
+
+  each of these two in one of two forms, by `fused_plan(m, n, dtype)`: one
+  warp per instance (plan 1, every n up to `SPLIT_MIN_N`), or, for large
+  n, a thread-block cluster of S blocks per instance that splits the n
+  columns and adds the blocks' partial sums in rank order (plan S);
 * `blocked_qr_r`: the R factor of wide tall matrices (16 < N), a panel
   QR in shared memory, one thread block per instance, where the TPU
   kernel's gate left the factorization to the library.
@@ -38,7 +43,8 @@ hash of the sources and flags, and loaded with ctypes.  Each wrapper adds
 one to its entry of `LAUNCHES` when it launches its kernel, and nowhere
 else, so a run can show that the main path went through the kernels;
 `LAUNCHES_BY_DTYPE` counts the same launches by (kernel, dtype name), so it
-can also show which instantiation ran.
+can also show which instantiation ran, and `LAUNCHES_BY_PLAN` those of the
+two fused kernels by (kernel, plan), so it can show which form ran.
 
 A wrapper called inside a CUDA graph capture records its kernel into the
 graph instead (`_launch` is stream-ordered, allocates nothing itself, and
@@ -58,6 +64,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from collections import Counter
 from pathlib import Path
 
@@ -75,6 +82,14 @@ MIN_BLOCKED_QR_BATCH = 4
 QR_PANEL_WIDTHS = (32, 16, 8)    # the panel QR kernel's instantiations, widest first
 QR_BLOCK_WARPS = 8               # warps of one block of the panel QR kernel
 MAX_DYNAMIC_SMEM = 232448        # bytes of shared memory a block may opt in to on sm_90
+# The split form of the fused kernels (csrc/common.cuh): blocks of
+# SPLIT_THREADS threads, at most MAX_CLUSTER of them per instance (above 8 a
+# non-portable cluster size).  From SPLIT_MIN_N columns on, the plan is the
+# fewest blocks, a power of two from 2, that give each thread at most one
+# column, or MAX_CLUSTER; below it, one warp per instance (measured: PERF.md).
+SPLIT_THREADS = 256
+MAX_CLUSTER = 16
+SPLIT_MIN_N = 512
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -93,8 +108,10 @@ LAUNCHES = {
 }
 CAPTURED = dict.fromkeys(LAUNCHES, 0)   # launches recorded into CUDA graphs
 # The same launches as LAUNCHES by (kernel, dtype name), e.g.
-# ("project_tangent", "bfloat16").
+# ("project_tangent", "bfloat16"), and the fused kernels' by (kernel, plan),
+# e.g. ("masked_aat_cholesky", 8): plan 1 is the warp form.
 LAUNCHES_BY_DTYPE: Counter = Counter()
+LAUNCHES_BY_PLAN: Counter = Counter()
 _COUNT_LOCK = threading.Lock()
 
 # The C entry points' suffix for each dtype; the panel QR kernel has no bf16.
@@ -109,6 +126,7 @@ def reset_launches() -> None:
         for k in counts:
             counts[k] = 0
     LAUNCHES_BY_DTYPE.clear()
+    LAUNCHES_BY_PLAN.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -146,10 +164,10 @@ _SIGNATURES = {
     "benlsip_cho_solve": [_PTR] * 3 + [_INT, _INT, _PTR],
     # A, Q, R, float workspace (bf16 only), B, D, N, stream
     "benlsip_thin_qr": [_PTR] * 4 + [_INT] * 3 + [_PTR],
-    # A, its batch stride, fixed, reg, L, B, M, n, stream
-    "benlsip_masked_aat_cholesky": [_PTR, ctypes.c_longlong, _PTR, ctypes.c_double, _PTR] + [_INT] * 3 + [_PTR],
-    # A, its batch stride, L, fixed, r, out, B, M, n, unmasked_output, stream
-    "benlsip_project_tangent": [_PTR, ctypes.c_longlong] + [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    # A, its batch stride, fixed, reg, L, B, M, n, plan (blocks per instance), stream
+    "benlsip_masked_aat_cholesky": [_PTR, ctypes.c_longlong, _PTR, ctypes.c_double, _PTR] + [_INT] * 4 + [_PTR],
+    # A, its batch stride, L, fixed, r, out, B, M, n, unmasked_output, plan, stream
+    "benlsip_project_tangent": [_PTR, ctypes.c_longlong] + [_PTR] * 4 + [_INT] * 5 + [_PTR],
     # S, R, workspace, B, D, N, panel width, leading dimension, stream
     "benlsip_blocked_qr_r": [_PTR] * 3 + [_INT] * 5 + [_PTR],
 }
@@ -159,8 +177,8 @@ def build() -> Path:
     """Compile `csrc/*.cu` with nvcc if the library for these sources is missing:
     one nvcc per source, all started together, then one link.
 
-    The ptxas report (registers, spills per kernel) is kept beside the
-    library as `<name>.log`.
+    The ptxas report (registers, spills per kernel) and each source's
+    compile seconds are kept beside the library as `<name>.log`.
     """
     out = library_path()
     if out.exists():
@@ -168,18 +186,27 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        jobs = []
+        jobs, t0 = [], time.perf_counter()
         for src in sorted(CSRC.glob("*.cu")):
             fmad = f"--fmad={'true' if src.name in FMAD_SOURCES else 'false'}"
             cmd = [nvcc, *NVCC_FLAGS, fmad, "-c", str(src), "-o", str(Path(tmp) / f"{src.stem}.o")]
-            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        link = [nvcc, *NVCC_ARCH, "-shared", "-o", str(Path(tmp) / out.name), *[cmd[-1] for cmd, _ in jobs]]
+            output = open(Path(tmp) / f"{src.stem}.out", "w+")   # a file: a full pipe would stall nvcc
+            jobs.append((src.name, cmd, output, subprocess.Popen(cmd, stdout=output, stderr=subprocess.STDOUT, text=True)))
+        link = [nvcc, *NVCC_ARCH, "-shared", "-o", str(Path(tmp) / out.name), *[job[1][-1] for job in jobs]]
+        seconds = {}
+        while len(seconds) < len(jobs):   # wait for every compile, so none outlives a failure
+            for name, _, _, proc in jobs:
+                if name not in seconds and proc.poll() is not None:
+                    seconds[name] = time.perf_counter() - t0
+            time.sleep(0.05)
         report, failed = [], []
-        for cmd, proc in jobs:   # wait for every compile, so none outlives a failure
-            stdout, stderr = proc.communicate()
-            report.append(stdout + stderr)
+        for name, cmd, output, proc in jobs:
+            output.seek(0)
+            text = output.read()
+            output.close()
+            report.append(f"== {name}: compiled in {seconds[name]:.1f} s\n{text}")
             if proc.returncode != 0:
-                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{stderr}")
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
         if failed:
             raise RuntimeError("\n".join(failed))
         proc = subprocess.run(link, capture_output=True, text=True)
@@ -279,7 +306,11 @@ def _kernel_fn(base: str, dtype: torch.dtype):
     return getattr(load_library(), f"{base}_{_SUFFIX[dtype]}")
 
 
-def _launch(name: str, base: str, t: Tensor, *args) -> None:
+def _launch(name: str, base: str, t: Tensor, *args, plan: int | None = None) -> None:
+    """Launch `base`'s kernel for t's dtype on the current stream and count
+    it; `plan`, for the fused kernels, is also its last argument."""
+    if plan is not None:
+        args = (*args, plan)
     fn = _kernel_fn(base, t.dtype)
     if t.device.index == torch.cuda.current_device():
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
@@ -294,6 +325,8 @@ def _launch(name: str, base: str, t: Tensor, *args) -> None:
         else:
             LAUNCHES[name] += 1
             LAUNCHES_BY_DTYPE[name, str(t.dtype).removeprefix("torch.")] += 1
+            if plan is not None:
+                LAUNCHES_BY_PLAN[name, plan] += 1
 
 
 def _require_cuda(name: str, *ts: Tensor, strided: tuple = (), dtypes: tuple = _SMALL_DTYPES) -> None:
@@ -560,6 +593,21 @@ def has_row_major_blocks(A: Tensor) -> bool:
     return (n == 1 or A.stride(2) == 1) and (m == 1 or A.stride(1) == n)
 
 
+def fused_plan(M: int, n: int, dtype: torch.dtype) -> int:
+    """Blocks per instance of the fused kernels for an (M, n) instance of
+    `dtype`: 1 is the warp form (one warp per instance), S ≥ 2 the split form
+    (a cluster of S blocks per instance).  A function of the shape only,
+    never of the batch: a lane's summation tree, and so its bits, must not
+    depend on the batch it runs in (compaction's bit-identity).  M and
+    dtype do not move it at the shapes measured (PERF.md)."""
+    if n < SPLIT_MIN_N:
+        return 1
+    S = 2
+    while S < MAX_CLUSTER and S * SPLIT_THREADS < n:
+        S *= 2
+    return S
+
+
 def _fused_args(name: str, A: Tensor, mask: Tensor, *rest: Tensor) -> int:
     """Check the operands of a fused kernel; returns A's batch stride in
     elements (0 for a batch that shares one matrix)."""
@@ -604,9 +652,10 @@ def masked_aat_cholesky(A: Tensor, fixed: Tensor, reg: float = 0.0) -> Tensor:
         return masked_aat_cholesky_plain(A, fixed, reg)
     stride = _fused_args("masked_aat_cholesky", A, fixed)
     L = torch.empty((B, M, M), dtype=A.dtype, device=A.device)
+    n = A.shape[2]
     _launch(
         "masked_aat_cholesky", "benlsip_masked_aat_cholesky", A,
-        A.data_ptr(), stride, fixed.data_ptr(), float(reg), L.data_ptr(), B, M, A.shape[2],
+        A.data_ptr(), stride, fixed.data_ptr(), float(reg), L.data_ptr(), B, M, n, plan=fused_plan(M, n, A.dtype),
     )
     return L
 
@@ -647,6 +696,6 @@ def project_tangent(A: Tensor, L: Tensor, fixed: Tensor, r: Tensor, unmasked_out
     _launch(
         "project_tangent", "benlsip_project_tangent", A,
         A.data_ptr(), stride, L.data_ptr(), fixed.data_ptr(), r.data_ptr(), out.data_ptr(),
-        B, M, n, int(unmasked_output),
+        B, M, n, int(unmasked_output), plan=fused_plan(M, n, A.dtype),
     )
     return out

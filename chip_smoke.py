@@ -17,12 +17,22 @@ Phases (any failure raises and the script exits non-zero):
    degenerate lanes and reg > 0, and against the call site they replace;
    the panel QR kernel also against `torch.linalg.qr` and SᵀS, at the
    polish's shape, ragged panels, every panel width, κ = 1e4 and float64;
+   the fused kernels' split form (a thread-block cluster per instance, the
+   plan of `fused_plan` for large n) also at config 4's (1, 8, 10240) with
+   the degenerate pair, a shared A, ragged n, n = 40,960, m = 16, float64
+   and bf16, lane by lane against the same lane run alone and call against
+   call (bitwise);
    then, taken in turns inside this one process (plain, kernel, library,
    library, kernel, plain; CUDA events over 200 calls, 20 for the panel
    QR), the time of every kernel, of its plain version and of the one
    PyTorch call that computes the same function (for a fused kernel: of the
    call site it replaces, with the old kernel inside), beside the bound
-   computed from the shapes;
+   computed from the shapes; the fused kernels' split form, warp form and
+   old call site in turns at n from 192 to 40,960 and at (130, 3, 5000),
+   with each form's device time a call from torch.profiler at every
+   cluster size (at (1, 8, 10240) the split form must beat the old call
+   site in every turn and take at most a tenth of the warp form's device
+   time);
 4. the config-2 path: `solve_mixed_precision` on
    `exp_fit_family(1024, d=32, seed=42)` (float64 master data) on cuda:0,
    with every kernel's launch count read around that run; 1024/1024 must
@@ -73,7 +83,10 @@ Phases (any failure raises and the script exits non-zero):
    must converge, pass the numpy KKT oracle at f32 grade (5e-4), build the
    Gram operator in float32 only and launch the factor, projection and
    solve kernels (checked and timed against their plain versions at
-   (1, 8, 10240) and (1, 8) in phase 3); then the explicit-collective path
+   (1, 8, 10240) and (1, 8) in phase 3), the fused ones in their split
+   form; two warm calls with the fused kernels in their warp form, in turns
+   with the two warm calls; one traced warm call: busy share, the Gram GEMM
+   and the two fused kernels by name; then the explicit-collective path
    (`solve_large_blocked_shardmap`, every operator layout and reduce
    schedule) on the same group against the plain solve at n=2048,
    d=8192, and the card against the port's CPU run at n=1024 in float32
@@ -125,9 +138,8 @@ Phases (any failure raises and the script exits non-zero):
    the panel QR kernel; the fused config-2 path's device span (CUDA
    events), its device kernels (exact, from the graphs) and its busy share
    (the device time of the same stages traced eagerly, over the fused
-   wall) beside the unfused path's; for config 4 one traced warm run,
-   the busy share and the largest device kernels by name (the Gram GEMM
-   first); for config 5 the same split, and the compacted bulk's wall
+   wall) beside the unfused path's; for config 5 the same split, and the
+   compacted bulk's wall
    and one traced compacted run.
 
 It imports nothing of JAX and nothing of the JAX package: the KKT oracle
@@ -138,6 +150,7 @@ the result JSON.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -257,6 +270,44 @@ def old_project_site(kern, A, L, fixed, r):
     return rz - torch.where(free, (A.mT @ w.unsqueeze(-1)).squeeze(-1), 0.0)
 
 
+@contextlib.contextmanager
+def _forced_plan(kern, blocks: int):
+    """Run the fused kernels in one form whatever the shape: `fused_plan`
+    swapped for a constant (1: the warp form, S: a cluster of S blocks) and
+    restored after.  A measurement of this script, not a knob of the port."""
+    saved = kern.fused_plan
+    kern.fused_plan = lambda M, n, dtype: blocks
+    try:
+        yield
+    finally:
+        kern.fused_plan = saved
+
+
+def _split_launches(kern) -> dict:
+    """The fused kernels' launches in the split form since the last reset."""
+    return {f"{name} S={S}": k for (name, S), k in kern.LAUNCHES_BY_PLAN.items() if S > 1}
+
+
+def _device_us(fn, reps: int = 50) -> float:
+    """Device time a call of fn from torch.profiler: the time of every
+    device kernel over `reps` warm calls, divided by `reps`.  CUDA events
+    over back-to-back calls stop at the wrapper's host time (20-56 us a
+    call), which would hide a kernel of a few microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    _sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        _sync()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise AssertionError("torch.profiler saw no device kernel")
+    return sum(e.self_device_time_total for e in events) / reps
+
+
 def _check_close(name: str, got: torch.Tensor, want: torch.Tensor, atol: float = KERNEL_ATOL) -> float:
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
@@ -288,29 +339,34 @@ def phase_build(kern) -> float:
     log = lib_path.with_suffix(".log")
     if log.exists():
         # ptxas report: the most registers of any instantiation of each
-        # kernel, those of the float32 instantiations the two paths run
-        # (M = 1 and M = 6; the panel QR at width 32), and every
-        # instantiation that spills.
-        regs, on_path, entry = {}, {}, "?"
+        # kernel, those of the float32 instantiations the paths run
+        # (M = 1 and M = 6; config 4's split form at M = 8; the panel QR at
+        # width 32), and every instantiation that spills.
+        regs, on_path, entry, seconds = {}, {}, "?", {}
         for line in log.read_text().splitlines():
-            if "Compiling entry function" in line:
+            if line.startswith("== ") and "compiled in" in line:
+                name, _, rest = line[3:].partition(": compiled in ")
+                seconds[name] = float(rest.split()[0])
+            elif "Compiling entry function" in line:
                 entry = line.split("'")[1]
             elif "Used" in line and "registers" in line:
-                family = next((k for k in ("masked_aat_cholesky", "project_tangent", "cholesky", "cho_solve", "mgs_qr",
-                                           "blocked_qr_r") if k in entry), entry)
+                family = next((k for k in ("masked_aat_cholesky_split", "project_tangent_split", "masked_aat_cholesky",
+                                           "project_tangent", "cholesky", "cho_solve", "mgs_qr", "blocked_qr_r")
+                               if k in entry), entry)
                 used = int(line.split("Used")[1].split("registers")[0])
                 regs[family] = max(regs.get(family, 0), used)
                 if family == "blocked_qr_r":   # config 3 runs the float32 kernel at panel width 32
                     if "IfLi32E" in entry:
                         on_path[f"{family} width=32"] = used
                     continue
-                for M in (1, 6):
+                for M in ((8,) if family.endswith("_split") else (1, 6)):
                     for dt, mangled in (("", "f"), (" bf16", "13__nv_bfloat16")):
                         if f"I{mangled}Li{M}E" in entry:
                             key = f"{family}{dt} M={M}"
                             on_path[key] = max(on_path.get(key, 0), used)
             elif "spill" in line and ("0 bytes spill stores" not in line or "0 bytes spill loads" not in line):
                 print(f"ptxas: {entry}: {line.strip()}")
+        print(f"nvcc: seconds from the start of the build to each source's object: {seconds}")
         print(f"ptxas: most registers per thread by kernel: {regs}")
         print(f"ptxas: registers per thread of the float32 and bf16 instantiations on the paths: {on_path}")
     return dt
@@ -319,6 +375,7 @@ def phase_build(kern) -> float:
 def phase_kernels(kern) -> dict:
     """Each kernel against its plain version on the card; returns per-kernel records."""
     dev = torch.device("cuda:0")
+    t_phase = time.perf_counter()
     rng = np.random.default_rng(0)
     f32 = torch.float32
 
@@ -384,11 +441,15 @@ def phase_kernels(kern) -> dict:
 
     _check_fused(kern, rng, worst)
     _sync()
+    _check_split(kern, rng)
+    _sync()
+    print(f"fused kernels by plan (kernel, blocks per instance) over phase 3's checks: {dict(kern.LAUNCHES_BY_PLAN)}")
     _check_blocked_qr(kern, rng, worst)
     _sync()
     for name in rec:
         print(f"{name}: max abs err {rec[name]['max_abs_err']:.3e} over every checked shape")
     _time_kernels(kern, rng, rec)
+    print(f"phase 3 (kernels): {time.perf_counter() - t_phase:.1f} s")
     return rec
 
 
@@ -422,9 +483,12 @@ def _check_fused(kern, rng, worst) -> None:
     cases = [(512, 1, 3, False), (64, 6, 192, True), (64, 6, 192, False)]
     cases += [(130, m, n, shared) for m in (2, 3, 5, 8, 16) for n, shared in ((37, False), (200, True))]
     cases += [(130, 3, 5000, False)]   # n has no cap: the lanes stride over it
+    # The split form (a cluster per instance): config 4's width with a shared
+    # A, ragged n, the JAX package's sharded-Gram n and m = 16.
+    cases += [(4, 8, 10240, True), (3, 8, 10277, False), (3, 8, 40960, False), (3, 16, 10240, False)]
     # One instance, as a single solve launches them: a regular lane (B = 1)
-    # and the degenerate pair alone (B = 2).
-    single = [(1, 2, 5), (1, 1, 3), (1, 3, 4), (1, 1, 2), (1, 6, 192), (1, 8, 10240), (2, 2, 5)]
+    # and the degenerate pair alone (B = 2), config 4's among them.
+    single = [(1, 2, 5), (1, 1, 3), (1, 3, 4), (1, 1, 2), (1, 6, 192), (1, 8, 10240), (2, 2, 5), (2, 8, 10240)]
     for B, m, n, shared in cases + [(B, m, n, False) for B, m, n in single]:
         if (B, m, n) in single:
             A, fixed, r = (t[:1].contiguous() if B == 1 else t[1:].contiguous() for t in _fused_case(rng, 3, m, n, False, dev))
@@ -494,6 +558,74 @@ def _check_fused(kern, rng, worst) -> None:
         except ValueError:
             continue
         raise AssertionError(f"fused kernels: refused operand {i} was accepted")
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The bit patterns of t (NaN included), for bitwise comparisons."""
+    return t.contiguous().view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def _check_split(kern, rng) -> None:
+    """The split form beyond `_check_fused`'s cases: float64 and bf16 at
+    config 4's (1, 8, 10240) against their plain versions, batch
+    independence (each lane of a (130, 8, 10240) call bitwise equal to the
+    same lane run alone at B = 1), determinism (two calls bitwise equal), and
+    the split launches of every large-n case."""
+    dev = torch.device("cuda:0")
+    before = dict(kern.LAUNCHES_BY_PLAN)
+    m, n = 8, 10240
+    S = kern.fused_plan(m, n, torch.float32)
+    if S < 2:
+        raise AssertionError(f"fused_plan({m}, {n}) = {S}: config 4's width must take the split form")
+    A, fixed, r = (t[:1].contiguous() for t in _fused_case(rng, 3, m, n, False, dev))
+    row = float(torch.linalg.vector_norm(A, dim=-1).max())
+    # float64: the same source, sums in another order than the plain
+    # version's matmul: rtol 1e-12, atol 1e-12·√n·(row norm or max|r|).
+    A64, r64 = A.double(), r.double()
+    for reg in (0.0, 1e-3):
+        L64, Lp = kern.masked_aat_cholesky(A64, fixed, reg), kern.masked_aat_cholesky_plain(A64, fixed, reg)
+        err = float((L64 - Lp).abs().max())
+        if not torch.allclose(L64, Lp, rtol=1e-12, atol=1e-12 * math.sqrt(n) * row):
+            raise AssertionError(f"masked_aat_cholesky float64 1x{m}x{n} reg={reg}: off its plain version by {err:.3e}")
+    for unmasked in (False, True):
+        P, Pp = (f(A64, L64, fixed, r64, unmasked_output=unmasked) for f in (kern.project_tangent, kern.project_tangent_plain))
+        err64 = float((P - Pp).abs().max())
+        if not torch.allclose(P, Pp, rtol=1e-12, atol=1e-12 * math.sqrt(n) * float(r64.abs().max())):
+            raise AssertionError(f"project_tangent float64 1x{m}x{n} unmasked={unmasked}: off its plain version by {err64:.3e}")
+    print(f"split form float64 1x{m}x{n}: factor off its plain version by {err:.3e}, projection by {err64:.3e}")
+    # bf16: within one bf16 ulp of the bf16 plain version plus the float32
+    # kernel's slack, as in phase 9.
+    Ab, rb = A.to(BF16), r.to(BF16)
+    atol = KERNEL_ATOL * math.sqrt(n) * row
+    for reg in (0.0, 1e-3):
+        Lb = kern.masked_aat_cholesky(Ab, fixed, reg)
+        got = _check_bf16(f"masked_aat_cholesky bf16 1x{m}x{n} reg={reg}", Lb, kern.masked_aat_cholesky_plain(Ab, fixed, reg), atol)
+        print(f"split form bf16 masked_aat_cholesky 1x{m}x{n} reg={reg}: max err {got[0]:.3e} ({got[1]:.3f} ulp), bitwise {got[2]}")
+    atol = KERNEL_ATOL * math.sqrt(n) * float(r.abs().max())
+    for unmasked in (False, True):
+        got = _check_bf16(f"project_tangent bf16 1x{m}x{n} unmasked={unmasked}",
+                          kern.project_tangent(Ab, Lb, fixed, rb, unmasked_output=unmasked),
+                          kern.project_tangent_plain(Ab, Lb, fixed, rb, unmasked_output=unmasked), atol)
+        print(f"split form bf16 project_tangent 1x{m}x{n} unmasked={unmasked}: max err {got[0]:.3e} ({got[1]:.3f} ulp), bitwise {got[2]}")
+
+    # Batch independence and determinism, degenerate lanes (NaN) included.
+    B = 130
+    A, fixed, r = _fused_case(rng, B, m, n, False, dev)
+    L, L2 = kern.masked_aat_cholesky(A, fixed), kern.masked_aat_cholesky(A, fixed)
+    Lr = kern.masked_aat_cholesky(A, fixed, 1e-3)
+    P, P2 = kern.project_tangent(A, Lr, fixed, r), kern.project_tangent(A, Lr, fixed, r)
+    if not (torch.equal(_bits(L), _bits(L2)) and torch.equal(_bits(P), _bits(P2))):
+        raise AssertionError(f"split form {B}x{m}x{n}: two calls on the same inputs differ")
+    for b in (0, 1, 64, B - 3, B - 2, B - 1):
+        one = lambda t: t[b:b + 1].contiguous()
+        Lb1 = kern.masked_aat_cholesky(one(A), one(fixed))
+        Pb1 = kern.project_tangent(one(A), one(Lr), one(fixed), one(r))
+        if not (torch.equal(_bits(Lb1), _bits(L[b:b + 1])) and torch.equal(_bits(Pb1), _bits(P[b:b + 1]))):
+            raise AssertionError(f"split form {B}x{m}x{n}: lane {b} alone differs from lane {b} in the batch")
+    print(f"split form {B}x{m}x{n}: deterministic, and lanes 0, 1, 64, {B - 3}, {B - 2}, {B - 1} alone bitwise equal to the batch's")
+    split = {k: v - before.get(k, 0) for k, v in kern.LAUNCHES_BY_PLAN.items() if k[1] > 1 and v > before.get(k, 0)}
+    if not {"masked_aat_cholesky", "project_tangent"} <= {name for name, _ in split}:
+        raise AssertionError(f"split form: the checks above did not launch both kernels split: {split}")
 
 
 def polish_stack(rng, B, d, n, dev, reg=0.0):
@@ -746,22 +878,120 @@ def _time_kernels(kern, rng, rec) -> None:
     _time_extra(rec, "batched_cholesky", (1, 1, 1), _bound(8, 1 / 3), {
         "plain": lambda: kern.batched_cholesky_plain(K), "kernel": lambda: kern.batched_cholesky(K),
         "library": lambda: torch.linalg.cholesky_ex(K)})
-    # Config 4: one instance, m = 8 equalities over n = 10,240 columns (a
-    # single warp strides over them); the solve at (1, 8) in the dual Newton.
-    m, n = 8, 10240
-    A, fixed, r = (t[:1].contiguous() for t in _fused_case(rng, 3, m, n, False, dev))
-    L = kern.masked_aat_cholesky(A, fixed)
+    # Config 4: the solve at (1, 8) in the dual Newton; the fused kernels at
+    # (1, 8, 10240) and the other large n in `_time_split`.
+    m = 8
+    L = kern.masked_aat_cholesky(*(t[:1].contiguous() for t in _fused_case(rng, 3, m, 64, False, dev)[:2]))
     b = torch.as_tensor(rng.standard_normal((1, m)), dtype=f32, device=dev)
-    n_free = int((~fixed).sum())
-    _time_extra(rec, "masked_aat_cholesky", (1, m, n), _bound(m * n * 4 + n + m * m * 4, m * (m + 1) * n_free + m ** 3 / 3), {
-        "plain": lambda: kern.masked_aat_cholesky_plain(A, fixed), "kernel": lambda: kern.masked_aat_cholesky(A, fixed),
-        "old_site": lambda: old_factor_site(kern, A, fixed)})
-    _time_extra(rec, "project_tangent", (1, m, n), _bound(m * n * 4 + m * m * 4 + n + 2 * n * 4, 4 * m * n_free + 2 * m * m), {
-        "plain": lambda: kern.project_tangent_plain(A, L, fixed, r), "kernel": lambda: kern.project_tangent(A, L, fixed, r),
-        "old_site": lambda: old_project_site(kern, A, L, fixed, r)})
     _time_extra(rec, "batched_cho_solve", (1, m), _bound((m * m + 2 * m) * 4, 2 * m * m), {
         "plain": lambda: kern.batched_cho_solve_plain(L, b), "kernel": lambda: kern.batched_cho_solve(L, b),
         "library": lambda: torch.cholesky_solve(b.unsqueeze(-1), L)})
+    _time_split(kern, rng, rec)
+
+
+# The split form's shapes: one instance of m = 8 from n = 192 (config 3's
+# width) to 40,960 (the JAX package's sharded-Gram size), config 4's 10,240
+# among them, and a batch of large n; the cluster sizes tried at each.
+SPLIT_SHAPES = ((1, 8, 192), (1, 8, 512), (1, 8, 1024), (1, 8, 2048), (1, 8, 10240), (1, 8, 40960), (130, 3, 5000))
+SPLIT_CLUSTERS = (2, 4, 8, 16)
+
+
+def _fused_bounds(B: int, m: int, n: int, n_free: int) -> dict:
+    """Bounds of the fused kernels at (B, m, n), A per instance: the factor
+    reads A and the mask and writes L; the projection reads A, L, the mask
+    and r and writes the output."""
+    return {
+        "masked_aat_cholesky": _bound(B * (m * n * 4 + n + m * m * 4), m * (m + 1) * n_free + B * m ** 3 / 3),
+        "project_tangent": _bound(B * (m * n * 4 + m * m * 4 + n + 2 * n * 4), 4 * m * n_free + 2 * B * m * m),
+    }
+
+
+def _reread_projection(kern, A, L, fixed, r, blocks: int):
+    """The projection's split form with its second pass reading A from
+    device memory, where the planned one keeps the slice in shared memory
+    (`benlsip_project_tangent_reread_f32`, on no path): the other variant,
+    timed beside the planned one."""
+    fn = kern.load_library().benlsip_project_tangent_reread_f32
+    fn.argtypes, fn.restype = kern._SIGNATURES["benlsip_project_tangent"], ctypes.c_int
+    B, m, n = A.shape
+    out = torch.empty_like(r)
+    kern._check(fn(A.data_ptr(), A.stride(0) if B > 1 else 0, L.data_ptr(), fixed.data_ptr(), r.data_ptr(),
+                   out.data_ptr(), B, m, n, 0, blocks, torch.cuda.current_stream().cuda_stream), "reread projection")
+    return out
+
+
+def _time_split(kern, rng, rec) -> None:
+    """The fused kernels' two forms at each of SPLIT_SHAPES: the planned
+    split form (the plan's cluster, or 2 blocks where the plan keeps the
+    warp), the warp form and the old call site in turns with CUDA events
+    (per turn, for the gate below); then each form's device time a call from
+    torch.profiler, the warp form and every cluster size, beside the bound.
+    At config 4's (1, 8, 10240) each split kernel must beat its old call site
+    in every turn and take at most a tenth of the warp form's device time.
+    The projection's reread variant (second pass from device memory) is
+    timed beside the planned one (from shared memory) at the two widest
+    single instances, and must give the same bits."""
+    dev = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    for B, m, n in SPLIT_SHAPES:
+        A, fixed, r = _fused_case(rng, max(B, 3), m, n, False, dev)
+        fixed[-2:] = fixed[0]                # no degenerate lanes in a timed batch
+        A, fixed, r = A[:B].contiguous(), fixed[:B].contiguous(), r[:B].contiguous()
+        L = kern.masked_aat_cholesky(A, fixed)
+        shape = f"{B}x{m}x{n}"
+        plan = kern.fused_plan(m, n, torch.float32)
+        S = plan if plan > 1 else 2
+        bounds = _fused_bounds(B, m, n, int((~fixed).sum()))
+        calls = {
+            "masked_aat_cholesky": (lambda: kern.masked_aat_cholesky(A, fixed), lambda: old_factor_site(kern, A, fixed),
+                                    lambda: kern.masked_aat_cholesky_plain(A, fixed)),
+            "project_tangent": (lambda: kern.project_tangent(A, L, fixed, r), lambda: old_project_site(kern, A, L, fixed, r),
+                                lambda: kern.project_tangent_plain(A, L, fixed, r)),
+        }
+        config4 = (B, m, n) == (1, 8, 10240)
+        for name, (call, old, plain) in calls.items():
+            # (function, forced plan or None); the plain version at config 4's shape only.
+            fns = {"split": (call, S), "warp": (call, 1), "old_site": (old, None), **({"plain": (plain, None)} if config4 else {})}
+            turns = {k: [] for k in fns}
+            for k in list(fns) + list(fns)[::-1]:
+                fn, blocks = fns[k]
+                with _forced_plan(kern, blocks) if blocks else contextlib.nullcontext():
+                    turns[k].append(_cuda_ms(fn))
+            dev_us = {}
+            for blocks in (1, *SPLIT_CLUSTERS):
+                with _forced_plan(kern, blocks):
+                    dev_us["warp" if blocks == 1 else f"S={blocks}"] = _device_us(call)
+            bound = bounds[name]
+            ms = {k: sum(v) / len(v) for k, v in turns.items()}
+            key = f"_{shape}"
+            rec[name].update({
+                f"plan{key}": plan, f"ms{key}_S{S}": ms["split"], f"ms{key}_warp": ms["warp"],
+                f"old_site_ms{key}": ms["old_site"], f"bound_us{key}": bound["bound_us"], f"bound_by{key}": bound["bound_by"],
+                **{f"device_us{key}_{k.replace('=', '')}": v for k, v in dev_us.items()},
+            })
+            print(f"{name} {shape}: plan {plan}; events ms a call: split (S={S}) {ms['split']:.4f}, warp {ms['warp']:.4f}, "
+                  f"old site {ms['old_site']:.4f}" + (f", plain {ms['plain']:.4f}" if config4 else "")
+                  + f" (turns: split {['%.4f' % t for t in turns['split']]}, old site {['%.4f' % t for t in turns['old_site']]}); "
+                  f"profiler device us a call: " + ", ".join(f"{k} {v:.2f}" for k, v in dev_us.items())
+                  + f"; bound {bound['bound_us']:.4f} us ({bound['bound_by']}: {bound['bytes']} B, {bound['flops']} flop)")
+            if config4:
+                if not all(a < b for a, b in zip(turns["split"], turns["old_site"])):
+                    raise AssertionError(f"{name} {shape}: the split form is not faster than its old call site in every turn")
+                if dev_us[f"S={plan}"] > dev_us["warp"] / 10:
+                    raise AssertionError(f"{name} {shape}: the split form's device time {dev_us[f'S={plan}']:.2f} us is "
+                                         f"above a tenth of the warp form's {dev_us['warp']:.2f} us")
+                # The record's config-4 keys, as before the split form: the planned kernel.
+                rec[name].update({f"ms{key}": ms["split"], f"plain_ms{key}": ms["plain"]})
+        if B == 1 and n >= 10240:
+            reread = lambda: _reread_projection(kern, A, L, fixed, r, plan)
+            if not torch.equal(_bits(reread()), _bits(kern.project_tangent(A, L, fixed, r))):
+                raise AssertionError(f"project_tangent {shape}: the reread variant differs from the planned one")
+            t = _in_turns({"staged": lambda: kern.project_tangent(A, L, fixed, r), "reread": reread})
+            d = {"staged": _device_us(lambda: kern.project_tangent(A, L, fixed, r)), "reread": _device_us(reread)}
+            rec["project_tangent"].update({f"device_us_{shape}_reread": d["reread"], f"ms_{shape}_reread": t["reread"]})
+            print(f"project_tangent {shape} (S={plan}): second pass from shared memory {d['staged']:.2f} us, from device "
+                  f"memory {d['reread']:.2f} us of device time a call (events {t['staged']:.4f} / {t['reread']:.4f} ms)")
+    print(f"split form timings: {time.perf_counter() - t0:.1f} s")
 
 
 def _time_extra(rec: dict, name: str, shape: tuple, bound: dict, fns: dict, reps: int = 200, warm: int = 10) -> None:
@@ -777,11 +1007,23 @@ def _time_extra(rec: dict, name: str, shape: tuple, bound: dict, fns: dict, reps
           f"bound {bound['bound_us']:.4f} us ({bound['bound_by']}: {bound['bytes']} B, {bound['flops']} flop)")
 
 
-def _check_launched(tag: str, launches: dict, names=PATH_KERNELS) -> None:
-    """Every kernel of the path was launched in the run just made."""
+def _check_launched(tag: str, launches: dict, names=PATH_KERNELS, small_n: bool = True) -> None:
+    """Every kernel of the path was launched in the run just made; on a
+    small-n path (n <= 192: every path but config 4's) the fused kernels
+    only in their warp form."""
+    from benlsip_tpu_torch.kernels import batched_linalg as kern
+
     for name in names:
         if launches[name] <= 0:
             raise AssertionError(f"{tag}: kernel {name} was not launched on this path")
+    if small_n:
+        _require_no_split(kern, tag)
+
+
+def _require_no_split(kern, tag: str) -> None:
+    split = _split_launches(kern)
+    if split:
+        raise AssertionError(f"{tag}: the fused kernels ran in the split form on a small-n path: {split}")
 
 
 def _oracle_agreement(tag: str, points) -> int:
@@ -1016,6 +1258,7 @@ def phase_fused(kern, smi: str, profile: bool) -> dict:
         (Xe, _, ie), eager_wall = _walled(fused)
     syncs["fused_eager"] = _loops.HOST_SYNCS
     eager_launches = dict(kern.LAUNCHES)
+    _require_no_split(kern, "fused config 2, the stages run eagerly")
     de = float((X - Xe).abs().max())
     print(f"fused config 2: max |dX| captured vs unfused {du:.3e} (rtol {FUSED_RTOL:g}, atol {FUSED_ATOL:g}), captured vs the "
           f"same stages run eagerly {de:.3e} ({'identical' if de == 0 else 'not identical'}; eager fused wall {eager_wall:.3f} s)")
@@ -1453,13 +1696,16 @@ def _info_line(info) -> str:
             f"minor {int(info.minor_iters)}, cg {int(info.cg_iters)}, pix {float(info.pix):.3e}")
 
 
-def phase_config4(kern, profile: bool) -> dict:
+def phase_config4(kern) -> dict:
     """Config 4 at full size through `dist/sharded.solve_large_blocked_family`
     on a one-rank NCCL mesh: one cold call, two warm calls, the gates of the
     JAX package's bench (converged, the oracle at f32 grade), the operator
-    builds and kernel launches of the cold run, peak device memory; then
-    the explicit-collective path against it at a reduced size, and the
-    card against the port's CPU run at n = 1024."""
+    builds and kernel launches of the cold run (the fused kernels in their
+    split form), peak device memory; two warm calls with the fused kernels
+    in their warp form in turns with the warm calls; one traced warm call
+    (busy share, the Gram GEMM and the fused kernels' share of device time);
+    then the explicit-collective path against it at a reduced size, and
+    the card against the port's CPU run at n = 1024."""
     import torch.distributed as dist
 
     from benlsip_tpu_torch.dist.mesh import make_mesh
@@ -1485,12 +1731,22 @@ def phase_config4(kern, profile: bool) -> dict:
     subproblem.reset_operator_builds()
     (x, y, info), cold = _walled(run)
     launches = dict(kern.LAUNCHES)
+    by_plan = {f"{name} S={S}": k for (name, S), k in kern.LAUNCHES_BY_PLAN.items()}
     builds = {f"{fact}/{dt}": k for (fact, dt), k in subproblem.OPERATOR_BUILDS.items()}
     peak = torch.cuda.max_memory_allocated()
-    warm = []
-    for _ in range(2):
-        (x2, _, info2), wall = _walled(run)
-        warm.append(wall)
+    # Warm walls of the split form (the plan) and of the warp form (the plan
+    # swapped for 1 by this script), two each, in turns: split, warp, warp, split.
+    plan = kern.fused_plan(CONFIG4["m"], n, torch.float32)
+    warm, warm_warp = [], []
+    for form in ("split", "warp", "warp", "split"):
+        with _forced_plan(kern, 1) if form == "warp" else contextlib.nullcontext():
+            (xw, _, iw), wall = _walled(run)
+        if form == "split":
+            x2, info2 = xw, iw
+            warm.append(wall)
+        else:
+            warm_warp.append(wall)
+            print(f"config 4 warm, warp form: {_info_line(iw)}, {wall:.3f} s")
     inner = int(info.inner_iters)
     warm_diff = float((x2 - x).abs().max())
     active = float(((x - bp.xl < 1e-6) | (bp.xu - x < 1e-6)).float().mean())
@@ -1499,23 +1755,27 @@ def phase_config4(kern, profile: bool) -> dict:
     print(f"config 4: data {data_s:.2f} s, cold {cold:.3f} s, warm {', '.join(f'{w:.3f}' for w in warm)} s, "
           f"warm s per inner iteration {min(warm) / max(inner, 1):.4f}, peak device memory {peak / 2**30:.2f} GiB, "
           f"max |dx| warm vs cold {warm_diff:.3e}")
+    print(f"config 4: warm walls in turns (split, warp, warp, split): split form (plan {plan}) "
+          f"{', '.join(f'{w:.3f}' for w in warm)} s, warp form {', '.join(f'{w:.3f}' for w in warm_warp)} s")
     print(f"config 4: operator builds in the cold run (factorization/dtype: count) = {builds}")
-    print(f"config 4: kernel launches in the cold run {launches}")
+    print(f"config 4: kernel launches in the cold run {launches}, the fused kernels by plan {by_plan}")
     _require(x.shape == (n,) and x.dtype == torch.float32 and bool(torch.isfinite(x).all()),
              "config 4: x must be finite float32 of shape (n,)")
     _require(bool(info.converged), "config 4: the solve must converge")
     _require(list(builds) == ["normal/float32"] and builds["normal/float32"] > 0,
              f"config 4: the operator must be the Gram matrix in float32 only, built {builds}")
-    _check_launched("config 4", launches, CONFIG4_KERNELS)
+    _check_launched("config 4", launches, CONFIG4_KERNELS, small_n=False)
+    for name in ("masked_aat_cholesky", "project_tangent"):
+        _require(plan > 1 and by_plan.get(f"{name} S={plan}", 0) > 0,
+                 f"config 4: {name} did not run in the split form (plan {plan}): {by_plan}")
     _require(bool(info2.converged) and warm_diff <= SMALL_ATOL,
              "config 4: a warm run disagrees with the cold run")
     verdict = _config4_oracle("config 4", bp, theta, x, alpha)
     _require(bool(verdict["ok"]), "config 4: the KKT oracle rejects the point")
 
-    res = {"launches": launches, "cold_s": cold, "warm_s": warm, "inner": inner, "peak_bytes": peak,
-           "data_s": data_s}
-    if profile:
-        res.update(_profile_config4(run))
+    res = {"launches": launches, "by_plan": by_plan, "cold_s": cold, "warm_s": warm, "warm_warp_s": warm_warp,
+           "inner": inner, "peak_bytes": peak, "data_s": data_s}
+    res.update(_profile_config4(run))
     del bp, theta, x0, x, x2
     torch.cuda.empty_cache()
 
@@ -1555,8 +1815,9 @@ def phase_config4(kern, profile: bool) -> dict:
 
 
 def _profile_config4(run) -> dict:
-    """One traced warm config-4 run: device busy share, device kernels, and
-    the Gram GEMM (the largest kernel) by name."""
+    """One traced warm config-4 run: device busy share, device kernels, the
+    Gram GEMM (the largest kernel) and the two fused kernels by name (the
+    split form's CUDA functions are `*_split_kernel`)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1572,7 +1833,18 @@ def _profile_config4(run) -> dict:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"profile config 4: {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<7d} "
               f"({100 * e.self_device_time_total / max(dev_us, 1):.1f}% of device time) {e.key[:90]}")
-    return {"traced_wall_s": wall, "device_busy_s": dev_us / 1e6, "gemm_s": gemm_us / 1e6}
+    fused = {}
+    for kernel in ("masked_aat_cholesky_split_kernel", "masked_aat_cholesky_kernel", "project_tangent_split_kernel",
+                   "project_tangent_kernel"):
+        mine = [e for e in events if kernel + "<" in e.key]
+        us = sum(e.self_device_time_total for e in mine)
+        fused[kernel] = us / 1e6
+        print(f"profile config 4: {kernel} {us / 1e3:.3f} ms over {sum(e.count for e in mine)} calls, "
+              f"{100 * us / max(dev_us, 1):.2f}% of device time")
+    share = 100 * sum(fused.values()) * 1e6 / max(dev_us, 1)
+    print(f"profile config 4: the two fused kernels {sum(fused.values()) * 1e3:.3f} ms, {share:.2f}% of device time")
+    return {"traced_wall_s": wall, "device_busy_s": dev_us / 1e6, "gemm_s": gemm_us / 1e6, "fused_s": fused,
+            "fused_share_pct": share}
 
 
 # BASELINE config 5, the 100k-instance sweep, as the JAX package's bench
@@ -2272,7 +2544,7 @@ def main() -> None:
     resf = phase_fused(kern, smi, "--profile" in sys.argv[1:])
     res3 = phase_config3(kern)
     res1 = phase_config1(kern, smi)
-    res4 = phase_config4(kern, "--profile" in sys.argv[1:])
+    res4 = phase_config4(kern)
     res5 = phase_config5(kern, smi)
     resb = phase_bf16(kern, smi)
     if "--profile" in sys.argv[1:]:
@@ -2304,6 +2576,10 @@ def main() -> None:
                   "launches_config3": own3,
                   "launches_config1": own1, "launches_config1_host": res1["host"]["launches"][name],
                   "launches_config1_single_f32": own1_b1, "launches_config4": own4,
+                  # The fused kernels' config-4 launches by plan (blocks per instance; 1 the warp form).
+                  **({"launches_config4_by_plan": {k.split(" S=")[1]: v for k, v in res4["by_plan"].items()
+                                                   if k.startswith(name + " ")}}
+                     if name in ("masked_aat_cholesky", "project_tangent") else {}),
                   # Config 5: the plain route's cold run, the compacted route's
                   # first call, and the fused route as config 2's fused path.
                   "launches_config5": own5, "launches_config5_compact": res5["launches_compact"][name],
