@@ -19,7 +19,7 @@ CUDA card (`_device.resolve_device`), and tests pass "cpu".  Importing the
 package builds no kernel and touches no CUDA state.
 """
 from .compat import OptimizeResult, least_squares
-from .ops.al import AlHessian, evaluate_al, hv, new_point, vhv
+from .ops.al import AlHessian, evaluate_al, first_derivatives, hv, new_point, second_derivatives, vhv
 from .ops.constraints import ActiveSet, Polyhedron, is_feasible
 from .ops.polyproject import projection_polyhedron
 from .ops.project import project_tangent
@@ -40,6 +40,7 @@ __all__ = [
     "SolveInfo",
     "SolverOptions",
     "evaluate_al",
+    "first_derivatives",
     "hv",
     "is_feasible",
     "new_point",
@@ -52,6 +53,7 @@ __all__ = [
     "solve",
     "solve_qp",
     "QPInfo",
+    "second_derivatives",
     "tralcnllss",
     "vhv",
 ]

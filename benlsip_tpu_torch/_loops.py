@@ -124,6 +124,18 @@ def host_nonzero(mask: Tensor) -> Tensor:
     return torch.nonzero(mask.cpu()).squeeze(-1)
 
 
+def host_rows(run: Tensor, *columns: Tensor) -> list:
+    """The rows (k, *columns) of the lanes in `run`, in lane order, on the
+    host as Python floats: one counted sync for the stacked (B, k) table.
+    For a log written per trip, which only an eager loop can do: under
+    capture or "all_trips" it raises ValueError."""
+    if _mode != "eager":
+        raise ValueError(f"verbose=True writes its rows from eager loops only, not in loop mode {_mode!r}")
+    table = torch.stack([run.to(torch.float64)] + [c.to(torch.float64) for c in columns], dim=-1)
+    _count_sync()
+    return [row[1:] for row in table.cpu().tolist() if row[0]]
+
+
 @contextlib.contextmanager
 def log_loops(counters: Tensor):
     """Record the loops captured in the enclosed capture: yields the list

@@ -320,10 +320,14 @@ def solve_small_fused(
     stages run as graph replays, on the CPU as plain calls in the current
     loop mode.  A bulk that materializes an (n, n) operator (n ≥ 64 with a
     tall Jacobian, `resolve_operator_route`) is not ported to graphs and
-    raises.
+    raises.  So does `options.verbose` (`ValueError`, on either device):
+    a WHILE node's body cannot write the log's rows on the host.
     """
     from .refine import _cast_problem, _cast_tree, true_f32_matmuls
 
+    if options.verbose:
+        raise ValueError("solve_small_fused: verbose=True writes its rows on the host from eager loops, and this "
+                         "route runs its loops as CUDA-graph WHILE nodes; use fuse=False")
     if fallback_pad != 64:
         raise NotImplementedError(f"solve_small_fused(fallback_pad={fallback_pad!r}): not ported yet")
     B, n = X0.shape

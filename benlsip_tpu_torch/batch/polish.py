@@ -290,13 +290,14 @@ def sqp_polish_split(
     reg: float = 0.0,
     dual_reg: float = 1e-14,
     refactor_steps: int = 2,
+    kkt_factorization: str = "auto",
 ):
     """Device-factored polish: the f32 factor phase where X32 lives (the
     card after the bulk), the f64 chord phase and certificate on the CPU
     with the factors promoted to f64 — the JAX package's host
     certification at n ≥ 64.  The O(dn² + n³) factor work stays on the
     device; the CPU pays O(dn + n²) per chord step.  Float32 factors use
-    the range-space QR (`_resolve_kkt`).
+    the range-space QR unless `kkt_factorization` says "lu" (`_resolve_kkt`).
 
     bp64/theta64 are the f64 master data (moved to the CPU here).  Returns
     (X, Y, converged, pix, feas, objective) in f64 on the CPU.
@@ -308,7 +309,7 @@ def sqp_polish_split(
     theta_h = _cast_tree(tree_map(lambda a: a.to(_CPU), theta64), torch.float64)
     return _f32_factor_then_f64_chord(
         bp32, theta32, X32, _cast_problem(bp64, torch.float64, _CPU), theta_h, _CPU, rs, chord,
-        _resolve_kkt("auto", X32.dtype), active_tol, reg, dual_reg,
+        _resolve_kkt(kkt_factorization, X32.dtype), active_tol, reg, dual_reg,
         float(opts.crit_tol), float(opts.feas_tol), promote=True,
     )
 

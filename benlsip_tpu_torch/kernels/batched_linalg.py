@@ -505,7 +505,7 @@ def batched_thin_qr(A: Tensor):
 
 
 # ---------------------------------------------------------------------------
-# R factor of wide matrices (left-looking block modified Gram–Schmidt)
+# R factor of wide matrices (left-looking block Gram–Schmidt, two passes)
 # ---------------------------------------------------------------------------
 
 
@@ -525,9 +525,11 @@ def qr_panel_layout(D: int, itemsize: int):
 
 def blocked_qr_r_plain(S: Tensor) -> Tensor:
     """Plain PyTorch twin of the panel QR kernel, in the same panel order:
-    each panel has the finished panels projected out one after another
-    (W = QⱼᵀP into R, P −= QⱼW), then modified Gram–Schmidt inside the panel
-    on unnormalised columns (dots s with column c, R row s/√max(s_cc, tiny),
+    each panel has the finished panels projected out one after another,
+    twice (W = QⱼᵀP added into R, P −= QⱼW; the second pass takes out what
+    the first left, since the finished Q panels are orthonormal only to
+    κ·eps: block CGS2), then modified Gram–Schmidt inside the panel on
+    unnormalised columns (dots s with column c, R row s/√max(s_cc, tiny),
     later columns −= column c · s/max(s_cc, tiny)), then the division by
     the norms."""
     B, D, N = S.shape
@@ -539,10 +541,11 @@ def blocked_qr_r_plain(S: Tensor) -> Tensor:
     for c0 in range(0, N, bw):
         P = S[:, :, c0:c0 + bw].clone()
         nc = P.shape[-1]
-        for j0, Qj in finished:
-            W = Qj.mT @ P
-            R[:, j0:j0 + bw, c0:c0 + nc] = W
-            P -= Qj @ W
+        for _ in range(2):
+            for j0, Qj in finished:
+                W = Qj.mT @ P
+                R[:, j0:j0 + bw, c0:c0 + nc] += W
+                P -= Qj @ W
         nrm = torch.empty((B, nc), dtype=S.dtype, device=S.device)
         for c in range(nc):
             s = (P[:, :, c:c + 1] * P[:, :, c:]).sum(1)          # (B, nc - c)

@@ -1,6 +1,7 @@
-// R factor of a batch of tall matrices by left-looking block modified
-// Gram-Schmidt: S (B, D, N) -> upper-triangular R (B, N, N), R^T R = S^T S,
-// positive diagonal.
+// R factor of a batch of tall matrices by left-looking block Gram-Schmidt
+// (two projection passes against the finished panels, modified
+// Gram-Schmidt inside each panel): S (B, D, N) -> upper-triangular R
+// (B, N, N), R^T R = S^T S, positive diagonal.
 //
 // The Hopper redesign of the Pallas TPU kernel `batched_thin_qr` /
 // `_mgs_qr_kernel` (benlsip_tpu/kernels/batched_linalg.py:147,170) for the
@@ -9,8 +10,9 @@
 // kernel (thin_qr.cu) stays for N <= 16.
 //
 // What bounds it on the H100: operations (2 D N^2 - 2/3 N^3 a matrix, in
-// true float32 on the CUDA cores; each byte of S is read once), and before
-// those the serial chain of N column steps.  One instance (1216 x 192 x 4 B
+// true float32 on the CUDA cores; each byte of S is read once; the second
+// projection pass below brings the kernel's own count to nearly twice
+// that), and before those the serial chain of N column steps.  One instance (1216 x 192 x 4 B
 // = 934 KB) does not fit in an SM's shared memory; a panel of BW columns
 // does.  So one thread block of 256 threads factors one instance, the whole
 // batch in one launch, panel by panel:
@@ -25,9 +27,13 @@
 //      W = Q_j^T P as register tiles (a lane holds BW/8 x BW/4 entries, the
 //      warps split the rows, their partial sums are added in a fixed order
 //      in shared memory), W goes to R, and P -= Q_j W with lanes over rows;
-//      taking the panels one after another keeps R at the accuracy of
-//      modified Gram-Schmidt (kappa * eps), which one projection against all
-//      earlier columns at once would not;
+//      then the same loop once more, each W' added into R (R_jk = W + W')
+//      and P -= Q_j W'.  The finished panels are orthonormal only to
+//      kappa * eps, so one pass of block classical Gram-Schmidt against them
+//      leaves kappa^2 * eps in R (up to 1e2 kappa * eps in float32 where the
+//      last panel is ragged); a second pass takes out what the first left
+//      and brings R to Householder's accuracy ("twice is enough": block
+//      CGS2).  Inside the panel, modified Gram-Schmidt needs no second pass;
 //   3. modified Gram-Schmidt inside the panel in shared memory: at step c
 //      one warp per later column takes the column's dot product s with
 //      column c (lanes over rows, __shfl_xor_sync) and updates it at once
@@ -85,8 +91,9 @@ __device__ __forceinline__ T column_dot(const T* p, const T* q, int lane, int gr
 }
 
 // W = Qj^T P into wpart[0 .. BW*BW) and into the block of R at r_block
-// (columns < nc only), then P -= Qj W.  Called by every thread of the block.
-template <typename T, int BW>
+// (columns < nc only; written, or with kAccumulate added to what is
+// there), then P -= Qj W.  Called by every thread of the block.
+template <typename T, int BW, bool kAccumulate>
 __device__ __forceinline__ void project_out(const T* qj, T* panel, T* wpart, T* r_block, int N,
                                             int nc, int LD, int groups) {
   constexpr int TA = BW / 8, TB = BW / 4;
@@ -133,7 +140,10 @@ __device__ __forceinline__ void project_out(const T* qj, T* panel, T* wpart, T* 
     for (int ww = 1; ww < kQrWarps; ++ww) w += wpart[ww * BW * BW + e];
     wpart[e] = w;
     const int row = e / BW, col = e % BW;
-    if (col < nc) r_block[static_cast<size_t>(row) * N + col] = w;
+    if (col < nc) {
+      T* rr = r_block + static_cast<size_t>(row) * N + col;
+      *rr = kAccumulate ? *rr + w : w;
+    }
   }
   __syncthreads();
 
@@ -198,10 +208,14 @@ blocked_qr_r_kernel(const T* __restrict__ S, T* R, T* ws, int D, int N, int LD, 
     }
     __syncthreads();
 
-    // 2. Project out the finished panels, one after another.
+    // 2. Project out the finished panels, one after another, twice.
     for (int j = 0; j < k; ++j) {
-      project_out<T, BW>(q_ws + static_cast<size_t>(j) * BW * LD, panel, wpart,
-                         r + static_cast<size_t>(j) * BW * N + c0, N, nc, LD, groups);
+      project_out<T, BW, false>(q_ws + static_cast<size_t>(j) * BW * LD, panel, wpart,
+                                r + static_cast<size_t>(j) * BW * N + c0, N, nc, LD, groups);
+    }
+    for (int j = 0; j < k; ++j) {
+      project_out<T, BW, true>(q_ws + static_cast<size_t>(j) * BW * LD, panel, wpart,
+                               r + static_cast<size_t>(j) * BW * N + c0, N, nc, LD, groups);
     }
 
     // 3. Modified Gram-Schmidt inside the panel.  At step c a warp owns

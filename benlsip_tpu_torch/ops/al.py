@@ -223,18 +223,29 @@ def vhv(H: AlHessian, v: Tensor, axis: Optional[str] = None) -> Tensor:
     return _psum(vdot(Jv, Jv), axis) + H.mu * vdot(Cv, Cv)
 
 
+def first_derivatives(x: Tensor, y: Tensor, mu: Tensor, rx: Tensor, cx: Tensor, jac_res, jac_nlcons,
+                      axis: Optional[str] = None) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """(y_bar, Jx, Cx, g) at x (B, n) given rx, cx already computed there;
+    `jac_res` and `jac_nlcons` are batched callables."""
+    Jx = jac_res(x)
+    Cx = jac_nlcons(x)
+    y_bar = y + mu.unsqueeze(-1) * cx
+    return y_bar, Jx, Cx, al_gradient(Jx, Cx, rx, y_bar, axis)
+
+
+def second_derivatives(Jx: Tensor, Cx: Tensor, mu: Tensor) -> AlHessian:
+    """The Gauss-Newton Hessian (J, C, mu), unmaterialized."""
+    return AlHessian(Jx, Cx, mu)
+
+
 def new_point(x: Tensor, y: Tensor, mu: Tensor, fns, axis: Optional[str] = None
               ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, AlHessian]:
     """Full evaluation at x: (rx, cx, y_bar, mx, g, H).  `fns` holds the
     batched callables (`solver/api.NLSFunctions`)."""
     rx = fns.residuals(x)
     cx = fns.nlconstraints(x)
-    Jx = fns.jac_res(x)
-    Cx = fns.jac_nlcons(x)
-    y_bar = y + mu.unsqueeze(-1) * cx
-    mx = al_value(rx, cx, y, mu, axis)
-    g = al_gradient(Jx, Cx, rx, y_bar, axis)
-    return rx, cx, y_bar, mx, g, AlHessian(Jx, Cx, mu)
+    y_bar, Jx, Cx, g = first_derivatives(x, y, mu, rx, cx, fns.jac_res, fns.jac_nlcons, axis)
+    return rx, cx, y_bar, al_value(rx, cx, y, mu, axis), g, second_derivatives(Jx, Cx, mu)
 
 
 def evaluate_al(x: Tensor, y: Tensor, mu: Tensor, fns, axis: Optional[str] = None

@@ -22,6 +22,7 @@ expand) in place.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .._batched import mtv, mv
@@ -71,6 +72,7 @@ def _tri_solve_pair(L: Tensor, b: Tensor) -> Tensor:
     return solve_triangular(L.mT, y, upper=True)
 
 
+# A Z Aᵀ under the JAX package's ops/cholesky name.
 masked_aat = kern.masked_aat
 
 
@@ -132,3 +134,21 @@ def masked_projection(A: Tensor, L: Tensor, fixed: Tensor, r: Tensor, unmasked_o
     if unmasked_output:
         return r - mtv(A, w)
     return rz - torch.where(free, mtv(A, w), 0.0)
+
+
+def cholesky_aug_aat_dense(A: np.ndarray, fixed: np.ndarray, L_aat: np.ndarray) -> np.ndarray:
+    """The reference's blocked augmented factorization on the host (numpy
+    in and out, one instance; for parity tests): given L_aat = chol(AAᵀ),
+    the lower factor of ÃÃᵀ, Ã = [A; e_iᵀ for i fixed], through
+    G = L_aat⁻¹ A[:, fixed] and the Schur block chol(I − GᵀG)."""
+    A = np.asarray(A)
+    fixed = np.asarray(fixed, dtype=bool)
+    m = A.shape[0]
+    p = int(fixed.sum())
+    L = np.zeros((m + p, m + p), dtype=A.dtype)
+    G = np.linalg.solve(L_aat, A[:, fixed]) if p else np.zeros((m, 0), dtype=A.dtype)
+    L[:m, :m] = L_aat
+    L[m:, :m] = G.T
+    if p:
+        L[m:, m:] = np.linalg.cholesky(np.eye(p, dtype=A.dtype) - G.T @ G)
+    return L

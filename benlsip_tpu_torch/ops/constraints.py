@@ -19,6 +19,12 @@ from .cholesky import factor_unfixed_aat, masked_projection
 Tensor = torch.Tensor
 
 
+def sqrt_eps(dtype: torch.dtype) -> float:
+    """The reference's default tolerance sqrt(eps(T)), the square root
+    taken in T as the JAX package takes it."""
+    return float(torch.sqrt(torch.tensor(torch.finfo(dtype).eps, dtype=dtype)))
+
+
 class Polyhedron(NamedTuple):
     """The feasible polyhedra {x : Ax = b, xl ≤ x ≤ xu} of a batch."""
 

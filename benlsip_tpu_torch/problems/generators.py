@@ -1,6 +1,6 @@
 """Problem-family generators (PyTorch port of `exp_fit_family`,
-`sphere_family`, `dense_quadratic_family` and `blocked_hard_family` in
-`benlsip_tpu/problems/generators.py`).
+`sphere_family`, `dense_quadratic_family`, `ill_conditioned_family` and
+`blocked_hard_family` in `benlsip_tpu/problems/generators.py`).
 
 The data come from the same numpy recipe as the JAX generators, so theta,
 the constraint data and X0 are bit-identical for the same arguments.  The
@@ -171,6 +171,40 @@ def dense_quadratic_family(
     bp = _shared_linear_problem(J, A, b, 0.8, kw)
     # Feasible start: zero projected onto {Ax = b} (bounds hold at 0).
     x0 = np.clip(A.T @ np.linalg.solve(A @ A.T, b), -0.79, 0.79)
+    X0 = torch.as_tensor(np.broadcast_to(x0, (B, n)).copy(), **kw)
+    return bp, {"y": torch.as_tensor(y, **kw)}, X0
+
+
+def ill_conditioned_family(
+    B: int,
+    n: int = 96,
+    d: int = 384,
+    m: int = 3,
+    kappa: float = 1e4,
+    seed: int = 0,
+    dtype: torch.dtype = torch.float64,
+    device=None,
+) -> Tuple[BatchedProblem, dict, Tensor]:
+    """Config-3 shape with a controlled Jacobian condition number: J has
+    singular values kappa^(-i/(n-1)), i = 0..n-1, so that forming JᵀJ in
+    float32 rounds away everything below kappa²·eps (no signal left at
+    kappa ≳ 3e3) where a QR route keeps kappa·eps.  Consistent targets
+    (y = J x_true + 1e-6 noise), shared equalities A x = b, box bounds ±3.
+    Returns (BatchedProblem, theta, X0) on `device`.
+    """
+    rng = np.random.default_rng(seed)
+    U, _ = np.linalg.qr(rng.standard_normal((d, n)))
+    V, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    sv = kappa ** (-np.arange(n) / (n - 1))
+    J = (U * sv[None, :]) @ V.T
+    A = rng.standard_normal((m, n)) / np.sqrt(n)
+    x_true = rng.standard_normal((B, n))
+    y = x_true @ J.T + 1e-6 * rng.standard_normal((B, d))
+    b = x_true[0] @ A.T
+
+    kw = {"dtype": dtype, "device": resolve_device(device)}
+    bp = _shared_linear_problem(J, A, b, 3.0, kw)
+    x0 = np.clip(A.T @ np.linalg.solve(A @ A.T, b), -2.9, 2.9)
     X0 = torch.as_tensor(np.broadcast_to(x0, (B, n)).copy(), **kw)
     return bp, {"y": torch.as_tensor(y, **kw)}, X0
 

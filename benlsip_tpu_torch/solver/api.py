@@ -27,6 +27,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from .._device import as_tensor
+from ..harness.logging import print_tralcnllss_header
 from ..ops.constraints import Polyhedron, is_feasible  # noqa: F401  (re-export)
 from .options import SolverOptions
 from .outer import SolveInfo, solve_fixed_point
@@ -132,10 +133,20 @@ def solve(
     the nonlinear-constraint multipliers — continuation and parameter
     sweeps reuse the previous solve's y to skip the early
     multiplier-correction outer iterations; None computes the
-    least-squares estimate.
+    least-squares estimate.  With `options.verbose` it prints the solver
+    banner here and the iteration log from the loops
+    (`harness/logging`).
     """
     x0 = as_tensor(x0, device=device)
     fns, poly = problem.build(x0.shape[0], x0.dtype, x0.device)
+    if options.verbose:
+        opts_r = options.resolve_tols(x0.dtype)
+        print_tralcnllss_header(
+            x0.shape[0], fns.residuals(x0[None]).shape[-1], fns.nlconstraints(x0[None]).shape[-1],
+            poly.A.shape[-2], int(torch.isfinite(poly.xl).sum()), int(torch.isfinite(poly.xu).sum()),
+            opts_r.crit_tol, opts_r.feas_tol, options.tau,
+            options.eta1, options.eta2, options.gamma1, options.gamma2,
+        )
     Y0 = None if y0 is None else as_tensor(y0, dtype=x0.dtype, device=x0.device)[None]
     X, Y, info = solve_fixed_point(fns, poly, x0[None], options, Y0)
     return X[0], Y[0], SolveInfo(*[f[0] for f in info])

@@ -38,3 +38,7 @@ def least_squares_multipliers(x: Tensor, fns, method: str = "qr", axis: Optional
     rhs = -mtv(Q, g)
     return solve_triangular(R, rhs.unsqueeze(-1), upper=True).squeeze(-1)
 
+
+def first_order_multipliers(y: Tensor, cx: Tensor, mu: Tensor) -> Tensor:
+    """The first-order update y ← y + mu·c, per lane (mu (B,))."""
+    return y + mu.unsqueeze(-1) * cx

@@ -4,9 +4,9 @@ Field-by-field twin of `benlsip_tpu/solver/options.py`: same names, same
 defaults, same `resolve_tols`.  `unroll_limit` is not carried over (an XLA
 compile-time knob; eager PyTorch has no unrolled-program variant).
 
-Knobs whose route is not ported yet raise `NotImplementedError` at
-construction when set to a non-default value, so a request for an
-unported path never silently runs a different one.
+`verbose=True` prints the reference's iteration log (`harness/logging`)
+from eager loops; a route whose loops are captured into CUDA graphs
+(`fuse=True`) refuses it with `ValueError` before any capture.
 
 `matmul_precision` names the float32 matmul precision of a solve, as JAX's
 `default_matmul_precision` does.  On the card the only reduced precision
@@ -25,11 +25,6 @@ from typing import Iterator, Optional
 
 import torch
 
-# Non-default values of these fields select routes the port does not have
-# yet (host iteration logs).
-_UNPORTED_DEFAULTS = {
-    "verbose": False,
-}
 # matmul_precision value -> whether float32 matmuls on the card may use TF32.
 MATMUL_PRECISIONS = {"highest": False, "float32": False, "default": True, "high": True, "tensorfloat32": True}
 
@@ -124,12 +119,6 @@ class SolverOptions:
     def __post_init__(self):
         if not (0 < self.eta1 <= self.eta2 < 1 and 0 < self.gamma1 < 1 < self.gamma2):
             raise ValueError("Invalid trust region updates parameters")
-        for name, default in _UNPORTED_DEFAULTS.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"SolverOptions.{name}={getattr(self, name)!r}: this route is not "
-                    f"ported to benlsip_tpu_torch yet (only {default!r})"
-                )
         allows_tf32(self.matmul_precision)
 
     def resolve_tols(self, dtype: torch.dtype) -> "SolverOptions":

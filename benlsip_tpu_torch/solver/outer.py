@@ -15,10 +15,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from .._batched import full, norm, sel, vdot
-from .._loops import masked_while
+from .._loops import host_rows, masked_while
+from ..harness.logging import emit_outer_iter
 from ..ops.al import _psum
 from ..ops.constraints import Polyhedron
-from .multipliers import least_squares_multipliers
+from .multipliers import first_order_multipliers, least_squares_multipliers
 from .options import SolverOptions, matmul_precision
 from .status import SOLVE_CONVERGED, SOLVE_MAX_OUTER, SOLVE_STALLED
 from .subproblem import linear_gram_cache, solve_subproblem
@@ -124,7 +125,7 @@ def outer_body(fns, poly: Polyhedron, opts: SolverOptions, atol: float, c: Outer
 
     mu_next = torch.where(accept, c.mu, c.mu * opts.tau)
     update = accept & (~critical)
-    y = sel(update, c.y + c.mu.unsqueeze(-1) * sub.cx, c.y)
+    y = sel(update, first_order_multipliers(c.y, sub.cx, c.mu), c.y)
     omega = torch.where(
         critical,
         c.omega,
@@ -138,6 +139,13 @@ def outer_body(fns, poly: Polyhedron, opts: SolverOptions, atol: float, c: Outer
     improved = sub.pix < opts.stall_ratio * c.best_pix
     at_floor = feas <= opts.feas_tol
     stall = torch.where(improved | ~at_floor, 0, c.stall + 1)
+
+    if opts.verbose:
+        # The table of each running lane, with the JAX package's columns.
+        rxn = fns.residuals(x)
+        run = torch.ones_like(accept) if active is None else active
+        for row in host_rows(run, c.outer + 1, _psum(vdot(rxn, rxn), opts.spmd_axis), feas, mu_next, sub.pix, omega):
+            emit_outer_iter(*row)
     return OuterCarry(
         x=x, y=y, mu=mu_next, omega=omega, eta=eta, cx=cx, pix=sub.pix,
         best_pix=torch.minimum(sub.pix, c.best_pix), stall=stall, outer=c.outer + 1,
@@ -183,7 +191,7 @@ def finalize(fns, c: OuterCarry, opts: SolverOptions):
     multiplier y + mu·c, and the objective ½‖r(x)‖².  Every driver of the
     outer loop (`solve_fixed_point`, `batch/compact`,
     `harness/checkpoint`) ends here."""
-    y_final = sel(c.critical, c.y + c.mu.unsqueeze(-1) * c.cx, c.y)
+    y_final = sel(c.critical, first_order_multipliers(c.y, c.cx, c.mu), c.y)
     rx = fns.residuals(c.x)
     return c.x, y_final, carry_info(c, opts, objective=_psum(0.5 * vdot(rx, rx), opts.spmd_axis))
 

@@ -25,7 +25,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from .._batched import full, norm, sel, sel_tuple
-from .._loops import any_lane, masked_while
+from .._loops import any_lane, host_rows, masked_while
+from ..harness.logging import emit_inner_iter
 from ..ops.al import (
     AlHessian,
     al_gradient,
@@ -38,7 +39,8 @@ from ..ops.al import (
     with_r_factor,
     with_r_factor_cholqr2,
 )
-from ..ops.constraints import Polyhedron
+from ..ops.constraints import ActiveSet, Polyhedron
+from ..ops.project import norm_reduced_gradient
 from ..ops.polyproject import projection_polyhedron
 from .inner import inner_step
 from .options import SolverOptions
@@ -62,6 +64,13 @@ def initial_tr(g: Tensor, tr_factor: float = 0.1) -> Tensor:
 def update_tr(delta: Tensor, rho: Tensor, eta1, eta2, gamma1, gamma2) -> Tensor:
     """Standard TR radius update; NaN rho keeps the radius."""
     return torch.where(rho > eta2, gamma2 * delta, torch.where(rho < eta1, gamma1 * delta, delta))
+
+
+def reduced_gradient_measure(poly: Polyhedron, aset: ActiveSet, g: Tensor) -> Tensor:
+    """‖P_T(−g)‖ per lane, the reference's reduced-gradient measure; kept
+    for parity and diagnostics, not used for termination (see the JAX
+    function)."""
+    return norm_reduced_gradient(poly, aset, g)
 
 
 def criticality_measure(poly: Polyhedron, x: Tensor, g: Tensor, lam0: Optional[Tensor] = None,
@@ -232,6 +241,11 @@ def solve_subproblem(
         rho_noisy = (torch.abs(ared) <= noise) & (torch.abs(-pred) <= noise)
         rho = torch.where(rho_noisy, 0.5 * (opts.eta1 + opts.eta2), rho)
         accept = rho > opts.eta1
+
+        if opts.verbose:
+            # The row of each running lane: k, AL value, ‖s‖, Δ, ρ.
+            for row in host_rows(act, c.k, c.mx, norm(s), c.delta, rho):
+                emit_inner_iter(*row)
 
         # Derivatives (and the materialized operator) only on acceptance:
         # evaluated for the whole batch when a running lane accepts, the

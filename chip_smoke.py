@@ -16,7 +16,10 @@ Phases (any failure raises and the script exits non-zero):
    two fused kernels also with a batch-shared (stride-0) A, ragged n,
    degenerate lanes and reg > 0, and against the call site they replace;
    the panel QR kernel also against `torch.linalg.qr` and SᵀS, at the
-   polish's shape, ragged panels, every panel width, κ = 1e4 and float64;
+   polish's shape, ragged panels, every panel width, κ = 1e4 and float64,
+   and at (4, 300, 36/40/48/70) with κ = 1e4 and 1e5 (ragged last panels)
+   the chord contraction ‖R⁻ᵀ(SᵀS − RᵀR)R⁻¹‖₂ ≤ 2·κ·eps of the kernel and
+   of its plain version, printed beside the library R's;
    the fused kernels' split form (a thread-block cluster per instance, the
    plan of `fused_plan` for large n) also at config 4's (1, 8, 10240) with
    the degenerate pair, a shared A, ragged n, n = 40,960, m = 16, float64
@@ -131,7 +134,20 @@ Phases (any failure raises and the script exits non-zero):
    builds in the bulk) and config 3 with `bulk_matmul_precision="default"`
    (TF32 in the bulk only: 64/64, lanes certified by the polish and sent
    to the f64 refine beside "highest", TF32 off after the call);
-10. with `--profile` only: each path's warm wall split into bulk and
+10. the surface ported last: a float64 `solve` of the sphere fixture
+   with `verbose=True` into a buffer (the banner, one table per outer
+   iteration, one row per inner iteration, the solve unchanged, one host
+   sync per line written and none more), `fuse=True` with `verbose=True`
+   refused (`ValueError`), `ops/native_qp` on config 2's 1,024 polyhedra
+   against the device projection (≤ 1e-8), and
+   `ill_conditioned_family(64, n=100, kappa=1e4)`: the float32 bulk, the
+   split polish with the QR factor (the panel QR kernel at (64, 484, 100),
+   a 4-column last panel) and with the LU, and the all-f64 polish; the QR
+   route must certify the f64 polish's set, with the LU's count beside it;
+   with `--profile`, also `solve_mixed_precision` on the family once
+   (config 3's options): its certified count and wall (minutes: the f64
+   refine of the lanes the polish leaves);
+11. with `--profile` only: each path's warm wall split into bulk and
    certification, how many lanes the fused polish certifies alone and with
    its re-polish buckets, and the device's busy share and kernel count from
    torch.profiler, with the time and calls of cuSOLVER's `geqr2*` and of
@@ -676,6 +692,14 @@ def _check_r(tag: str, R, S) -> dict:
     return {"gram": gram, "err": err, "tol": tol, "kappa": kappa, "scale": scale}
 
 
+def _contraction(S, R) -> float:
+    """max over the batch of ‖R⁻ᵀ(SᵀS − RᵀR)R⁻¹‖₂ in float64: the
+    contraction of the polish's chord step built on R."""
+    Sd, Rd = S.double(), R.double()
+    Rinv = torch.linalg.inv(Rd)
+    return float(torch.linalg.matrix_norm(Rinv.mT @ (Sd.mT @ Sd - Rd.mT @ Rd) @ Rinv, ord=2).max())
+
+
 def _check_blocked_qr(kern, rng, worst) -> None:
     """The panel QR kernel against its plain version, against the library's
     R and against SᵀS."""
@@ -707,6 +731,27 @@ def _check_blocked_qr(kern, rng, worst) -> None:
         print(f"blocked_qr_r {tag}: width {kern.qr_panel_layout(S.shape[1], 4)[0]}, vs plain {err:.3e}, "
               f"vs library {c['err']:.3e} (tol {c['tol']:.3e}, κ {c['kappa']:.3e}, max|R| {c['scale']:.3e}), "
               f"Gram {c['gram']:.3e} (plain {cp['gram']:.3e}, tol {2 * S.shape[2] * EPS32:.3e})")
+
+    # Ragged last panels, ill-conditioned: with one block projection pass
+    # against the finished panels the contraction reached 1e2·κ·eps here;
+    # the second pass must keep it under 2·κ·eps, a bound the library's
+    # Householder R meets on the same S.
+    for N in (36, 40, 48, 70):
+        for kappa in (1e4, 1e5):
+            tag = f"4x300x{N} kappa={kappa:.0e}"
+            S = conditioned(rng, 4, 300, N, kappa, dev)
+            R, Rp = kern.blocked_qr_r(S), kern.blocked_qr_r_plain(S)
+            c = _check_r(f"blocked_qr_r {tag}", R, S)
+            _check_r(f"blocked_qr_r_plain {tag}", Rp, S)
+            err = float((R - Rp).abs().max())
+            if err > c["tol"]:
+                raise AssertionError(f"blocked_qr_r {tag}: kernel disagrees with its plain version ({err:.3e} > {c['tol']:.3e})")
+            worst("blocked_qr_r", err)
+            con = {k: _contraction(S, M) / (kappa * EPS32) for k, M in (("kernel", R), ("plain", Rp), ("library", _library_r(S)))}
+            print(f"blocked_qr_r {tag}: chord contraction in kappa*eps: kernel {con['kernel']:.3f}, plain {con['plain']:.3f}, "
+                  f"library {con['library']:.3f} (bound 2); vs plain {err:.3e} (tol {c['tol']:.3e})")
+            if con["kernel"] > 2 or con["plain"] > 2:
+                raise AssertionError(f"blocked_qr_r {tag}: chord contraction above 2*kappa*eps: {con}")
 
     # float64 through the same source: widths 32 and 8.
     for B, D, N in ((4, 600, 50), (3, 2048, 40)):
@@ -1391,7 +1436,8 @@ def phase_config3(kern) -> dict:
     launches_host = dict(kern.LAUNCHES)
     _check_launched("config 3 certify=host", launches_host, CONFIG3_KERNELS)
     print(f"config 3: blocked_qr_r launches a run: {launches['blocked_qr_r']} (certify=auto), "
-          f"{launches_host['blocked_qr_r']} (certify=host)")
+          f"{launches_host['blocked_qr_r']} (certify=host); batch/polish runs a fixed budget of chord steps "
+          f"(5 steps: 2 factor, 3 chord) and does not expose how many a lane needed")
     (_, _, _), host_warm = _walled(lambda: run("host"))
     print(f"config 3 certify=host: certified {int(info_h.converged.sum())}/{B}, max pix {float(info_h.pix.max()):.3e}, "
           f"cold {host_cold:.3f} s, warm {host_warm:.3f} s, max |dX| vs device {float((Xh - X.cpu()).abs().max()):.3e}")
@@ -2533,6 +2579,169 @@ def phase_bf16(kern, smi: str) -> dict:
     return out
 
 
+# HOST_SYNCS of a float64 solve of the sphere fixture on the CPU before
+# verbose was ported (tests/test_torch_logging.py pins it there).
+SPHERE_SYNCS_BEFORE = 331
+
+
+def _verbose_solve() -> dict:
+    """A float64 `solve` of the sphere fixture on the card with verbose=True,
+    its log written to a buffer, beside the same solve without it."""
+    import io
+    from benlsip_tpu_torch import SolverOptions, _loops, solve
+    from benlsip_tpu_torch.harness.logging import set_log_stream
+    from benlsip_tpu_torch.problems import sphere_regression as sr
+
+    opts = dict(max_outer_iter=100, max_inner_iter=250)
+    syncs = {}
+    for where, x0 in (("card", sr.x0()), ("cpu", sr.x0(device="cpu"))):
+        _loops.reset_host_syncs()
+        out = solve(sr.make_problem(), x0, SolverOptions(**opts))
+        syncs[where] = (_loops.HOST_SYNCS, int(out[2].outer_iters), int(out[2].inner_iters))
+        if where == "card":
+            x_off, info = out[0], out[2]
+    buf = io.StringIO()
+    set_log_stream(buf)
+    try:
+        _loops.reset_host_syncs()
+        x_on = solve(sr.make_problem(), sr.x0(), SolverOptions(verbose=True, **opts))[0]
+        syncs_on = _loops.HOST_SYNCS
+    finally:
+        set_log_stream(None)
+    lines = buf.getvalue().splitlines()
+    # The rows of each outer iteration's subproblem come before the table
+    # that reports on it; the last table has none after it.
+    segments = [[]]
+    for line in lines:
+        if re.match(r"^\s+Outer iter \d+$", line):
+            segments.append([])
+        elif re.match(r"^\s*\d+   \d\.\d{6}e[+-]\d+   ", line):
+            segments[-1].append(line)
+    tables, rows = len(segments) - 1, sum(map(len, segments))
+    print(f"verbose solve (float64, card): {len(lines)} lines, {tables} outer tables, {rows} inner rows "
+          f"(per outer iteration {[len(s) for s in segments[:-1]]}), outer {int(info.outer_iters)}, inner {int(info.inner_iters)}; "
+          f"host syncs verbose=False {syncs['card'][0]} (CPU run {syncs['cpu'][0]}, CPU before the port of verbose "
+          f"{SPHERE_SYNCS_BEFORE}), verbose=True {syncs_on}")
+    for want in ("Problem dimensions", "benlsip_tpu_torch v-DEV", "Number of parameters.................:     3",
+                 "Number of residuals..................:     4", "iter     AL value       ||s||        Δ          ρ"):
+        _require(any(want in line for line in lines), f"verbose: the log lacks {want!r}")
+    _require(tables == int(info.outer_iters) and all(segments[:-1]) and rows == int(info.inner_iters),
+             f"verbose: {tables} tables and rows {[len(s) for s in segments]} for {int(info.outer_iters)} outer / "
+             f"{int(info.inner_iters)} inner iterations")
+    _require(torch.equal(x_on, x_off), "verbose: the log changed the solve")
+    # verbose=True adds one sync per table or row written; verbose=False none.
+    _require(syncs_on - syncs["card"][0] == tables + rows, f"verbose: {syncs_on - syncs['card'][0]} syncs for {tables + rows} lines")
+    if syncs["card"][1:] == syncs["cpu"][1:]:
+        _require(syncs["card"][0] == syncs["cpu"][0], f"verbose=False: host syncs card {syncs['card']} against CPU {syncs['cpu']}")
+    return {"lines": len(lines), "tables": tables, "rows": rows, "syncs_off": syncs["card"][0], "syncs_on": syncs_on}
+
+
+def _native_qp_against_device() -> dict:
+    """`ops/native_qp` on config 2's 1,024 polyhedra against the device
+    projection `ops/polyproject` from the same points."""
+    from benlsip_tpu_torch.ops import native_qp
+    from benlsip_tpu_torch.ops.polyproject import projection_polyhedron
+    from benlsip_tpu_torch.problems.generators import exp_fit_family
+
+    B, dev = 1024, torch.device("cuda:0")
+    bp, _, X0 = exp_fit_family(B, d=32, seed=42, device=dev)
+    poly = bp.polyhedron(3, torch.float64, B, dev)
+    P = X0 + torch.as_tensor(np.random.default_rng(5).standard_normal((B, 3)) * 2.0, device=dev)
+    V_dev, dev_s = _walled(lambda: projection_polyhedron(poly, P))
+    A, b, xl, xu, Pn = (t.cpu().numpy() for t in (*poly, P))
+    _require(native_qp.available(), "native_qp: the library did not build")
+    V_host, host_s = _walled(lambda: np.stack([
+        native_qp.projection_polyhedron_host(Pn[i], A[i], b[i], xl[i], xu[i]) for i in range(B)]))
+    worst = float(np.abs(V_host - V_dev.cpu().numpy()).max())
+    one = native_qp.projection_polyhedron_host(P[7], poly.A[7], poly.b[7], poly.xl[7], poly.xu[7])
+    print(f"native_qp on config 2's {B} polyhedra (library {native_qp.library_path().name}): max |host - device| {worst:.3e}, "
+          f"host {host_s:.3f} s, device {dev_s:.3f} s; a tensor in gives a tensor on {one.device}")
+    _require(worst <= 1e-8, f"native_qp: host and device projections differ by {worst:.3e}")
+    _require(one.device.type == "cuda" and torch.equal(one.cpu(), torch.from_numpy(V_host[7])),
+             "native_qp: a CUDA tensor in must give the same projection on the card")
+    return {"max_diff": worst, "host_s": host_s, "device_s": dev_s}
+
+
+def _ill_conditioned(kern) -> dict:
+    """`ill_conditioned_family(64, n=100, kappa=1e4)`: the float32 bulk, then
+    the split polish with the QR and the LU factor and the all-f64 polish
+    (the JAX package's test criterion: the QR route certifies the f64
+    polish's set); the polish's qr_r([JZ; D]) at (64, 484, 100) is the panel
+    QR kernel with a 4-column last panel."""
+    from benlsip_tpu_torch import SolverOptions
+    from benlsip_tpu_torch.batch.polish import sqp_polish, sqp_polish_split
+    from benlsip_tpu_torch.batch.refine import _cast_problem, _cast_tree
+    from benlsip_tpu_torch.batch.vmap_solve import solve_batched
+    from benlsip_tpu_torch.problems.generators import ill_conditioned_family
+
+    B, n, dev = 64, 100, torch.device("cuda:0")
+    bp, th, X0 = ill_conditioned_family(B, n=n, kappa=1e4, seed=9, device=dev)
+    bp32, th32 = _cast_problem(bp, torch.float32, dev), _cast_tree(th, torch.float32)
+    popts = SolverOptions(max_outer_iter=20, max_inner_iter=80)
+    kern.reset_launches()
+    X32 = solve_batched(bp32, th32, X0.float(), SolverOptions(max_outer_iter=20, max_inner_iter=80, crit_tol=1e-2))[0]
+    qr = sqp_polish_split(bp32, th32, X32, bp, th, popts, num_steps=8, kkt_factorization="qr")[2].cpu()
+    launches = dict(kern.LAUNCHES)
+    lu = sqp_polish_split(bp32, th32, X32, bp, th, popts, num_steps=8, kkt_factorization="lu")[2].cpu()
+    f64 = sqp_polish(bp, th, X32.double(), popts, num_steps=8)[2].cpu()
+    print(f"ill_conditioned_family({B}, n={n}, kappa=1e4): certified by the split polish with QR {int(qr.sum())}/{B}, "
+          f"with LU {int(lu.sum())}/{B}, by the f64 polish {int(f64.sum())}/{B}; QR set == f64 set: {torch.equal(qr, f64)}; "
+          f"launches of the bulk and the QR polish {launches}")
+    _check_launched("ill_conditioned bulk + QR polish", launches, CONFIG3_KERNELS)
+    _require(torch.equal(qr, f64), "ill_conditioned: the QR polish's certified set differs from the f64 polish's")
+    return {"launches": launches, "qr": int(qr.sum()), "lu": int(lu.sum()), "f64": int(f64.sum())}
+
+
+def _ill_conditioned_pipeline(kern) -> dict:
+    """`solve_mixed_precision` on `ill_conditioned_family(64, n=100,
+    kappa=1e4)` with config 3's options, one cold call.  The lanes the
+    polish leaves go to the f64 refine, a full solve in lockstep that runs
+    the hardest lanes to their caps: minutes on the card, so it runs with
+    --profile only."""
+    from benlsip_tpu_torch import SolverOptions
+    from benlsip_tpu_torch.batch.refine import solve_mixed_precision
+    from benlsip_tpu_torch.problems.generators import ill_conditioned_family
+
+    B = 64
+    bp, th, X0 = ill_conditioned_family(B, n=100, kappa=1e4, seed=9, device=torch.device("cuda:0"))
+    kern.reset_launches()
+    (X, _, info), cold = _walled(lambda: solve_mixed_precision(bp, th, X0, SolverOptions(max_outer_iter=30, max_inner_iter=100),
+                                                               chunk=B))
+    launches = dict(kern.LAUNCHES)
+    print(f"ill_conditioned solve_mixed_precision: certified {int(info.converged.sum())}/{B}, "
+          f"max pix of certified {float(info.pix[info.converged].max()) if bool(info.converged.any()) else float('nan'):.3e}, "
+          f"status counts {torch.bincount(info.status.cpu()).tolist()}, cold wall {cold:.3f} s, launches {launches}")
+    _require(bool(torch.isfinite(X).all()), "ill_conditioned: the pipeline's X is not finite")
+    _check_launched("ill_conditioned solve_mixed_precision", launches, CONFIG3_KERNELS)
+    return {"launches": launches, "certified": int(info.converged.sum()), "cold_s": cold}
+
+
+def phase_surface(kern, profile: bool) -> dict:
+    """Phase 10: the surface ported last, on the card: the iteration log,
+    its refusal under fuse=True, the native QP oracle and the
+    ill-conditioned family through the repaired panel QR kernel (with
+    `profile`, also its whole pipeline)."""
+    from benlsip_tpu_torch import SolverOptions
+    from benlsip_tpu_torch.batch.refine import solve_mixed_precision
+    from benlsip_tpu_torch.problems.generators import exp_fit_family
+
+    t0 = time.perf_counter()
+    res = {"verbose": _verbose_solve()}
+    bp, th, X0 = exp_fit_family(64, d=32, seed=42, device=torch.device("cuda:0"))
+    try:
+        solve_mixed_precision(bp, th, X0, SolverOptions(verbose=True), fuse=True)
+    except ValueError as e:
+        print(f"fuse=True with verbose=True refused: {e}")
+    else:
+        raise AssertionError("fuse=True with verbose=True must raise ValueError")
+    res["native_qp"] = _native_qp_against_device()
+    res["ill"] = _ill_conditioned(kern)
+    if profile:
+        res["ill_pipeline"] = _ill_conditioned_pipeline(kern)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main() -> None:
     smi = phase_card()   # raises without a CUDA device, before any output
     from benlsip_tpu_torch.kernels import batched_linalg as kern
@@ -2547,6 +2756,7 @@ def main() -> None:
     res4 = phase_config4(kern)
     res5 = phase_config5(kern, smi)
     resb = phase_bf16(kern, smi)
+    ress = phase_surface(kern, "--profile" in sys.argv[1:])
     if "--profile" in sys.argv[1:]:
         phase_profile(kern)
     src = "benlsip_tpu_torch/kernels/csrc/"
@@ -2572,7 +2782,8 @@ def main() -> None:
             # Configs 1 and 2 (n = 3) have no wide QR and launch it 0 times.
             k["launches_config3_host"] = res3["launches_host"][name]
         own4, own5 = res4["launches"][name], res5["launches"][name]
-        k.update({"launches": own2 + own3 + own1 + own1_b1 + own4 + own5, "launches_config2": own2,
+        own_ill = ress["ill"]["launches"][name]
+        k.update({"launches": own2 + own3 + own1 + own1_b1 + own4 + own5 + own_ill, "launches_config2": own2,
                   "launches_config3": own3,
                   "launches_config1": own1, "launches_config1_host": res1["host"]["launches"][name],
                   "launches_config1_single_f32": own1_b1, "launches_config4": own4,
@@ -2591,7 +2802,10 @@ def main() -> None:
                   # config 1 with the eager fallback refine's).
                   "captured_config2_fused": resf["captured"][name],
                   "launches_config2_fused": resf["executed"][name],
-                  "launches_config1_fused": res1["fused"]["launches"][name], **rec[name]})
+                  "launches_config1_fused": res1["fused"]["launches"][name],
+                  # Phase 10: ill_conditioned_family(64, n=100): the bulk with the
+                  # QR split polish.
+                  "launches_ill_conditioned": ress["ill"]["launches"][name], **rec[name]})
         if name in SMALL_KERNELS:
             # Phase 9: the bf16 instantiation's launches on each bf16 path's
             # cold run, its check against the bf16 plain version and its times.

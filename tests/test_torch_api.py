@@ -155,8 +155,13 @@ def test_float32_solve_keeps_float32():
 
 
 def test_verbose_keeps_raising():
-    with pytest.raises(NotImplementedError):
-        bt.solve(t_sr.make_problem(), t_sr.x0(device="cpu"), bt.SolverOptions(verbose=True))
+    # verbose=True is ported for eager loops (tests/test_torch_logging.py);
+    # a loop that cannot write on the host, here one run to all its trips,
+    # still refuses it.
+    from benlsip_tpu_torch import _loops
+
+    with pytest.raises(ValueError, match="verbose"), _loops.loop_mode("all_trips"):
+        bt.solve(t_sr.make_problem(), t_sr.x0(device="cpu"), bt.SolverOptions(verbose=True, max_outer_iter=2))
 
 
 def test_device_none_is_the_card_and_raises_without_one():

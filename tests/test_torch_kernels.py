@@ -11,12 +11,15 @@ version of the panel QR kernel (`blocked_qr_r`, 16 < N) is held against the
 JAX package's `ops/qr.qr_r` under jax.vmap, which takes XLA's Householder
 at those widths: RᵀR against SᵀS, and R against the sign-normalised JAX R
 at a tolerance that grows with κ(S).
-Inputs are float32 from a seeded numpy generator and go through both.
+Inputs are float32 from a numpy generator of each test's own, seeded from
+its node id (the `rng` fixture), and go through both.
 Tolerance 1e-5 (relative, atol 1e-5): both sides run the same algorithm in
 the same order, so they differ only by float32 rounding of the reductions.
 The kernels themselves compile and run only on the GPU; chip_smoke.py holds
 them against these plain versions there.
 """
+import zlib
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -35,18 +38,24 @@ from benlsip_tpu_torch.ops import project as tpr
 from benlsip_tpu_torch.ops import qr as tqr
 
 torch.set_num_threads(2)
-rng = np.random.default_rng(3)
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def spd_batch(B, M, dtype=np.float32):
+@pytest.fixture
+def rng(request):
+    """This test's own generator, seeded from its node id: its inputs do not
+    depend on the tests that ran before it in the same worker."""
+    return np.random.default_rng(zlib.crc32(request.node.nodeid.encode()))
+
+
+def spd_batch(rng, B, M, dtype=np.float32):
     A = rng.standard_normal((B, M, M)).astype(dtype)
     return A @ np.transpose(A, (0, 2, 1)) + M * np.eye(M, dtype=dtype)
 
 
 @pytest.mark.parametrize("M", [1, 2, 3, 5, 8])
-def test_cholesky_plain_matches_pallas(M):
-    K = spd_batch(200, M)
+def test_cholesky_plain_matches_pallas(M, rng):
+    K = spd_batch(rng, 200, M)
     L_pl = np.asarray(jk.batched_cholesky(jnp.asarray(K), interpret=True))
     L_t = tk.batched_cholesky(torch.from_numpy(K)).numpy()
     np.testing.assert_allclose(L_t, L_pl, **TOL)
@@ -54,8 +63,8 @@ def test_cholesky_plain_matches_pallas(M):
 
 
 @pytest.mark.parametrize("M", [1, 3, 6])
-def test_cho_solve_plain_matches_pallas(M):
-    K = spd_batch(130, M)
+def test_cho_solve_plain_matches_pallas(M, rng):
+    K = spd_batch(rng, 130, M)
     L = np.linalg.cholesky(K).astype(np.float32)
     b = rng.standard_normal((130, M)).astype(np.float32)
     x_pl = np.asarray(jk.batched_cho_solve(jnp.asarray(L), jnp.asarray(b), interpret=True))
@@ -63,11 +72,11 @@ def test_cho_solve_plain_matches_pallas(M):
     np.testing.assert_allclose(x_t, x_pl, rtol=1e-5, atol=1e-5 * np.abs(x_pl).max())
 
 
-def test_largest_factor_matches_lapack():
+def test_largest_factor_matches_lapack(rng):
     # M = 16, the kernels' upper bound, against LAPACK (the Pallas
     # interpreter takes ~20 s at this size).  Tolerance 2e-5: float32
     # rounding of an O(M) accumulation, different order from LAPACK's.
-    K = spd_batch(64, 16)
+    K = spd_batch(rng, 64, 16)
     L = tk.batched_cholesky(torch.from_numpy(K)).numpy()
     np.testing.assert_allclose(L, np.linalg.cholesky(K.astype(np.float64)), rtol=2e-5, atol=2e-5)
     b = rng.standard_normal((64, 16)).astype(np.float32)
@@ -77,7 +86,7 @@ def test_largest_factor_matches_lapack():
 
 
 @pytest.mark.parametrize("D,N", [(8, 3), (32, 3), (16, 8), (35, 3), (3, 1)])
-def test_thin_qr_plain_matches_pallas(D, N):
+def test_thin_qr_plain_matches_pallas(D, N, rng):
     A = rng.standard_normal((140, D, N)).astype(np.float32)
     Q_pl, R_pl = jk.batched_thin_qr(jnp.asarray(A), interpret=True)
     Q_t, R_t = tk.batched_thin_qr(torch.from_numpy(A))
@@ -87,10 +96,10 @@ def test_thin_qr_plain_matches_pallas(D, N):
     assert np.all(np.tril(R, -1) == 0) and np.all(np.diagonal(R, axis1=1, axis2=2) > 0)
 
 
-def test_non_spd_pivot_gives_nan_like_pallas():
+def test_non_spd_pivot_gives_nan_like_pallas(rng):
     # No clamping: a negative pivot is NaN in both; the earlier columns
     # stay finite.
-    K = spd_batch(4, 3)
+    K = spd_batch(rng, 4, 3)
     K[1, 2, 2] = -50.0
     L_pl = np.asarray(jk.batched_cholesky(jnp.asarray(K), interpret=True))
     L_t = tk.batched_cholesky(torch.from_numpy(K)).numpy()
@@ -99,7 +108,7 @@ def test_non_spd_pivot_gives_nan_like_pallas():
     assert np.isfinite(L_t[[0, 2, 3]]).all()
 
 
-def test_zero_column_qr_floors_at_tiny():
+def test_zero_column_qr_floors_at_tiny(rng):
     A = rng.standard_normal((5, 6, 2)).astype(np.float32)
     A[2, :, 1] = 0.0
     Q_pl, R_pl = jk.batched_thin_qr(jnp.asarray(A), interpret=True)
@@ -121,12 +130,12 @@ def test_empty_and_degenerate_batches():
     assert jk.batched_cholesky(jnp.zeros((0, 3, 3)), interpret=True).shape == (0, 3, 3)
 
 
-def test_dispatch_gate():
+def test_dispatch_gate(rng):
     # Eligible float32 and bf16 CPU tensors run the plain version (no
     # launch), f64 and M > 16 go to torch.linalg, and a tensor on a device
     # that is neither cpu nor cuda is refused by the wrappers.
     tk.reset_launches()
-    K32 = torch.from_numpy(spd_batch(7, 3))
+    K32 = torch.from_numpy(spd_batch(rng, 7, 3))
     np.testing.assert_allclose(
         tchol.cholesky(K32).numpy(), tk.batched_cholesky_plain(K32).numpy(), rtol=0, atol=0
     )
@@ -134,7 +143,7 @@ def test_dispatch_gate():
     np.testing.assert_allclose(
         tchol.cholesky(K64).numpy(), np.linalg.cholesky(K64.numpy()), rtol=1e-12
     )
-    K20 = torch.from_numpy(spd_batch(2, 20))
+    K20 = torch.from_numpy(spd_batch(rng, 2, 20))
     np.testing.assert_allclose(
         tchol.cholesky(K20).numpy(), np.linalg.cholesky(K20.numpy()), rtol=1e-4, atol=1e-5
     )
@@ -181,7 +190,7 @@ FUSED_CASES = [(1, 3), (1, 192), (3, 37), (3, 192), (6, 37), (6, 192), (16, 37),
 FUSED_B = 6
 
 
-def fused_inputs(m, n, shared):
+def fused_inputs(rng, m, n, shared):
     """A (shared: one (m, n) matrix for the batch), a mask that keeps the
     first min(n - 1, 4m) columns free (a well-conditioned A Z Aᵀ, so that
     float32 summation order is all that differs), r, and two degenerate
@@ -219,10 +228,10 @@ def assert_same_nan_close(got, want, scale):
 @pytest.mark.parametrize("reg", [0.0, 1e-3])
 @pytest.mark.parametrize("shared", [False, True], ids=["per_instance", "shared"])
 @pytest.mark.parametrize("m,n", FUSED_CASES)
-def test_masked_aat_cholesky_plain_matches_jax(m, n, shared, reg):
+def test_masked_aat_cholesky_plain_matches_jax(m, n, shared, reg, rng):
     # Tolerance: rtol 1e-5 with atol 1e-5·max|L| — float32, the Gram sums
     # are taken in another order on the two sides.
-    A, fixed, _ = fused_inputs(m, n, shared)
+    A, fixed, _ = fused_inputs(rng, m, n, shared)
     free = ~fixed
     At = torch_A(A, shared)
     L_t = tk.masked_aat_cholesky(At, torch.from_numpy(fixed), reg).numpy()
@@ -253,10 +262,10 @@ def test_masked_aat_cholesky_plain_matches_jax(m, n, shared, reg):
 
 @pytest.mark.parametrize("shared", [False, True], ids=["per_instance", "shared"])
 @pytest.mark.parametrize("m,n", FUSED_CASES)
-def test_project_tangent_plain_matches_jax(m, n, shared):
+def test_project_tangent_plain_matches_jax(m, n, shared, rng):
     # Both sides get the same factor L; tolerance rtol 1e-5 with atol
     # 1e-5·max|r| (float32, dot products summed in another order).
-    A, fixed, r = fused_inputs(m, n, shared)
+    A, fixed, r = fused_inputs(rng, m, n, shared)
     At = torch_A(A, shared)
     L = tk.masked_aat_cholesky(At, torch.from_numpy(fixed))
     P_t = tk.project_tangent(At, L, torch.from_numpy(fixed), torch.from_numpy(r)).numpy()
@@ -293,12 +302,12 @@ def test_project_tangent_plain_matches_jax(m, n, shared):
         np.testing.assert_allclose(P_t[ok], np.where(free[ok], sigma, 0), rtol=1e-5, atol=1e-5 * scale)
 
 
-def test_fused_dispatch_gate():
+def test_fused_dispatch_gate(rng):
     # CPU float32 -> the plain versions (no launch); float64 and m > 16 ->
     # the composition on torch.linalg; m = 0 -> no factor; a stride-0 A is
     # accepted as it is.
     tk.reset_launches()
-    A, fixed, r = fused_inputs(3, 37, shared=True)
+    A, fixed, r = fused_inputs(rng, 3, 37, shared=True)
     A_sh = torch_A(A, shared=True)
     fx, rt = torch.from_numpy(fixed)[:4], torch.from_numpy(r)[:4]
     A_sh, A_pi = A_sh[:4], torch.from_numpy(A.copy())[:4]
@@ -356,7 +365,7 @@ def test_fused_dispatch_gate():
     }
 
 
-def test_coupled_binding_uses_one_factor_and_one_projection(monkeypatch):
+def test_coupled_binding_uses_one_factor_and_one_projection(monkeypatch, rng):
     # `binding_bounds_coupled` goes through the two fused wrappers once per
     # pass (one launch each on the card) and gives the JAX answer.
     calls = {"factor": 0, "project": 0}
@@ -427,7 +436,7 @@ def assert_r_factor(R, S, kappa=None):
 
 @pytest.mark.parametrize("D", ["N", "3N", 1216])
 @pytest.mark.parametrize("N", [17, 40, 96, 192])
-def test_blocked_qr_r_plain_matches_jax(N, D):
+def test_blocked_qr_r_plain_matches_jax(N, D, rng):
     # N = 17 is one ragged panel, 40 and 96 a full panel and a ragged or full
     # last one, 192 six panels; D = N is square (κ up to ~1e3 for a Gaussian
     # matrix), D = 1216 the polish's row count on config 3.
@@ -441,7 +450,7 @@ def test_blocked_qr_r_plain_matches_jax(N, D):
     np.testing.assert_array_equal(tqr.qr_r(torch.from_numpy(S)).numpy(), R)
 
 
-def polish_stack(B, d, n, reg):
+def polish_stack(rng, B, d, n, reg):
     """[JZ; D] as the polish's factor step builds it: zero columns where a
     bound is fixed over diag(fixed ? 1 : sqrt(reg))."""
     fixed = rng.random((B, n)) < 0.2
@@ -451,33 +460,61 @@ def polish_stack(B, d, n, reg):
 
 
 @pytest.mark.parametrize("reg", [0.0, 1e-8])
-def test_blocked_qr_r_plain_polish_shaped(reg):
+def test_blocked_qr_r_plain_polish_shaped(reg, rng):
     # Column count 70: two full panels and a ragged one; d + n = 230 rows.
-    S = polish_stack(4, 160, 70, reg)
+    S = polish_stack(rng, 4, 160, 70, reg)
     assert_r_factor(tk.blocked_qr_r(torch.from_numpy(S)).numpy(), S)
 
 
-@pytest.mark.parametrize("kappa", [1e2, 1e4])
-def test_blocked_qr_r_plain_ill_conditioned(kappa):
-    # Singular values spaced geometrically from 1 to 1/κ.  Besides the
-    # forward tolerance (4·eps·κ·max|R|), the factor must be good for the
-    # chord iteration: ‖R⁻ᵀ(SᵀS − RᵀR)R⁻¹‖₂ ≤ 8·κ·eps, the contraction a
-    # backward-stable R gives; a Cholesky factor of SᵀS gives κ²·eps, no
-    # contraction at all at κ = 1e4 in float32.
-    B, D, N = 3, 300, 70
+def conditioned(rng, B, D, N, kappa):
+    """(B, D, N) float32 with singular values spaced geometrically from 1 to 1/κ."""
     U = np.linalg.qr(rng.standard_normal((B, D, N)))[0]
     V = np.linalg.qr(rng.standard_normal((B, N, N)))[0]
-    S = ((U * np.logspace(0.0, -np.log10(kappa), N)) @ np.transpose(V, (0, 2, 1))).astype(np.float32)
-    R = tk.blocked_qr_r(torch.from_numpy(S)).numpy()
-    assert_r_factor(R, S, kappa=kappa)
+    return ((U * np.logspace(0.0, -np.log10(kappa), N)) @ np.transpose(V, (0, 2, 1))).astype(np.float32)
+
+
+def chord_contraction(S, R):
+    """max over the batch of ‖R⁻ᵀ(SᵀS − RᵀR)R⁻¹‖₂ (in float64): the
+    contraction of the polish's chord step built on R."""
     Sd, Rd = S.astype(np.float64), R.astype(np.float64)
     E = np.einsum("bdi,bdj->bij", Sd, Sd) - np.einsum("bki,bkj->bij", Rd, Rd)
     Rinv = np.linalg.inv(Rd)
-    contraction = np.linalg.norm(np.transpose(Rinv, (0, 2, 1)) @ E @ Rinv, 2, axis=(1, 2)).max()
+    return np.linalg.norm(np.transpose(Rinv, (0, 2, 1)) @ E @ Rinv, 2, axis=(1, 2)).max()
+
+
+@pytest.mark.parametrize("kappa", [1e2, 1e4])
+def test_blocked_qr_r_plain_ill_conditioned(kappa, rng):
+    # Besides the forward tolerance (4·eps·κ·max|R|), the factor must be
+    # good for the chord iteration: ‖R⁻ᵀ(SᵀS − RᵀR)R⁻¹‖₂ ≤ 8·κ·eps, the
+    # contraction a backward-stable R gives; a Cholesky factor of SᵀS gives
+    # κ²·eps, no contraction at all at κ = 1e4 in float32.
+    S = conditioned(rng, 3, 300, 70, kappa)
+    R = tk.blocked_qr_r(torch.from_numpy(S)).numpy()
+    assert_r_factor(R, S, kappa=kappa)
+    contraction = chord_contraction(S, R)
     assert contraction <= 8 * kappa * EPS32, contraction
 
 
-def test_blocked_qr_r_plain_zero_column_and_nan_lane():
+@pytest.mark.parametrize("kappa", [1e4, 1e5])
+@pytest.mark.parametrize("N", [36, 40, 48, 70])
+def test_blocked_qr_r_plain_ragged_panel_matches_householder(N, kappa, rng):
+    # N not a multiple of the 32-column panel: the last panel holds 4, 8,
+    # 16 or 6 columns.  With one projection pass against the finished
+    # panels the contraction reached 1e2·κ·eps here (the finished Q panels
+    # are orthonormal only to κ·eps); with the second pass it stays under
+    # 2·κ·eps, a bound the JAX package's Householder R meets with room to
+    # spare (checked on the same S).  R against the JAX R under
+    # assert_r_factor's tolerance, 4·eps·(√D + κ)·max|R|.
+    S = conditioned(rng, 4, 300, N, kappa)
+    R = tk.blocked_qr_r(torch.from_numpy(S)).numpy()
+    assert_r_factor(R, S, kappa=kappa)
+    contraction = chord_contraction(S, R)
+    assert contraction <= 2 * kappa * EPS32, contraction / (kappa * EPS32)
+    householder = chord_contraction(S, jax_r(S))
+    assert householder <= 2 * kappa * EPS32, householder / (kappa * EPS32)
+
+
+def test_blocked_qr_r_plain_zero_column_and_nan_lane(rng):
     # A zero column is floored at sqrt(tiny) on the diagonal (the narrow
     # kernel's floor) with zeros beside it; a NaN stays in its own instance.
     S = rng.standard_normal((4, 90, 40)).astype(np.float32)
@@ -510,7 +547,7 @@ QR_ROUTES = [
 
 
 @pytest.mark.parametrize("shape,dtype,route", QR_ROUTES, ids=lambda v: str(v).replace("torch.", ""))
-def test_qr_r_gate(shape, dtype, route, monkeypatch):
+def test_qr_r_gate(shape, dtype, route, monkeypatch, rng):
     # Which wrapper `qr_r` hands a CPU tensor to: the narrow kernel's at
     # N ≤ 16, the panel kernel's at 16 < N ≤ 256 and a batch of 4 or more,
     # both float32 with N ≤ D ≤ 2048; torch.linalg.qr otherwise.  `thin_qr`

@@ -39,6 +39,7 @@ PORT_MODULES = [
     "benlsip_tpu_torch.ops.al",
     "benlsip_tpu_torch.ops.cholesky",
     "benlsip_tpu_torch.ops.constraints",
+    "benlsip_tpu_torch.ops.native_qp",
     "benlsip_tpu_torch.ops.polyproject",
     "benlsip_tpu_torch.ops.project",
     "benlsip_tpu_torch.ops.qr",
@@ -58,6 +59,7 @@ PORT_MODULES = [
     "benlsip_tpu_torch.batch.fused_small",
     "benlsip_tpu_torch.batch.compact",
     "benlsip_tpu_torch.batch.buckets",
+    "benlsip_tpu_torch.harness.logging",
     "benlsip_tpu_torch.harness.metrics",
     "benlsip_tpu_torch.harness.checkpoint",
     "benlsip_tpu_torch.harness.sweep",
@@ -71,9 +73,8 @@ PORT_MODULES = [
     "benlsip_tpu_torch.problems.rosenbrock",
     "benlsip_tpu_torch.problems.sphere_regression",
 ]
-# The JAX package's `__all__` less what the port's `ops/al` does not have
-# (ROADMAP.md lists those two).
-NOT_PORTED_NAMES = {"first_derivatives", "second_derivatives"}
+# The JAX package's `__all__` less what the port does not have: nothing.
+NOT_PORTED_NAMES = set()
 
 
 def test_port_never_imports_jax():
@@ -220,8 +221,13 @@ def test_options_match_jax_field_by_field():
     {"verbose": True}, {"verbose": 1},
 ])
 def test_unported_option_raises(knob):
-    with pytest.raises(NotImplementedError):
-        SolverOptions(**knob)
+    # verbose is ported for eager loops; the fused route runs its loops as
+    # CUDA-graph WHILE nodes, which cannot write on the host, so it refuses
+    # the option up front (on the CPU too) instead of dropping the rows.
+    opts = SolverOptions(**knob)
+    bp, th, X0 = exp_fit_family(2, d=8, seed=0, device="cpu")
+    with pytest.raises(ValueError):
+        solve_mixed_precision(bp, th, X0, opts, fuse=True)
 
 
 @pytest.mark.parametrize("knob", [
