@@ -28,10 +28,16 @@ a loop in one of three modes, which the caller chooses with `loop_mode`:
 its predicate caps), so no mode can change an answer; eager mode runs
 unbounded, as the JAX `lax.while_loop` does, so `CAP_OVERRUNS` shows a cap
 set too small.  Data-dependent branches outside loops go through
-`any_lane`.
+`any_lane` (unconditional outside eager mode, results selected per lane)
+or, where the branch is costly enough that a graph should skip it when no
+lane takes it, through `if_any` / `branch_any`: in capture mode the body
+goes into a conditional IF node that the device runs only when a lane
+takes the branch.
 
-Under `log_loops()` each loop captured records a `LoopRecord` of what one
-trip runs, and adds the trips it runs in a replay to a device counter.
+Under `log_loops()` each loop or branch captured records a `LoopRecord` of
+what one trip (one taken branch) runs, and adds the trips it runs in a
+replay (1 for a taken branch) to a device counter.  `note` counts an event
+of the host's choosing (an operator build) in the capture the same way.
 """
 from __future__ import annotations
 
@@ -58,18 +64,23 @@ _mode = "eager"
 # stream a body is captured on and the private memory pool it allocates from.
 _depth = 0
 _BODIES: dict = {}
+# Events counted by `note` in captures, by key, since the process began.
+NOTED: collections.Counter = collections.Counter()
 
 
 class LoopRecord(NamedTuple):
-    """A loop captured as a WHILE node.  To its entry of the `counters`
-    given to `log_loops` every run of the loop in a replay adds its trips.
-    What one trip runs, the loops nested in it apart: `launches`, the
-    kernel wrappers' launches by name, and `body`, its body graph (a
-    cudaGraph_t, whose nodes `kernels.batched_linalg.graph_nodes` counts
-    once the capture ends)."""
+    """A loop captured as a WHILE node (`kind` "while") or a branch as an
+    IF node ("if").  To its entry of the `counters` given to `log_loops`
+    every run of the loop in a replay adds its trips, and every run of the
+    branch 1 if it was taken.  What one trip or taken branch runs, the
+    nodes nested in it apart: `launches`, the kernel wrappers' launches by
+    name and the events `note`d, and `body`, its body graph (a cudaGraph_t,
+    whose nodes `kernels.batched_linalg.graph_nodes` counts once the
+    capture ends)."""
 
     launches: dict
     body: int
+    kind: str = "while"
 
 
 # The records of the capture under `log_loops()` and its trip counters, and
@@ -90,6 +101,10 @@ def loop_mode(mode: str):
         yield
     finally:
         _mode = prev
+
+
+def current_mode() -> str:
+    return _mode
 
 
 def reset_host_syncs() -> None:
@@ -136,12 +151,33 @@ def host_rows(run: Tensor, *columns: Tensor) -> list:
     return [row[1:] for row in table.cpu().tolist() if row[0]]
 
 
+def note(key) -> None:
+    """Count one event `key` (an operator build) in the capture under way,
+    where the graphs' owner multiplies it by the runs of the part of the
+    graph it lies in, as it does launches; outside capture mode nothing."""
+    if _mode == "capture":
+        NOTED[key] += 1
+
+
+def captured_counts(since: Optional[collections.Counter] = None) -> collections.Counter:
+    """The kernel launches captured and the events noted so far, by name
+    and key; with `since`, an earlier reading, what was captured after it."""
+    from .kernels import batched_linalg as kern
+
+    counts = collections.Counter(kern.CAPTURED) + NOTED
+    if since is not None:
+        counts.subtract(since)
+        counts = +counts
+    return counts
+
+
 @contextlib.contextmanager
 def log_loops(counters: Tensor):
-    """Record the loops captured in the enclosed capture: yields the list
-    of their `LoopRecord`s (innermost first; the i-th adds its trips to
-    `counters[i]`, an int64 device tensor allocated before the capture) and
-    a Counter of the launches captured inside any of them."""
+    """Record the loops and branches captured in the enclosed capture:
+    yields the list of their `LoopRecord`s (innermost first; the i-th adds
+    its trips or taken branches to `counters[i]`, an int64 device tensor
+    allocated before the capture) and a Counter of the launches and events
+    captured inside any of them."""
     global _log, _counters
     prev = _log, _counters
     _log, _counters = [], counters
@@ -160,13 +196,62 @@ def any_lane(mask: Tensor) -> bool:
     return _mode != "eager" or host_any(mask)
 
 
+@contextlib.contextmanager
+def if_any(mask: Tensor):
+    """Guard the enclosed branch, taken for the lanes of `mask`: yields
+    whether its body must run (`with if_any(m) as taken: if taken: ...`).
+
+    * eager: `host_any(mask)`, one counted sync;
+    * capture: True, and the body is captured into a conditional IF node
+      that the device runs only when `mask.any()`; the body must write its
+      results with `copy_` into buffers made before the node (`branch_any`
+      does), since a branch not taken writes nothing.  On its depth's stream
+      and pool, as a WHILE body (`_conditional_node`);
+    * "all_trips": True, the body runs unconditionally.
+
+    The caller selects the branch's results per lane, so the answer is the
+    same in every mode."""
+    if _mode == "eager":
+        yield host_any(mask)
+        return
+    if _mode == "all_trips":
+        yield True
+        return
+    _require_capture(mask)
+    taken = mask.any()
+    before = captured_counts()
+    _nested.append(collections.Counter())
+    try:
+        with _conditional_node("if", lambda: taken, mask.device) as graph:
+            yield True
+    finally:
+        nested = _nested.pop()
+    _record("if", graph, before, nested, taken)
+
+
+def branch_any(mask: Tensor, branch: Callable[[], C], otherwise: C) -> C:
+    """`branch()` when a lane of `mask` takes it, else `otherwise`: the
+    carry of a branch under `if_any`.  `branch()` selects its results per
+    lane against `otherwise` (same structure).  Under capture the results
+    are copied into buffers cloned from `otherwise` before the IF node, so
+    a replay that skips the branch leaves them equal to `otherwise`."""
+    out = clone(otherwise) if _mode == "capture" else otherwise
+    with if_any(mask) as taken:
+        if taken:
+            new = branch()
+            out = copy_into(out, new) if _mode == "capture" else new
+    return out
+
+
 def _map(fn, *trees):
-    """fn over the tensors of NamedTuple carries (nested; None stays None)."""
+    """fn over the tensors of NamedTuple or tuple carries (nested; None
+    stays None)."""
     first = trees[0]
     if first is None:
         return None
     if isinstance(first, tuple):
-        return type(first)(*[_map(fn, *fields) for fields in zip(*trees)])
+        fields = [_map(fn, *f) for f in zip(*trees)]
+        return type(first)(*fields) if hasattr(first, "_fields") else tuple(fields)
     return fn(*trees)
 
 
@@ -181,11 +266,12 @@ def clone(carry: C) -> C:
 
 
 @contextlib.contextmanager
-def _while_node(more: Callable[[], Tensor], device: torch.device):
-    """Capture the enclosed work (one trip) into the body of a WHILE node
-    that repeats it while the 0-dim bool `more()` holds, tested before the
-    first trip and after each (`kernels/csrc/graph_conditional.cu`; torch
-    2.11 has no conditional nodes of its own).  The body runs on its
+def _conditional_node(kind: str, more: Callable[[], Tensor], device: torch.device):
+    """Capture the enclosed work into the body of a conditional node:
+    "while" repeats it (one trip) while the 0-dim bool `more()` holds,
+    tested before the first trip and after each; "if" runs it once if
+    `more()` holds before the node (`kernels/csrc/graph_conditional.cu`;
+    torch 2.11 has no conditional nodes of its own).  The body runs on its
     depth's stream; its allocations go to its depth's pool, not the
     graph's, since the caching allocator routes a capture's pool by the
     capturing stream, and ending a route ends the first one of its pool.
@@ -198,19 +284,42 @@ def _while_node(more: Callable[[], Tensor], device: torch.device):
     if (dev, _depth) not in _BODIES:
         _BODIES[dev, _depth] = (torch.cuda.Stream(device=dev), torch.cuda.graph_pool_handle())
     body, pool = _BODIES[dev, _depth]
-    handle, graph = kern.while_begin(more(), torch.cuda.current_stream(dev), body)
+    handle, graph = kern.conditional_begin(kind, more(), torch.cuda.current_stream(dev), body)
     _depth += 1
     try:
         with torch.cuda.stream(body):
             torch._C._cuda_beginAllocateCurrentStreamToPool(dev, pool)
             try:
                 yield graph
-                kern.while_set(handle, more(), body)
+                if kind == "while":
+                    kern.while_set(handle, more(), body)
             finally:
                 torch._C._cuda_endAllocateToPool(dev, pool)
     finally:
         _depth -= 1
-        kern.while_end(body)
+        kern.body_end(body)
+
+
+def _require_capture(t: Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"capture mode runs on CUDA tensors only, got {t.device}")
+    if not torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("capture mode outside a CUDA graph capture")
+
+
+def _record(kind: str, graph: int, before: collections.Counter, nested: collections.Counter, runs: Tensor) -> None:
+    """Under `log_loops()`, the `LoopRecord` of a node just captured: what
+    its body captured (`captured_counts()` against `before`), less the
+    nodes nested in it, and `runs` (its trips, or 1 if the branch was taken)
+    added to its counter."""
+    if _log is None:
+        return
+    if len(_log) == _counters.numel():
+        raise RuntimeError(f"more than {_counters.numel()} loops and branches captured in one graph")
+    launches = captured_counts(since=before)
+    _nested[-1].update(launches)
+    _counters[len(_log)].add_(runs)
+    _log.append(LoopRecord(dict(launches - nested), graph, kind))
 
 
 def masked_while(cond: Callable[[C], Tensor], body: Callable[[C, Tensor], C], carry: C, run: Tensor,
@@ -239,28 +348,17 @@ def masked_while(cond: Callable[[C], Tensor], body: Callable[[C, Tensor], C], ca
             run = run & cond(carry)
         return carry
 
-    if run.device.type != "cuda":
-        raise ValueError(f"capture mode runs on CUDA tensors only, got {run.device}")
-    if not torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("capture mode outside a CUDA graph capture")
-    from .kernels import batched_linalg as kern
-
+    _require_capture(run)
     carry, run = clone(carry), run.clone()
     trips = torch.zeros((), dtype=torch.int32, device=run.device)
-    before = dict(kern.CAPTURED)
+    before = captured_counts()
     _nested.append(collections.Counter())
     try:
-        with _while_node(lambda: run.any() & (trips < trip_cap), run.device) as graph:
+        with _conditional_node("while", lambda: run.any() & (trips < trip_cap), run.device) as graph:
             copy_into(carry, sel_tuple(run, body(carry, run), carry))
             run.copy_(run & cond(carry))
             trips.add_(1)
     finally:
         nested = _nested.pop()
-    if _log is not None:
-        if len(_log) == _counters.numel():
-            raise RuntimeError(f"more than {_counters.numel()} loops captured in one graph")
-        launches = collections.Counter({k: v - before[k] for k, v in kern.CAPTURED.items()})
-        _nested[-1].update(launches)
-        _counters[len(_log)].add_(trips)
-        _log.append(LoopRecord(dict(launches - nested), graph))
+    _record("while", graph, before, nested, trips)
     return carry

@@ -22,9 +22,16 @@ is certified.  Lanes the certification leaves
 uncertified go to the shared `fallback_full_refine`, outside any graph,
 as the JAX fallback stays outside its program.
 
+A bulk that materializes the Gauss-Newton operator (config 3's
+CholeskyQR2, n ≥ 64 with a tall Jacobian) captures its builds too: the
+rebuild on acceptance and the explicit rescue pass of `ops/qr` sit behind
+conditional IF nodes (`_loops.branch_any`), so a replay runs them only
+when a lane needs them, and the Cholesky shift rescue selects per lane.
+
 `replay_counts()` says what the replays ran: each WHILE body's captured
-kernel launches and device operations times the trips its loop ran (a
-device counter per loop), plus each graph's top level once a replay.
+kernel launches and device operations times the trips its loop ran, each
+IF body's times the replays that took it (a device counter per node),
+plus each graph's top level once a replay.
 
 On a CPU tensor the same stages run as plain calls in the current loop
 mode: "eager" by default, "all_trips" to compute what the graphs compute
@@ -44,7 +51,6 @@ from .._batched import tree_map
 from ..kernels import batched_linalg as kern
 from ..solver.options import SolverOptions
 from ..solver.outer import SolveInfo, default_atol, outer_done, outer_init, outer_loop
-from ..solver.subproblem import resolve_operator_route
 from .polish import FusedPolish, PolishState, finish_polish
 from .vmap_solve import BatchedProblem, map_poly_fields
 
@@ -101,9 +107,12 @@ class _Stage:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.replays = 0
         # Per part of the graph — the top level, run once a replay, then
-        # each captured loop — the launches by name, kernel nodes and copy
-        # nodes of one run or trip; the loops' trip counters.
+        # each captured loop or branch — the launches by name (and the
+        # events noted), kernel nodes and copy nodes of one run or trip;
+        # the kind of each loop or branch ("while", "if") and its counter of
+        # trips or taken branches.
         self.parts: list = []
+        self.kinds: list = []
         self.trips: Optional[Tensor] = None
 
     def __call__(self) -> None:
@@ -115,7 +124,7 @@ class _Stage:
 
     def capture(self, pool, stream: torch.cuda.Stream) -> None:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = dict(kern.CAPTURED)
+        before = _loops.captured_counts()
         counters = torch.zeros(_MAX_LOOPS, dtype=torch.int64, device=stream.device)
         t0 = time.perf_counter()
         with _loops.log_loops(counters) as (loops, nested), _loops.loop_mode("capture"), \
@@ -124,11 +133,13 @@ class _Stage:
         t1 = time.perf_counter()
         graph.instantiate()
         torch.cuda.synchronize()
-        captured = collections.Counter({k: v - before[k] for k, v in kern.CAPTURED.items()})
+        captured = _loops.captured_counts(since=before)
         self.parts = [(dict(captured - nested), *kern.graph_nodes(graph.raw_cuda_graph()))]
         self.parts += [(r.launches, *kern.graph_nodes(r.body)) for r in loops]
+        self.kinds = [r.kind for r in loops]
         GRAPH_STATS.append({"stage": self.name, "capture_s": t1 - t0, "instantiate_s": time.perf_counter() - t1,
-                            "captured_launches": dict(+captured), "loops": len(loops),
+                            "captured_launches": {k: v for k, v in captured.items() if k in kern.LAUNCHES},
+                            "loops": self.kinds.count("while"), "branches": self.kinds.count("if"),
                             "kernel_nodes": sum(p[1] for p in self.parts)})
         self.graph, self.trips = graph, counters[:len(loops)]
         self.reset_counts()
@@ -137,15 +148,17 @@ class _Stage:
         self.replays = 0
         self.trips.zero_()
 
-    def counts(self) -> Tuple[collections.Counter, int, int]:
-        """Kernel launches by name, device kernels and device copies that
-        the replays since the last `reset_counts()` ran (one sync)."""
+    def counts(self) -> Tuple[collections.Counter, int, int, dict]:
+        """Kernel launches by name (and events noted), device kernels and
+        device copies that the replays since the last `reset_counts()` ran,
+        and the WHILE trips and taken IF branches by kind (one sync)."""
         runs = [self.replays] + self.trips.tolist()
         launches, kernels, copies = collections.Counter(), 0, 0
         for (per_run, k, c), n in zip(self.parts, runs):
             launches.update({name: v * n for name, v in per_run.items()})
             kernels, copies = kernels + k * n, copies + c * n
-        return launches, kernels, copies
+        by_kind = {kind: sum(n for kd, n in zip(self.kinds, runs[1:]) if kd == kind) for kind in ("while", "if")}
+        return launches, kernels, copies, by_kind
 
 
 class _ChunkBulk:
@@ -268,16 +281,24 @@ def reset_replay_counts() -> None:
 def replay_counts() -> dict:
     """What the graph replays of the cached pipelines ran since the last
     `reset_replay_counts()` (exactly: a WHILE body's counts times the trips
-    its loop ran): {"launches": kernel launches of the port's wrappers by
-    name, "device_kernels", "device_copies", "replays", "loop_trips": the
-    trips of every WHILE node}.  Syncs."""
-    launches, kernels, copies, replays, trips = collections.Counter(dict.fromkeys(kern.LAUNCHES, 0)), 0, 0, 0, 0
+    its loop ran, an IF body's times the replays that took it):
+    {"launches": kernel launches of the port's wrappers by name,
+    "device_kernels", "device_copies", "replays", "loop_trips": the trips
+    of every WHILE node, "branches_taken": the taken IF nodes,
+    "operator_builds": the materialized-operator builds by
+    (factorization, dtype name), the replays' count of what
+    `solver/subproblem.OPERATOR_BUILDS` counts in eager mode}.  Syncs."""
+    launches, kernels, copies, replays = collections.Counter(dict.fromkeys(kern.LAUNCHES, 0)), 0, 0, 0
+    kinds = collections.Counter()
     for st in _captured_stages():
-        l, k, c = st.counts()
+        l, k, c, by_kind = st.counts()
         launches.update(l)
-        kernels, copies, replays, trips = kernels + k, copies + c, replays + st.replays, trips + int(st.trips.sum())
-    return {"launches": dict(launches), "device_kernels": kernels, "device_copies": copies, "replays": replays,
-            "loop_trips": trips}
+        kinds.update(by_kind)
+        kernels, copies, replays = kernels + k, copies + c, replays + st.replays
+    builds = {key[1:]: v for key, v in launches.items() if isinstance(key, tuple) and key[0] == "operator_build" and v}
+    return {"launches": {k: launches[k] for k in kern.LAUNCHES}, "device_kernels": kernels, "device_copies": copies,
+            "replays": replays, "loop_trips": kinds["while"], "branches_taken": kinds["if"],
+            "operator_builds": builds}
 
 
 def _pipeline(key, make) -> _Pipeline:
@@ -319,9 +340,10 @@ def solve_small_fused(
     so another value raises `NotImplementedError`.  On a CUDA card the
     stages run as graph replays, on the CPU as plain calls in the current
     loop mode.  A bulk that materializes an (n, n) operator (n ≥ 64 with a
-    tall Jacobian, `resolve_operator_route`) is not ported to graphs and
-    raises.  So does `options.verbose` (`ValueError`, on either device):
-    a WHILE node's body cannot write the log's rows on the host.
+    tall Jacobian, `solver/subproblem.resolve_operator_route`) builds it
+    inside the bulk's graph, its rebuilds and rescues behind IF nodes.
+    `options.verbose` raises (`ValueError`, on either device): a WHILE
+    node's body cannot write the log's rows on the host.
     """
     from .refine import _cast_problem, _cast_tree, true_f32_matmuls
 
@@ -338,14 +360,6 @@ def solve_small_fused(
         crit_tol=bulk_crit_tol,
         max_inner_iter=options.max_inner_iter if bulk_max_inner is None else min(bulk_max_inner, options.max_inner_iter),
     )
-    fns = bp.instance_fns(tree_map(lambda a: a[:1], theta))
-    x1 = X0[:1].to(torch.float32)
-    d_plus_p = fns.residuals(x1).shape[-1] + fns.nlconstraints(x1).shape[-1]
-    if resolve_operator_route(bulk_opts, n, d_plus_p, torch.float32)[0]:
-        raise NotImplementedError(
-            f"solve_small_fused: n={n} with {d_plus_p} residual rows materializes the Gauss-Newton operator, "
-            "whose CholeskyQR2 rescue decides on the host; use fuse=False")
-
     true_f32_matmuls()
     chunk = max(min(chunk, B), 1)
     polish_kw = (("options", options), ("num_steps", polish_steps), ("active_tol", active_tol), ("reg", 0.0),

@@ -24,8 +24,12 @@ with the same per-instance results: converged-instance compaction
 (`pipeline_overlap`: a worker thread certifies chunk i while the main
 thread drives chunk i+1's bulk).  `fuse=True` with the polish and the
 device certification runs `batch/fused_small.solve_small_fused`
-(CUDA-graph replays on the card).  Every "auto" resolves to the plain
-path until a measurement on the card says otherwise.  The routes exclude
+(CUDA-graph replays on the card), on every input the plain path takes: a
+bulk that materializes the CholeskyQR2 operator (n ≥ 64 with a tall
+Jacobian, config 3) captures its builds behind conditional IF nodes.
+Every "auto" resolves to the plain path until a measurement on the card
+says otherwise (`fuse="auto"` too: the JAX `_resolve_fuse` thresholds are
+TPU-relay measurements).  The routes exclude
 each other: the JAX pipeline runs one and silently ignores the others,
 where the port raises `ValueError`.
 

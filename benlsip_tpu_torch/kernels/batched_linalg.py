@@ -228,12 +228,12 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     lib.benlsip_error_string.argtypes = [ctypes.c_int]
     lib.benlsip_error_string.restype = ctypes.c_char_p
-    # The conditional WHILE nodes of graph capture (`csrc/graph_conditional.cu`).
-    lib.benlsip_while_begin.argtypes = [_PTR, _PTR, _PTR, ctypes.POINTER(ctypes.c_ulonglong),
-                                        ctypes.POINTER(ctypes.c_void_p)]
+    # The conditional WHILE and IF nodes of graph capture (`csrc/graph_conditional.cu`).
+    for fn in (lib.benlsip_while_begin, lib.benlsip_if_begin):
+        fn.argtypes = [_PTR, _PTR, _PTR, ctypes.POINTER(ctypes.c_ulonglong), ctypes.POINTER(ctypes.c_void_p)]
     lib.benlsip_while_set.argtypes = [ctypes.c_ulonglong, _PTR, _PTR]
-    lib.benlsip_while_end.argtypes = [_PTR]
-    for fn in (lib.benlsip_while_begin, lib.benlsip_while_set, lib.benlsip_while_end):
+    lib.benlsip_body_end.argtypes = [_PTR]
+    for fn in (lib.benlsip_while_begin, lib.benlsip_if_begin, lib.benlsip_while_set, lib.benlsip_body_end):
         fn.restype = ctypes.c_int
     return lib
 
@@ -243,14 +243,17 @@ def _check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: {load_library().benlsip_error_string(rc).decode()} (cudaError {rc})")
 
 
-def while_begin(pred: Tensor, parent: torch.cuda.Stream, body: torch.cuda.Stream) -> tuple:
-    """In the graph being captured on `parent`, add a WHILE node that runs
-    while its handle is set, set it from the bool `pred` (a 0-dim CUDA
-    tensor), and start capturing `body` into the node's body; returns the
-    handle and the body graph (a cudaGraph_t)."""
+def conditional_begin(kind: str, pred: Tensor, parent: torch.cuda.Stream, body: torch.cuda.Stream) -> tuple:
+    """In the graph being captured on `parent`, add a conditional node of
+    `kind` ("while": runs its body while its handle is set; "if": once if
+    it is set), set the handle from the bool `pred` (a 0-dim CUDA tensor),
+    and start capturing `body` into the node's body; returns the handle and
+    the body graph (a cudaGraph_t)."""
+    lib = load_library()
+    begin = {"while": lib.benlsip_while_begin, "if": lib.benlsip_if_begin}[kind]
     handle, graph = ctypes.c_ulonglong(), ctypes.c_void_p()
-    _check(load_library().benlsip_while_begin(pred.data_ptr(), parent.cuda_stream, body.cuda_stream,
-                                              ctypes.byref(handle), ctypes.byref(graph)), "while_begin")
+    _check(begin(pred.data_ptr(), parent.cuda_stream, body.cuda_stream, ctypes.byref(handle), ctypes.byref(graph)),
+           f"{kind}_begin")
     return handle.value, graph.value
 
 
@@ -259,9 +262,9 @@ def while_set(handle: int, pred: Tensor, stream: torch.cuda.Stream) -> None:
     _check(load_library().benlsip_while_set(handle, pred.data_ptr(), stream.cuda_stream), "while_set")
 
 
-def while_end(body: torch.cuda.Stream) -> None:
-    """End the capture of the WHILE node's body begun by `while_begin`."""
-    _check(load_library().benlsip_while_end(body.cuda_stream), "while_end")
+def body_end(body: torch.cuda.Stream) -> None:
+    """End the capture of a conditional node's body begun by `conditional_begin`."""
+    _check(load_library().benlsip_body_end(body.cuda_stream), "body_end")
 
 
 @functools.lru_cache(maxsize=None)
@@ -505,7 +508,8 @@ def batched_thin_qr(A: Tensor):
 
 
 # ---------------------------------------------------------------------------
-# R factor of wide matrices (left-looking block Gram–Schmidt, two passes)
+# R factor of wide matrices (left-looking block Gram–Schmidt, two passes,
+# each finished panel reorthogonalized by one CholeskyQR step)
 # ---------------------------------------------------------------------------
 
 
@@ -527,11 +531,15 @@ def blocked_qr_r_plain(S: Tensor) -> Tensor:
     """Plain PyTorch twin of the panel QR kernel, in the same panel order:
     each panel has the finished panels projected out one after another,
     twice (W = QⱼᵀP added into R, P −= QⱼW; the second pass takes out what
-    the first left, since the finished Q panels are orthonormal only to
-    κ·eps: block CGS2), then modified Gram–Schmidt inside the panel on
-    unnormalised columns (dots s with column c, R row s/√max(s_cc, tiny),
-    later columns −= column c · s/max(s_cc, tiny)), then the division by
-    the norms."""
+    the first left: block CGS2), then modified Gram–Schmidt inside the
+    panel on unnormalised columns (dots s with column c, R row
+    s/√max(s_cc, tiny), later columns −= column c · s/max(s_cc, tiny)),
+    then the division by the norms.  A panel whose Q the later panels
+    reuse is then reorthogonalized by one CholeskyQR step, since modified
+    Gram–Schmidt leaves it κ(panel)·eps off orthonormal and "twice is
+    enough" assumes it orthonormal: G = QᵀQ, R₂ = chol(G), Q ← QR₂⁻¹ and
+    the panel's diagonal block of R ← R₂R₁.  A panel whose G is not
+    positive definite (a zero or NaN column) keeps R₂ = I."""
     B, D, N = S.shape
     layout = qr_panel_layout(D, S.element_size())
     bw = layout[0] if layout else QR_PANEL_WIDTHS[-1]
@@ -555,7 +563,15 @@ def blocked_qr_r_plain(S: Tensor) -> Tensor:
             R[:, c0 + c, c0 + c] = nrm[:, c]
             P[:, :, c + 1:] -= P[:, :, c:c + 1] * (s[:, 1:] / ss[:, None]).unsqueeze(1)
         if c0 + bw < N:
-            finished.append((c0, P / nrm.unsqueeze(1)))
+            Q = P / nrm.unsqueeze(1)
+            L, info = torch.linalg.cholesky_ex(Q.mT @ Q)
+            ok = ((info == 0) & torch.isfinite(L).flatten(1).all(-1))[:, None, None]
+            eye = torch.eye(nc, dtype=S.dtype, device=S.device)
+            R2 = torch.where(ok, L.mT, eye)
+            R1 = R[:, c0:c0 + nc, c0:c0 + nc]
+            R[:, c0:c0 + nc, c0:c0 + nc] = torch.where(ok, R2 @ R1, R1)
+            R2inv = torch.linalg.solve_triangular(R2, eye.expand(B, nc, nc), upper=True)
+            finished.append((c0, torch.where(ok, Q @ R2inv, Q)))
     return R
 
 

@@ -25,8 +25,10 @@ sign-invariant combinations (RᵀR, Q·T).
 CholeskyQR2 (`cholqr2i_r`) builds the same R from the Gram matrix: its
 (n, n) Choleskys are at n ≥ 64 in the solver, where the JAX
 package goes to XLA, so they use `ops/cholesky.chol_linalg` (NaN on
-failure, never an exception), not the small-matrix kernel.  Inputs are
-batched (B, d, n).
+failure, never an exception), not the small-matrix kernel.  Its two
+rescues decide on the host in eager mode only; under CUDA-graph capture
+(`batch/fused_small`) they select per lane, the explicit pass behind an
+IF node.  Inputs are batched (B, d, n).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from .. import _loops
 from ..kernels import batched_linalg as kern
 from .cholesky import chol_linalg
 
@@ -86,11 +89,16 @@ def _rescued_chol_upper(G: Tensor) -> Tensor:
     a lane whose factor breaks down is refactored as G + σI with
     σ = 2 n eps tr(G).  The shift perturbs only the conditioning of the
     CholeskyQR2 transforms, never the final product R₂R₁ (see the JAX
-    function).  The shifted factor is computed only when a lane needs it."""
+    function).  In eager mode the host asks whether a lane needs the
+    shifted factor (one counted sync, `_loops.host_any`), and it is
+    computed only then; under CUDA-graph capture
+    and in "all_trips" (`_loops`) it is computed for every lane and selected
+    per lane (one more batched Cholesky, no host decision): the same bits
+    in every lane, since both routes factor the whole batch."""
     n = G.shape[-1]
     R = _chol_upper(G)
     bad = _nan_lanes(R)
-    if not bool(bad.any()):
+    if _loops.current_mode() == "eager" and not _loops.host_any(bad):
         return R
     tr = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)[..., None, None]
     sigma = 2.0 * n * torch.finfo(G.dtype).eps * tr
@@ -127,9 +135,20 @@ def implicit_refine_upper(G: Tensor, R1: Tensor) -> Tensor:
 
 def rescue_broken_refinement(R2: Tensor, bad: Tensor, S: Tensor, R1: Tensor) -> Tensor:
     """Replace R₂ by the explicit pass on S in the lanes flagged `bad` (B, 1, 1)
-    only; healthy lanes keep their implicit factor (the JAX `lax.cond`
-    under `vmap`, a per-instance select).  Skipped when no lane is bad."""
-    lanes = torch.nonzero(bad.reshape(-1)).squeeze(-1)
+    only; healthy lanes keep their implicit factor bit for bit (the JAX
+    `lax.cond` under `vmap`, a per-instance select).
+
+    In eager mode the host gathers the flagged lanes (one counted sync,
+    `_loops.host_nonzero`) and runs the explicit pass on them alone, and
+    skips it when no lane is bad.  Under CUDA-graph
+    capture and in "all_trips" (`_loops`) the pass runs on every lane inside
+    `_loops.branch_any(bad)` (an IF node under capture: a replay runs it
+    only when a lane is bad) and the flagged lanes are selected.  A rescued
+    lane may then differ from the eager gather in the last bits, where the
+    batched library calls choose their algorithm by batch size."""
+    if _loops.current_mode() != "eager":
+        return _loops.branch_any(bad.reshape(-1), lambda: torch.where(bad, _explicit_r2(S, R1), R2), R2)
+    lanes = _loops.host_nonzero(bad.reshape(-1)).to(R2.device)
     if lanes.numel() == 0:
         return R2
     R2 = R2.clone()

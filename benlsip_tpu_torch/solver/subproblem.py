@@ -15,7 +15,9 @@ runs this loop on its own rows of J and r.  Each host-side loop decision
 (`run.any()`, `upd.any()`) is made from values that are psummed or
 computed from replicated data, so every rank takes every branch the same
 way and meets every collective.  Outside eager mode (`_loops`) the
-refresh is computed unconditionally and selected per lane.
+matrix-free refresh is computed unconditionally and selected per lane;
+the materialized operator's is guarded by `_loops.branch_any` (an IF node
+under capture, unconditional in "all_trips").
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .._batched import full, norm, sel, sel_tuple
-from .._loops import any_lane, host_rows, masked_while
+from .._loops import any_lane, branch_any, host_rows, masked_while, note
 from ..harness.logging import emit_inner_iter
 from ..ops.al import (
     AlHessian,
@@ -49,6 +51,10 @@ Tensor = torch.Tensor
 
 # Materialized-operator builds per (gn_factorization, dtype name) since the
 # last `reset_operator_builds()`; the matrix-free route builds nothing.
+# These count the Python calls: under CUDA-graph capture a call is a
+# capture, not a run.  What the replays built is counted by the graphs'
+# owner (`batch/fused_small.replay_counts()["operator_builds"]`, from the
+# events `_loops.note`d here).
 OPERATOR_BUILDS: Counter = Counter()
 
 
@@ -179,7 +185,9 @@ def _materializer(use_op: bool, fact: str, opts: SolverOptions, Gj: Optional[Ten
         build = lambda H: with_gram(H, ax, Gj=Gj)
 
     def materialize(H: AlHessian) -> AlHessian:
-        OPERATOR_BUILDS[(fact, str(H.J.dtype).removeprefix("torch."))] += 1
+        key = (fact, str(H.J.dtype).removeprefix("torch."))
+        OPERATOR_BUILDS[key] += 1
+        note(("operator_build",) + key)
         return build(H)
 
     return materialize
@@ -249,15 +257,24 @@ def solve_subproblem(
 
         # Derivatives (and the materialized operator) only on acceptance:
         # evaluated for the whole batch when a running lane accepts, the
-        # other lanes keeping their Jacobians, and selected per lane.
-        g, H = c.g, c.H
+        # other lanes keeping their Jacobians, and selected per lane.  A
+        # materialized operator's rebuild sits behind an IF node under
+        # capture (`branch_any`), so a replay skips it on the trips where
+        # no lane accepts, as the eager loop does; the matrix-free refresh
+        # is cheap enough to run unconditionally there (`any_lane`).
         upd = accept & act
-        if any_lane(upd):
+
+        def refresh():
             Jn = sel(upd, fns.jac_res(x_next), c.H.J)
             Cn = sel(upd, fns.jac_nlcons(x_next), c.H.C)
             y_bar = y + mu.unsqueeze(-1) * cx_next
-            g = sel(upd, al_gradient(Jn, Cn, rx_next, y_bar, ax), c.g)
-            H = sel_tuple(upd, materialize(AlHessian(Jn, Cn, mu)), c.H)
+            return (sel(upd, al_gradient(Jn, Cn, rx_next, y_bar, ax), c.g),
+                    sel_tuple(upd, materialize(AlHessian(Jn, Cn, mu)), c.H))
+
+        if use_op:
+            g, H = branch_any(upd, refresh, (c.g, c.H))
+        else:
+            g, H = refresh() if any_lane(upd) else (c.g, c.H)
         x = sel(accept, x_next, c.x)
         rx = sel(accept, rx_next, c.rx)
         cx = sel(accept, cx_next, c.cx)

@@ -17,9 +17,12 @@ Phases (any failure raises and the script exits non-zero):
    degenerate lanes and reg > 0, and against the call site they replace;
    the panel QR kernel also against `torch.linalg.qr` and SᵀS, at the
    polish's shape, ragged panels, every panel width, κ = 1e4 and float64,
-   and at (4, 300, 36/40/48/70) with κ = 1e4 and 1e5 (ragged last panels)
-   the chord contraction ‖R⁻ᵀ(SᵀS − RᵀR)R⁻¹‖₂ ≤ 2·κ·eps of the kernel and
-   of its plain version, printed beside the library R's;
+   a zero column in a reused panel (its CholeskyQR step keeps R₂ = I),
+   and at (4, 300, 36/40/48/70) with κ = 1e4, 1e5 and 1e6 (ragged last
+   panels) the chord contraction ‖R⁻ᵀ(SᵀS − RᵀR)R⁻¹‖₂ ≤ 2·κ·eps of the
+   kernel and of its plain version, printed beside the library R's, and
+   over the 40 seeded draws of scripts/blocked_qr_contraction.py at
+   (4, 300, 36), κ = 1e5 and 1e6;
    the fused kernels' split form (a thread-block cluster per instance, the
    plan of `fused_plan` for large n) also at config 4's (1, 8, 10240) with
    the degenerate pair, a shared A, ragged n, n = 40,960, m = 16, float64
@@ -64,7 +67,21 @@ Phases (any failure raises and the script exits non-zero):
    chord phase on the CPU) must certify 64/64 too, the panel QR kernel
    must be launched in both certify modes, the oracle must agree
    on all 64, and a batch of 8 must agree with the port's CPU run; the warm
-   wall is split into bulk and certification;
+   wall is split into bulk and certification; then CholeskyQR2 at
+   (8, 1030, 192) with one lane's refinement forced to break down, captured
+   into a graph (the explicit rescue behind an IF node) against eager: the
+   healthy lanes bitwise equal; then config 3 with `fuse=True`
+   (`batch/fused_small.py`: the bulk with its CholeskyQR2 builds, the
+   rebuild on acceptance and the rescues behind conditional IF nodes, and
+   the certification as CUDA graphs), cold and warm: 64/64 certified at
+   ≤ 1.49e-8, the oracle on all 64, within rtol 1e-6 / atol 1e-8 of the
+   unfused run and of the same stages run eagerly, every path kernel (the
+   panel QR included) captured and run by the replays, no kernel launched
+   outside the graphs in a warm call unless a lane goes to the fallback
+   refine; host syncs per warm call, capture and instantiate seconds, the
+   IF branches taken and the operator builds the replays ran beside the
+   eager stages' builds, 5 warm walls of each route in turns, and with
+   `--profile` one traced warm unfused call's busy share;
 6. the config-1 path, through the public entry points: `solve` and
    `tralcnllss` on the sphere-regression fixture in float64 on the card
    (analytic and autodiff Jacobians, a warm start from y) against the
@@ -314,14 +331,19 @@ def _device_us(fn, reps: int = 50) -> float:
     for _ in range(3):
         fn()
     _sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        _sync()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        raise AssertionError("torch.profiler saw no device kernel")
-    return sum(e.self_device_time_total for e in events) / reps
+    # The first trace of a process has come back empty on the card's
+    # machine (CUPTI starting up); a trace is taken again, at most twice.
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            _sync()
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            if attempt:
+                print(f"torch.profiler: trace {attempt + 1} saw the device kernels, the earlier ones none")
+            return sum(e.self_device_time_total for e in events) / reps
+    raise AssertionError("torch.profiler saw no device kernel in three traces")
 
 
 def _check_close(name: str, got: torch.Tensor, want: torch.Tensor, atol: float = KERNEL_ATOL) -> float:
@@ -733,11 +755,12 @@ def _check_blocked_qr(kern, rng, worst) -> None:
               f"Gram {c['gram']:.3e} (plain {cp['gram']:.3e}, tol {2 * S.shape[2] * EPS32:.3e})")
 
     # Ragged last panels, ill-conditioned: with one block projection pass
-    # against the finished panels the contraction reached 1e2·κ·eps here;
-    # the second pass must keep it under 2·κ·eps, a bound the library's
-    # Householder R meets on the same S.
+    # against the finished panels the contraction reached 1e2·κ·eps here,
+    # with two but without the CholeskyQR step on each finished panel
+    # 8·κ·eps at κ = 1e6 (on the CPU); the kernel must keep it under
+    # 2·κ·eps, a bound the library's Householder R meets on the same S.
     for N in (36, 40, 48, 70):
-        for kappa in (1e4, 1e5):
+        for kappa in (1e4, 1e5, 1e6):
             tag = f"4x300x{N} kappa={kappa:.0e}"
             S = conditioned(rng, 4, 300, N, kappa, dev)
             R, Rp = kern.blocked_qr_r(S), kern.blocked_qr_r_plain(S)
@@ -753,6 +776,33 @@ def _check_blocked_qr(kern, rng, worst) -> None:
             if con["kernel"] > 2 or con["plain"] > 2:
                 raise AssertionError(f"blocked_qr_r {tag}: chord contraction above 2*kappa*eps: {con}")
 
+    # The 40 seeded draws of scripts/blocked_qr_contraction.py at
+    # (4, 300, 36), where two passes without the CholeskyQR step reached
+    # 3.5·κ·eps (κ = 1e5) and 8·κ·eps (κ = 1e6) on the CPU: every draw
+    # under 2·κ·eps, kernel and plain version, and the kernel within the
+    # κ-scaled tolerance of its plain version.
+    for kappa in (1e5, 1e6):
+        draws = np.random.default_rng([0, 36, int(kappa)])
+        con, worst_err = {"kernel": [], "plain": []}, 0.0
+        for _ in range(40):
+            U = np.linalg.qr(draws.standard_normal((4, 300, 36)))[0]
+            V = np.linalg.qr(draws.standard_normal((4, 36, 36)))[0]
+            S = torch.as_tensor(((U * np.logspace(0.0, -np.log10(kappa), 36)) @ np.transpose(V, (0, 2, 1)))
+                                .astype(np.float32), device=dev)
+            R, Rp = kern.blocked_qr_r(S), kern.blocked_qr_r_plain(S)
+            tol = 4 * EPS32 * (math.sqrt(300) + kappa) * float(Rp.abs().max())
+            err = float((R - Rp).abs().max())
+            if err > tol:
+                raise AssertionError(f"blocked_qr_r 4x300x36 kappa={kappa:.0e}: kernel off its plain version by {err:.3e} > {tol:.3e}")
+            worst_err = max(worst_err, err / tol)
+            con["kernel"].append(_contraction(S, R) / (kappa * EPS32))
+            con["plain"].append(_contraction(S, Rp) / (kappa * EPS32))
+        print(f"blocked_qr_r 4x300x36 kappa={kappa:.0e}, 40 seeded draws: chord contraction in kappa*eps, kernel median "
+              f"{np.median(con['kernel']):.3f} max {max(con['kernel']):.3f}, plain median {np.median(con['plain']):.3f} "
+              f"max {max(con['plain']):.3f} (bound 2); kernel vs plain at most {worst_err:.3f} of its tolerance")
+        if max(con["kernel"]) > 2 or max(con["plain"]) > 2:
+            raise AssertionError(f"blocked_qr_r 4x300x36 kappa={kappa:.0e}: a draw's chord contraction is above 2*kappa*eps")
+
     # float64 through the same source: widths 32 and 8.
     for B, D, N in ((4, 600, 50), (3, 2048, 40)):
         S = torch.as_tensor(rng.standard_normal((B, D, N)), dtype=torch.float64, device=dev)
@@ -760,15 +810,21 @@ def _check_blocked_qr(kern, rng, worst) -> None:
         print(f"blocked_qr_r float64 {B}x{D}x{N}: width {kern.qr_panel_layout(D, 8)[0]}, vs library {c['err']:.3e}, Gram {c['gram']:.3e}")
 
     # A zero column gets the `tiny` floor on the diagonal and zeros beside it;
-    # a NaN stays in its own instance.
+    # a NaN stays in its own instance.  A zero column in the first panel
+    # (lane 1) makes that panel's Gram singular: its CholeskyQR step keeps
+    # R₂ = I and the lane's R stays finite and agrees with the plain version.
     S = normal(6, 200, 40)
+    S[1, :, 5] = 0.0
     S[2, :, 35] = 0.0
     S[4, 17, 3] = float("nan")
     R, Rp = kern.blocked_qr_r(S), kern.blocked_qr_r_plain(S)
     floor = math.sqrt(float(torch.finfo(torch.float32).tiny))
     if not (abs(float(R[2, 35, 35]) - floor) <= 1e-6 * floor and R[2, 35, 36:].abs().max() == 0
-            and torch.isfinite(R[[0, 1, 2, 3, 5]]).all()):
+            and abs(float(R[1, 5, 5]) - floor) <= 1e-6 * floor and torch.isfinite(R[[0, 1, 2, 3, 5]]).all()):
         raise AssertionError("blocked_qr_r: a zero column must give sqrt(tiny) on the diagonal and a finite R")
+    err = float((R[[0, 1, 2, 3, 5]] - Rp[[0, 1, 2, 3, 5]]).abs().max())
+    if err > KERNEL_ATOL * float(Rp[[0, 1, 2, 3, 5]].abs().max()):
+        raise AssertionError(f"blocked_qr_r: zero-column lanes off the plain version by {err:.3e}")
     if not (torch.isnan(R[4]).any() and torch.equal(torch.isnan(R), torch.isnan(Rp))):
         raise AssertionError("blocked_qr_r: a NaN must stay in its own instance, as in the plain version")
 
@@ -1470,7 +1526,182 @@ def phase_config3(kern) -> dict:
     if not (bool(ig.converged.all()) and bool(ic.converged.all()) and diff <= SMALL_ATOL):
         raise AssertionError("config 3 small batch: the card's run disagrees with the CPU run")
     return {"launches": launches, "launches_host": launches_host, "cold_s": cold, "warm_s": warm,
-            "host_cold_s": host_cold, "host_warm_s": host_warm, "bulk_s": bulk}
+            "host_cold_s": host_cold, "host_warm_s": host_warm, "bulk_s": bulk, "X": X, "info": info}
+
+
+FUSED3_TURNS = 5
+
+
+def _check_rescue_capture() -> dict:
+    """CholeskyQR2 (`ops/qr.cholqr2i_r`) at config 3's operator shape with
+    lane 0's implicit refinement forced to break down, eagerly (the host
+    gathers lane 0 for the explicit pass) and captured into a CUDA graph
+    (the pass on every lane behind an IF node, lane 0 selected): the
+    healthy lanes bitwise equal, the rescued lane's difference printed, both
+    within 1e-5 of SᵀS."""
+    from benlsip_tpu_torch import _loops
+    from benlsip_tpu_torch.ops import qr
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(11)
+    S = torch.as_tensor(rng.standard_normal((8, 1030, 192)) / math.sqrt(1030), dtype=torch.float32, device=dev)
+    implicit = qr._implicit_refine_r2
+
+    def lane_0_broken(G, R1):
+        R2, bad = implicit(G, R1)
+        bad = bad.clone()
+        bad[0] = True
+        return torch.where(bad, torch.eye(G.shape[-1], dtype=G.dtype, device=G.device), R2), bad
+
+    qr._implicit_refine_r2 = lane_0_broken
+    try:
+        eager = qr.cholqr2i_r(S)
+        graph = torch.cuda.CUDAGraph()
+        with _loops.loop_mode("capture"), torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+            captured = qr.cholqr2i_r(S)
+        graph.replay()
+        _sync()
+    finally:
+        qr._implicit_refine_r2 = implicit
+    Sd, G = S.double(), None
+    G = Sd.mT @ Sd
+    err = {name: float((torch.linalg.matrix_norm(R.double().mT @ R.double() - G) / torch.linalg.matrix_norm(G)).max())
+           for name, R in (("eager", eager), ("captured", captured))}
+    lane0 = float((eager[0] - captured[0]).abs().max())
+    _require(torch.equal(eager[1:], captured[1:]), "rescue under capture: a healthy lane differs from the eager route")
+    _require(max(err.values()) <= 1e-5, f"rescue under capture: ‖RᵀR − SᵀS‖/‖SᵀS‖ {err}")
+    print(f"fused config 3: CholeskyQR2 of 8x1030x192 with lane 0's refinement forced to break down, captured (explicit "
+          f"pass on every lane behind an IF node) vs eager (lane 0 gathered): healthy lanes bitwise equal, rescued lane "
+          f"max |dR| {lane0:.3e} ({'bitwise equal' if lane0 == 0 else 'not bitwise equal'}), RᵀR error {err}")
+    return {"rescued_lane_diff": lane0}
+
+
+def phase_fused_config3(kern, smi: str, res3: dict, profile: bool) -> dict:
+    """Config 3 through `solve_mixed_precision(..., fuse=True)`: the bulk
+    (with the materialized CholeskyQR2 operator, its rebuilds and rescues
+    behind conditional IF nodes) and the certification as CUDA-graph
+    replays, cold and warm, against the unfused run of phase 5 and the same
+    stages run eagerly on the card."""
+    from benlsip_tpu_torch import _loops
+    from benlsip_tpu_torch.batch import fused_small
+    from benlsip_tpu_torch.batch.refine import solve_mixed_precision
+    from benlsip_tpu_torch.problems.generators import dense_quadratic_family
+    from benlsip_tpu_torch.solver import subproblem
+    from benlsip_tpu_torch.solver.options import SolverOptions
+
+    t_phase = time.perf_counter()
+    rescue = _check_rescue_capture()
+    dev = torch.device("cuda:0")
+    B, n, d, m = 64, 192, 1024, 6
+    opts = SolverOptions(max_outer_iter=30, max_inner_iter=100)
+    bp, theta, X0 = dense_quadratic_family(B, n=n, d=d, m=m, seed=3, dtype=torch.float64, device=dev)
+    fused = lambda: solve_mixed_precision(bp, theta, X0, opts, chunk=B, fuse=True)
+    plain = lambda: solve_mixed_precision(bp, theta, X0, opts, chunk=B)
+
+    kern.reset_launches()
+    fused_small.reset_graph_stats()
+    subproblem.reset_operator_builds()
+    _loops.reset_host_syncs()
+    (X, Y, info), cold = _walled(fused)
+    cold_syncs = _loops.HOST_SYNCS
+    captured = dict(kern.CAPTURED)
+    stats = list(fused_small.GRAPH_STATS)
+    kern.reset_launches()
+    _loops.reset_host_syncs()
+    fused_small.reset_replay_counts()
+    (X2, _, info2), warm0 = _walled(fused)
+    syncs = {"fused": _loops.HOST_SYNCS}
+    launches, replay = dict(kern.LAUNCHES), fused_small.replay_counts()
+    executed = replay["launches"]
+    _check_certified("fused config 3 cold", X, info, B, n)
+    _check_certified("fused config 3 warm", X2, info2, B, n)
+    _require(torch.equal(X2, X) and torch.equal(info2.converged, info.converged), "fused config 3: the warm run differs from the cold run")
+    refined = int((info2.outer_iters > 0).sum())
+    _require(refined > 0 or not any(launches.values()),
+             f"fused config 3: a warm call with no fallback lane launched kernels outside its graphs: {launches}")
+    capture_s = sum(s["capture_s"] for s in stats)
+    instantiate_s = sum(s["instantiate_s"] for s in stats)
+    for s in stats:
+        print(f"fused config 3 graph {s['stage']}: capture {s['capture_s']:.3f} s, instantiate {s['instantiate_s']:.3f} s, "
+              f"{s['loops']} WHILE nodes, {s['branches']} IF nodes, {s['kernel_nodes']} kernel nodes, "
+              f"captured launches {s['captured_launches']}")
+    _require(any(s["branches"] > 0 for s in stats), "fused config 3: no IF node was captured")
+    print(f"fused config 3, B={B}: certified {int(info.converged.sum())}/{B}, max pix {float(info.pix.max()):.3e}, cold {cold:.3f} s "
+          f"({len(stats)} graphs, capture {capture_s:.3f} s, instantiate {instantiate_s:.3f} s, {cold_syncs} host syncs), "
+          f"first warm {warm0:.3f} s, lanes sent to the fallback refine {refined}, kernels launched outside the graphs "
+          f"in the warm call {launches} on {smi}")
+
+    # Against the unfused run (phase 5) and the same stages run eagerly.
+    Xu = res3["X"]
+    du = float((X - Xu).abs().max())
+    _require(torch.equal(res3["info"].converged, info.converged) and torch.allclose(X, Xu, rtol=FUSED_RTOL, atol=FUSED_ATOL),
+             f"fused config 3: disagrees with the unfused run (max |dX| {du:.3e})")
+    with _stages_eagerly():
+        fused()
+        kern.reset_launches()
+        subproblem.reset_operator_builds()
+        _loops.reset_host_syncs()
+        (Xe, _, ie), eager_wall = _walled(fused)
+    syncs["fused_eager"] = _loops.HOST_SYNCS
+    eager_launches, eager_builds = dict(kern.LAUNCHES), dict(subproblem.OPERATOR_BUILDS)
+    _require_no_split(kern, "fused config 3, the stages run eagerly")
+    de = float((X - Xe).abs().max())
+    _require(torch.equal(ie.converged, info.converged) and torch.allclose(X, Xe, rtol=FUSED_RTOL, atol=FUSED_ATOL),
+             f"fused config 3: the graphs disagree with the same stages run eagerly (max |dX| {de:.3e})")
+    _loops.reset_host_syncs()
+    plain()
+    syncs["unfused"] = _loops.HOST_SYNCS
+    print(f"fused config 3: max |dX| captured vs unfused {du:.3e} (rtol {FUSED_RTOL:g}, atol {FUSED_ATOL:g}), captured vs the "
+          f"same stages run eagerly {de:.3e} ({'identical' if de == 0 else 'not identical'}; eager fused wall {eager_wall:.3f} s)")
+    print(f"fused config 3: host syncs per warm call: unfused {syncs['unfused']}, fused as graphs {syncs['fused']}, "
+          f"fused stages run eagerly {syncs['fused_eager']}")
+    builds = {f"{f}/{dt}": v for (f, dt), v in replay["operator_builds"].items()}
+    print(f"fused config 3: a warm call's {replay['replays']} graph replays ran {replay['loop_trips']} WHILE-node trips, "
+          f"took {replay['branches_taken']} IF-node branches, {replay['device_kernels']} device kernels and "
+          f"{replay['device_copies']} copies (node counts x runs); operator builds run by the replays (the events noted "
+          f"in the captured parts times their runs) {builds}, by the same stages run eagerly (OPERATOR_BUILDS) "
+          f"{ {f'{f}/{dt}': v for (f, dt), v in eager_builds.items()} }")
+    _require(list(builds) == ["cholqr2/float32"] and builds["cholqr2/float32"] > 0,
+             f"fused config 3: the replays must build the CholeskyQR2 operator only, built {builds}")
+    print(f"fused config 3: path kernels run by the replays {executed}, launched by the same stages run eagerly {eager_launches}")
+    for name in CONFIG3_KERNELS:
+        _require(captured[name] > 0 and executed[name] > 0,
+                 f"fused config 3: kernel {name} captured {captured[name]}, run by the replays {executed[name]}")
+
+    # The oracle on all 64.
+    fns = bp.instance_fns(theta)
+    r = fns.residuals(X).cpu().numpy()
+    J = fns.jac_res(X)[0].cpu().numpy()
+    Xn, A, b_rhs = X.cpu().numpy(), bp.A.cpu().numpy(), bp.b.cpu().numpy()
+    xl, xu = bp.xl.cpu().numpy(), bp.xu.cpu().numpy()
+    agree = _oracle_agreement("fused config 3", [(Xn[i], r[i], J, None, None, A, b_rhs, xl, xu) for i in range(B)])
+    _require(agree == B, f"fused config 3: oracle agrees on {agree}/{B}")
+
+    # Warm walls in turns: unfused, fused, fused, unfused, ...
+    walls = {"fused": [], "unfused": []}
+    for i in range(FUSED3_TURNS):
+        for name in (("unfused", "fused") if i % 2 == 0 else ("fused", "unfused")):
+            walls[name].append(_walled(fused if name == "fused" else plain)[1])
+    for name, w in walls.items():
+        print(f"fused config 3: warm wall {name} ({FUSED3_TURNS} calls in turns) median {float(np.median(w)):.4f} s, "
+              f"range {min(w):.4f}-{max(w):.4f} s, all {[round(x, 4) for x in w]} on {smi}")
+    res = {"cold_s": cold, "warm_s": walls, "syncs": syncs, "captured": captured, "executed": executed,
+           "device_kernels": replay["device_kernels"], "capture_s": capture_s, "instantiate_s": instantiate_s,
+           "builds": builds, "eager_builds": eager_builds, "branches_taken": replay["branches_taken"], **rescue}
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced = _walled(plain)[1]
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_s = sum(e.self_device_time_total for e in events) / 1e6
+        print(f"profile fused config 3: one traced warm unfused call, wall {traced:.4f} s, device time {dev_s:.4f} s "
+              f"(busy {100 * dev_s / traced:.1f}%), {sum(e.count for e in events)} device kernels; fused warm wall "
+              f"median {float(np.median(walls['fused'])):.4f} s on {smi}")
+        res["unfused_busy_share"] = dev_s / traced
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"fused config 3 phase: {res['phase_s']:.1f} s")
+    return res
 
 
 def _require(ok: bool, msg: str) -> None:
@@ -2752,6 +2983,7 @@ def main() -> None:
     res = phase_slice(kern)
     resf = phase_fused(kern, smi, "--profile" in sys.argv[1:])
     res3 = phase_config3(kern)
+    res3f = phase_fused_config3(kern, smi, res3, "--profile" in sys.argv[1:])
     res1 = phase_config1(kern, smi)
     res4 = phase_config4(kern)
     res5 = phase_config5(kern, smi)
@@ -2802,6 +3034,8 @@ def main() -> None:
                   # config 1 with the eager fallback refine's).
                   "captured_config2_fused": resf["captured"][name],
                   "launches_config2_fused": resf["executed"][name],
+                  "captured_config3_fused": res3f["captured"][name],
+                  "launches_config3_fused": res3f["executed"][name],
                   "launches_config1_fused": res1["fused"]["launches"][name],
                   # Phase 10: ill_conditioned_family(64, n=100): the bulk with the
                   # QR split polish.

@@ -6,7 +6,9 @@ spaced geometrically from 1 to 1/κ and prints, in units of κ·eps_f32, the
 median and the largest ‖R⁻ᵀ(SᵀS − RᵀR)R⁻¹‖₂ (the contraction of the
 polish's chord step built on R) of the panel QR's plain version
 (`blocked_qr_r_plain`, the kernel's order) and of `torch.linalg.qr`
-(Householder, the route of the JAX package's `qr_r` at these widths).
+(Householder, the route of the JAX package's `qr_r` at these widths),
+at N = 36, 40, 48, 70 and κ = 1e4, 1e5, 1e6.  The panel QR is held to
+2·κ·eps (the tests' bar, which Householder's R meets on the same draws).
 
     python scripts/blocked_qr_contraction.py --draws 40
 """
@@ -38,7 +40,7 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     for N in (36, 40, 48, 70):
-        for kappa in (1e4, 1e5):
+        for kappa in (1e4, 1e5, 1e6):
             rng = np.random.default_rng([args.seed, N, int(kappa)])
             plain, householder = [], []
             for _ in range(args.draws):

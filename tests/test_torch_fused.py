@@ -30,7 +30,7 @@ from benlsip_tpu_torch.batch.vmap_solve import map_poly_fields, solve_batched
 from benlsip_tpu_torch.interop import problem_from_numpy, theta_from_numpy
 from benlsip_tpu_torch.kernels import batched_linalg as kern
 from benlsip_tpu_torch.problems.generators import (
-    _exp_fit_residuals, dense_quadratic_family, exp_fit_family, sphere_family,
+    _exp_fit_residuals, exp_fit_family, sphere_family,
 )
 from benlsip_tpu_torch.solver.options import SolverOptions
 
@@ -196,11 +196,3 @@ def test_unported_fallback_pad_raises(config2_pair):
     _, (bp, th, X0) = config2_pair
     with pytest.raises(NotImplementedError, match="fallback_pad"):
         solve_small_fused(bp, th, X0, SolverOptions(**OPTS), fallback_pad=4)
-
-
-def test_materialized_operator_route_raises():
-    # n ≥ 64 with a tall Jacobian materializes the operator, whose
-    # CholeskyQR2 rescue decides on the host: not ported to graphs.
-    bp, th, X0 = dense_quadratic_family(2, n=64, d=256, m=2, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="materializes"):
-        solve_small_fused(bp, th, X0, SolverOptions(**OPTS))

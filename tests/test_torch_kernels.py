@@ -495,16 +495,18 @@ def test_blocked_qr_r_plain_ill_conditioned(kappa, rng):
     assert contraction <= 8 * kappa * EPS32, contraction
 
 
-@pytest.mark.parametrize("kappa", [1e4, 1e5])
+@pytest.mark.parametrize("kappa", [1e4, 1e5, 1e6])
 @pytest.mark.parametrize("N", [36, 40, 48, 70])
 def test_blocked_qr_r_plain_ragged_panel_matches_householder(N, kappa, rng):
     # N not a multiple of the 32-column panel: the last panel holds 4, 8,
     # 16 or 6 columns.  With one projection pass against the finished
-    # panels the contraction reached 1e2·κ·eps here (the finished Q panels
-    # are orthonormal only to κ·eps); with the second pass it stays under
-    # 2·κ·eps, a bound the JAX package's Householder R meets with room to
-    # spare (checked on the same S).  R against the JAX R under
-    # assert_r_factor's tolerance, 4·eps·(√D + κ)·max|R|.
+    # panels the contraction reached 1e2·κ·eps here; with two passes but
+    # without the CholeskyQR step on each finished panel (whose modified
+    # Gram–Schmidt Q is orthonormal only to κ(panel)·eps) it reached
+    # 8·κ·eps at κ = 1e6.  It must stay under 2·κ·eps, a bound the JAX
+    # package's Householder R meets with room to spare (checked on the same
+    # S).  R against the JAX R under assert_r_factor's tolerance,
+    # 4·eps·(√D + κ)·max|R|.
     S = conditioned(rng, 4, 300, N, kappa)
     R = tk.blocked_qr_r(torch.from_numpy(S)).numpy()
     assert_r_factor(R, S, kappa=kappa)
@@ -512,6 +514,44 @@ def test_blocked_qr_r_plain_ragged_panel_matches_householder(N, kappa, rng):
     assert contraction <= 2 * kappa * EPS32, contraction / (kappa * EPS32)
     householder = chord_contraction(S, jax_r(S))
     assert householder <= 2 * kappa * EPS32, householder / (kappa * EPS32)
+
+
+@pytest.mark.parametrize("kappa", [1e5, 1e6])
+def test_blocked_qr_r_plain_contraction_over_seeded_draws(kappa):
+    # The 40 draws of scripts/blocked_qr_contraction.py at (4, 300, 36): at
+    # κ = 1e5 one of them reached 3.5·κ·eps with two projection passes and
+    # no reorthogonalization of the finished panels, at κ = 1e6 all of them
+    # about 8·κ·eps.  Every draw must stay under 2·κ·eps.
+    rng = np.random.default_rng([0, 36, int(kappa)])
+    worst = 0.0
+    for _ in range(40):
+        U = np.linalg.qr(rng.standard_normal((4, 300, 36)))[0]
+        V = np.linalg.qr(rng.standard_normal((4, 36, 36)))[0]
+        S = ((U * np.logspace(0.0, -np.log10(kappa), 36)) @ np.transpose(V, (0, 2, 1))).astype(np.float32)
+        worst = max(worst, chord_contraction(S, tk.blocked_qr_r(torch.from_numpy(S)).numpy()))
+    assert worst <= 2 * kappa * EPS32, worst / (kappa * EPS32)
+
+
+def test_blocked_qr_r_plain_singular_panel_gram_keeps_r2_identity(rng, monkeypatch):
+    # A zero column in the first panel (of two: only the first is reused)
+    # makes that panel's Gram QᵀQ singular: its CholeskyQR step keeps
+    # R₂ = I, so the lane's R is the one of two passes without the step
+    # (every Cholesky forced to fail gives that R), finite, with the
+    # sqrt(tiny) floor on the diagonal.  The healthy lanes are
+    # reorthogonalized.
+    S = rng.standard_normal((3, 120, 40)).astype(np.float32)
+    S[1, :, 5] = 0.0
+    St = torch.from_numpy(S)
+    R = tk.blocked_qr_r(St)
+    cholesky_ex = torch.linalg.cholesky_ex
+    monkeypatch.setattr(torch.linalg, "cholesky_ex",
+                        lambda G: (cholesky_ex(G)[0], torch.ones(G.shape[:-2], dtype=torch.int32)))
+    R_no_step = tk.blocked_qr_r(St)
+    assert torch.isfinite(R).all()
+    assert torch.equal(R[1], R_no_step[1])
+    assert not torch.equal(R[0], R_no_step[0]) and not torch.equal(R[2], R_no_step[2])
+    np.testing.assert_allclose(float(R[1, 5, 5]), np.sqrt(np.finfo(np.float32).tiny), rtol=1e-6)
+    assert_r_factor(R[[0, 2]].numpy(), S[[0, 2]])
 
 
 def test_blocked_qr_r_plain_zero_column_and_nan_lane(rng):
