@@ -7,7 +7,7 @@ CUDA C++ twins of the three Pallas TPU kernels of
 * `batched_cho_solve` ← `batched_cho_solve` / `_cho_solve_kernel` (:101, :119)
 * `batched_thin_qr`   ← `batched_thin_qr` / `_mgs_qr_kernel`     (:147, :170)
 
-and the three kernels that redesign them for this card:
+and the four kernels that redesign them for this card:
 
 * `masked_aat_cholesky`: L = chol(A Z Aᵀ + reg·I), the Cholesky kernel
   with the masked Gram product in front of it, one launch per call site;
@@ -20,20 +20,30 @@ and the three kernels that redesign them for this card:
   columns and adds the blocks' partial sums in rank order (plan S);
 * `blocked_qr_r`: the R factor of wide tall matrices (16 < N), a panel
   QR in shared memory, one thread block per instance, where the TPU
-  kernel's gate left the factorization to the library.
+  kernel's gate left the factorization to the library;
+* `polyhedron_newton`: the whole dual Newton of the polyhedral projection
+  (`ops/polyproject`), the factor and the solve of each trip inside it, each
+  instance to its own exit in one launch; in one of three layouts by
+  `newton_plan(m, n, dtype)`: one warp per instance with the line search's
+  grid points on the lanes (plan 0, n up to `NEWTON_LANES_MAX_N`) or with
+  the columns on the lanes (plan 1), or the fused kernels' cluster of S
+  blocks per instance (plan S, from `SPLIT_MIN_N` on).
 
 The five small kernels take float32, float64 and bfloat16, as the TPU
 kernels take float32 and bfloat16: a bf16 kernel computes in float32 and
 rounds each output once, and its plain version is the float32 plain
 version on the upcast inputs, rounded once (`_rounded_from_f32`).  The
 panel QR kernel takes float32 and float64 only (the JAX package has no wide
-QR kernel; `ops/qr.qr_r` factors a wide bf16 matrix in float32).
+QR kernel; `ops/qr.qr_r` factors a wide bf16 matrix in float32), the dual
+Newton float32 and bfloat16 only (float64 projections run the plain loop).
 
 Each wrapper keeps the JAX package's public layout — (B, M, M), (B, M) and
 (B, D, N), row-major — and none of the TPU's batch-last transposes or lane
 padding.  On a CUDA tensor it launches its kernel (or raises); on a CPU
 tensor it runs the plain PyTorch version beside it, which computes the
-same algorithm in the same order with batched torch ops.  There is no
+same algorithm in the same order with batched torch ops (the dual Newton's
+plain version is the masked loop of `ops/polyproject`, registered here by
+`set_newton_plain`).  There is no
 fallback from a failed build or launch to the plain version.
 
 The sources in `csrc/` are compiled with nvcc for sm_90a (one nvcc per
@@ -90,6 +100,9 @@ MAX_DYNAMIC_SMEM = 232448        # bytes of shared memory a block may opt in to 
 SPLIT_THREADS = 256
 MAX_CLUSTER = 16
 SPLIT_MIN_N = 512
+# The dual Newton's warp form puts the line search's grid points on the lanes
+# up to this many columns (one column a lane), the columns above it.
+NEWTON_LANES_MAX_N = 32
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -104,12 +117,14 @@ FMAD_SOURCES = ("blocked_qr.cu",)
 
 LAUNCHES = {
     "batched_cholesky": 0, "batched_cho_solve": 0, "batched_thin_qr": 0,
-    "masked_aat_cholesky": 0, "project_tangent": 0, "blocked_qr_r": 0,
+    "masked_aat_cholesky": 0, "project_tangent": 0, "blocked_qr_r": 0, "polyhedron_newton": 0,
 }
 CAPTURED = dict.fromkeys(LAUNCHES, 0)   # launches recorded into CUDA graphs
 # The same launches as LAUNCHES by (kernel, dtype name), e.g.
-# ("project_tangent", "bfloat16"), and the fused kernels' by (kernel, plan),
-# e.g. ("masked_aat_cholesky", 8): plan 1 is the warp form.
+# ("project_tangent", "bfloat16"), and the fused kernels' and the dual
+# Newton's by (kernel, plan), e.g. ("masked_aat_cholesky", 8): plan 1 is the
+# warp form (for the dual Newton with the columns on the lanes, plan 0 with
+# the grid points on the lanes).
 LAUNCHES_BY_DTYPE: Counter = Counter()
 LAUNCHES_BY_PLAN: Counter = Counter()
 _COUNT_LOCK = threading.Lock()
@@ -170,7 +185,13 @@ _SIGNATURES = {
     "benlsip_project_tangent": [_PTR, ctypes.c_longlong] + [_PTR] * 4 + [_INT] * 5 + [_PTR],
     # S, R, workspace, B, D, N, panel width, leading dimension, stream
     "benlsip_blocked_qr_r": [_PTR] * 3 + [_INT] * 5 + [_PTR],
+    # A, its batch stride, b, l, u, x, lam0, active, tol, reg, max_iter, grow_pows,
+    # n_section, v, lam, iters, workspace, B, M, n, plan, stream
+    "benlsip_polyhedron_newton": [_PTR, ctypes.c_longlong] + [_PTR] * 6 + [ctypes.c_double] * 2 + [_INT] * 3
+    + [_PTR] * 4 + [_INT] * 4 + [_PTR],
 }
+# The dtypes of each C entry point that has not all three.
+_ENTRY_SUFFIXES = {"benlsip_blocked_qr_r": ("f32", "f64"), "benlsip_polyhedron_newton": ("f32", "bf16")}
 
 
 def build() -> Path:
@@ -222,7 +243,7 @@ def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     lib = ctypes.CDLL(str(build()))
     for base, argtypes in _SIGNATURES.items():
-        for suffix in ("f32", "f64") + (() if base == "benlsip_blocked_qr_r" else ("bf16",)):
+        for suffix in _ENTRY_SUFFIXES.get(base, ("f32", "f64", "bf16")):
             fn = getattr(lib, f"{base}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -612,6 +633,14 @@ def has_row_major_blocks(A: Tensor) -> bool:
     return (n == 1 or A.stride(2) == 1) and (m == 1 or A.stride(1) == n)
 
 
+def _cluster_blocks(n: int) -> int:
+    """The split form's blocks per instance for n ≥ SPLIT_MIN_N columns."""
+    S = 2
+    while S < MAX_CLUSTER and S * SPLIT_THREADS < n:
+        S *= 2
+    return S
+
+
 def fused_plan(M: int, n: int, dtype: torch.dtype) -> int:
     """Blocks per instance of the fused kernels for an (M, n) instance of
     `dtype`: 1 is the warp form (one warp per instance), S ≥ 2 the split form
@@ -619,12 +648,7 @@ def fused_plan(M: int, n: int, dtype: torch.dtype) -> int:
     never of the batch: a lane's summation tree, and so its bits, must not
     depend on the batch it runs in (compaction's bit-identity).  M and
     dtype do not move it at the shapes measured (PERF.md)."""
-    if n < SPLIT_MIN_N:
-        return 1
-    S = 2
-    while S < MAX_CLUSTER and S * SPLIT_THREADS < n:
-        S *= 2
-    return S
+    return 1 if n < SPLIT_MIN_N else _cluster_blocks(n)
 
 
 def _fused_args(name: str, A: Tensor, mask: Tensor, *rest: Tensor) -> int:
@@ -718,3 +742,99 @@ def project_tangent(A: Tensor, L: Tensor, fixed: Tensor, r: Tensor, unmasked_out
         B, M, n, int(unmasked_output), plan=fused_plan(M, n, A.dtype),
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# The dual Newton of the polyhedral projection
+# ---------------------------------------------------------------------------
+
+_NEWTON_DTYPES = (torch.float32, torch.bfloat16)
+MAX_GROW_POWS = 60   # the kernel's bracket holds 2^0 .. 2^60
+
+
+def newton_plan(M: int, n: int, dtype: torch.dtype) -> int:
+    """Layout of the dual-Newton kernel for an (M, n) instance: 0 the warp
+    form with the line search's grid points on the lanes (n ≤
+    NEWTON_LANES_MAX_N), 1 the warp form with the columns on the lanes, S ≥ 2
+    a cluster of S blocks per instance (n ≥ SPLIT_MIN_N, the fused kernels'
+    cluster sizes).  A function of the shape only, never of the batch, so
+    that a lane's bits do not depend on the batch it runs in."""
+    if n >= SPLIT_MIN_N:
+        return _cluster_blocks(n)
+    return 0 if n <= NEWTON_LANES_MAX_N else 1
+
+
+def _check_newton(A, b, l, u, x, lam0, active, max_iter, grow_pows, n_section) -> None:
+    """Refuse, on either device, an operand the dual-Newton kernel does not
+    take: wrong shapes, a dtype other than float32 or bfloat16, mixed dtypes
+    or devices, a non-contiguous vector, m outside 1..MAX_DIM."""
+    if A.ndim != 3:
+        raise ValueError(f"polyhedron_newton: expected A (B, m, n), got {tuple(A.shape)}")
+    B, m, n = A.shape
+    want = {"b": (b, (B, m)), "l": (l, (B, n)), "u": (u, (B, n)), "x": (x, (B, n)),
+            "lam0": (lam0, (B, m)), "active": (active, (B,))}
+    for name, (t, shape) in want.items():
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"polyhedron_newton: {name} has shape {tuple(t.shape)}, expected {shape}")
+    floats = [t for t in (A, b, l, u, x, lam0) if t is not None]
+    if x.dtype not in _NEWTON_DTYPES:
+        raise TypeError(f"polyhedron_newton: dtype {x.dtype} (the kernel takes float32 or bfloat16)")
+    if any(t.dtype != x.dtype for t in floats):
+        raise TypeError(f"polyhedron_newton: mixed dtypes {sorted({str(t.dtype) for t in floats})}")
+    if active is not None and active.dtype != torch.bool:
+        raise TypeError(f"polyhedron_newton: active must be bool, got {active.dtype}")
+    if any(t.device != x.device for t in floats + ([active] if active is not None else [])):
+        raise ValueError("polyhedron_newton: all tensors must share one device")
+    if not all(t.is_contiguous() for t in floats[1:] + ([active] if active is not None else [])):
+        raise ValueError("polyhedron_newton: b, l, u, x, lam0 and active must be contiguous")
+    if not has_row_major_blocks(A):
+        raise ValueError(f"polyhedron_newton: A needs row-major (m, n) blocks, got strides {A.stride()}")
+    if not 0 < m <= MAX_DIM:
+        raise ValueError(f"polyhedron_newton: need 0 < m <= {MAX_DIM}, got m={m}")
+    if not (0 <= grow_pows <= MAX_GROW_POWS and n_section >= 0 and max_iter >= 0):
+        raise ValueError(f"polyhedron_newton: need 0 <= grow_pows <= {MAX_GROW_POWS}, n_section >= 0 and "
+                         f"max_iter >= 0, got {grow_pows}, {n_section}, {max_iter}")
+
+
+# The dual Newton's plain version is the masked loop of `ops/polyproject`,
+# a layer above this module; that module registers it here when it is
+# imported (the package imports it), so nothing here imports from `ops/`.
+_NEWTON_PLAIN = None
+
+
+def set_newton_plain(fn) -> None:
+    """Register the dual-Newton kernel's plain version, the function the
+    wrapper runs on CPU tensors (`ops/polyproject.newton_plain`)."""
+    global _NEWTON_PLAIN
+    _NEWTON_PLAIN = fn
+
+
+def polyhedron_newton(A: Tensor, b: Tensor, l: Tensor, u: Tensor, x: Tensor, tol: float, reg: float,
+                      max_iter: int, grow_pows: int, n_section: int, lam0=None, active=None):
+    """Project each lane's x onto {v : A v = b, l ≤ v ≤ u} by the dual
+    Newton of `ops/polyproject`, each lane to its own exit: A (B, m, n),
+    b (B, m), l, u, x (B, n), warm start lam0 (B, m) or None (cold), bool
+    active (B,) or None (every lane) -> (v (B, n), λ (B, m), trips (B,)
+    int32).  A lane not active runs no trip and returns v = clip(x − Aᵀλ₀,
+    l, u), λ = λ₀.  A may share one matrix across the batch (stride 0)."""
+    _check_newton(A, b, l, u, x, lam0, active, max_iter, grow_pows, n_section)
+    B, m, n = A.shape
+    if B == 0:
+        return torch.empty_like(x), torch.zeros_like(b), torch.zeros((0,), dtype=torch.int32, device=x.device)
+    if _on_cpu(x):
+        if _NEWTON_PLAIN is None:
+            raise RuntimeError("polyhedron_newton: no plain version registered (import benlsip_tpu_torch.ops.polyproject)")
+        return _NEWTON_PLAIN(A, b, l, u, x, tol, reg, max_iter, grow_pows, n_section, lam0, active)
+    if n == 0:
+        raise ValueError("polyhedron_newton: n = 0 has no column to project")
+    v, lam = torch.empty_like(x), torch.empty_like(b)
+    iters = torch.empty((B,), dtype=torch.int32, device=x.device)
+    ws = torch.empty((B, 2, n), dtype=torch.float32, device=x.device)   # z and w of each column
+    _launch(
+        "polyhedron_newton", "benlsip_polyhedron_newton", x,
+        A.data_ptr(), A.stride(0) if B > 1 else 0, b.data_ptr(), l.data_ptr(), u.data_ptr(), x.data_ptr(),
+        None if lam0 is None else lam0.data_ptr(), None if active is None else active.data_ptr(),
+        float(tol), float(reg), int(max_iter), int(grow_pows), int(n_section),
+        v.data_ptr(), lam.data_ptr(), iters.data_ptr(), ws.data_ptr(), B, m, n, plan=newton_plan(m, n, x.dtype),
+    )
+    return v, lam, iters

@@ -81,6 +81,34 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
+// reg on the diagonal (when non-zero), then Cholesky-Banachiewicz in place
+// on the packed lower triangle c, in the order of cholesky.cu: IEEE sqrt and
+// no pivot clamp, so a non-SPD pivot gives NaN from its column on (the
+// library is built without --use_fast_math).  C is a compute type.
+template <typename C, int M>
+__device__ __forceinline__ void cholesky_in_place(C* c, C reg) {
+  if (reg != C(0)) {
+#pragma unroll
+    for (int i = 0; i < M; ++i) c[tri(i, i)] = c[tri(i, i)] + reg;
+  }
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    C acc = c[tri(j, j)];
+#pragma unroll
+    for (int q = 0; q < j; ++q) acc = acc - c[tri(j, q)] * c[tri(j, q)];
+    const C d = sqrt(acc);
+    c[tri(j, j)] = d;
+    const C inv_d = C(1) / d;
+#pragma unroll
+    for (int i = j + 1; i < M; ++i) {
+      C s = c[tri(i, j)];
+#pragma unroll
+      for (int q = 0; q < j; ++q) s = s - c[tri(i, q)] * c[tri(j, q)];
+      c[tri(i, j)] = s * inv_d;
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The split form: one thread-block cluster per instance
 // ---------------------------------------------------------------------------

@@ -94,33 +94,14 @@ __device__ __forceinline__ void add_column(benlsip::compute_t<T> (&c)[M * (M + 1
   }
 }
 
-// reg on the diagonal, then Cholesky-Banachiewicz in place, the order of
-// cholesky.cu; then entry e of L is written by lane e % 32 of the warp.
+// reg on the diagonal, then Cholesky-Banachiewicz in place (common.cuh),
+// the order of cholesky.cu; then entry e of L is written by lane e % 32 of
+// the warp.
 template <typename T, int M>
 __device__ __forceinline__ void factor_and_store(benlsip::compute_t<T> (&c)[M * (M + 1) / 2],
                                                  benlsip::compute_t<T> reg, T* l, int lane) {
   using C = benlsip::compute_t<T>;
-  if (reg != C(0)) {
-#pragma unroll
-    for (int i = 0; i < M; ++i) c[tri(i, i)] = c[tri(i, i)] + reg;
-  }
-#pragma unroll
-  for (int j = 0; j < M; ++j) {
-    C acc = c[tri(j, j)];
-#pragma unroll
-    for (int q = 0; q < j; ++q) acc = acc - c[tri(j, q)] * c[tri(j, q)];
-    // No pivot clamping: sqrt of a negative pivot is NaN.
-    const C d = sqrt(acc);
-    c[tri(j, j)] = d;
-    const C inv_d = C(1) / d;
-#pragma unroll
-    for (int i = j + 1; i < M; ++i) {
-      C s = c[tri(i, j)];
-#pragma unroll
-      for (int q = 0; q < j; ++q) s = s - c[tri(i, q)] * c[tri(j, q)];
-      c[tri(i, j)] = s * inv_d;
-    }
-  }
+  benlsip::cholesky_in_place<C, M>(c, reg);
 #pragma unroll
   for (int i = 0; i < M; ++i) {
 #pragma unroll

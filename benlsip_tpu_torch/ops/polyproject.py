@@ -6,14 +6,19 @@ by a damped semismooth Newton iteration on F(λ) = A clip(x - Aᵀλ, l, u) - b
 with an exact vectorized line search on the concave dual; see the JAX
 module for the algorithm and the stall / cold-restart rescue.
 
-Batched: each lane runs its own Newton iteration; the loop is a masked
-state machine (`_loops.masked_while`, at most `max_iter` trips) in which a
-lane stops updating once its own predicate is false — the JAX package's
-`vmap` over `while_loop`.
-As in the JAX module, the Newton matrix is factored by the library
-Cholesky (`chol_linalg`, the JAX `_chol_xla`: bf16 in a float32 round
-trip) and solved through the kernel gate (`cho_solve_lower`: the solve
-kernel in float32 and bf16).
+Batched: each lane runs its own Newton iteration to its own exit.  Where
+`newton_on_kernel` says so (a CUDA tensor in float32 or bf16 with
+0 < m ≤ 16) the whole iteration is one launch of the hand-written kernel
+`kernels.batched_linalg.polyhedron_newton`: no host sync, no loop node in a
+captured graph.  Everything else (every CPU tensor, float64 — the
+certification's pix check — and m > 16) runs `dual_newton`, the kernel's
+plain version: a masked state machine (`_loops.masked_while`, at most
+`max_iter` trips) in which a lane stops updating once its own predicate is
+false — the JAX package's `vmap` over `while_loop`.  There, as in the JAX
+module, the Newton matrix is factored by the library Cholesky
+(`chol_linalg`, the JAX `_chol_xla`: bf16 in a float32 round trip) and
+solved through the kernel gate (`cho_solve_lower`: the solve kernel in
+float32 and bf16).
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ import torch
 
 from .._batched import full, mtv, mv, norm, sel, vdot
 from .._loops import masked_while
-from .cholesky import chol_linalg, cho_solve_lower
+from ..kernels import batched_linalg as kern
+from .cholesky import _kernel_eligible, _row_major_blocks, chol_linalg, cho_solve_lower
 from .constraints import Polyhedron
 
 Tensor = torch.Tensor
@@ -49,6 +55,14 @@ class _NewtonCarry(NamedTuple):
     restarted: Tensor
 
 
+def newton_on_kernel(device_type: str, dtype: torch.dtype, m: int, n: int) -> bool:
+    """Whether a projection of (m, n) instances of `dtype` on a device of
+    `device_type` runs the dual-Newton kernel: CUDA, float32 or bf16,
+    0 < m ≤ 16 (the gate of `ops/cholesky._fused_eligible`), n > 0.  A gate,
+    not a fallback: the kernel launches or raises."""
+    return device_type == "cuda" and _kernel_eligible(m, dtype) and n > 0
+
+
 def projection_polyhedron(
     poly: Polyhedron,
     x: Tensor,
@@ -64,9 +78,9 @@ def projection_polyhedron(
 
     `lam0` (B, m) warm-starts the dual; a warm start gets one in-loop cold
     restart when it stalls.  `active` (B,) restricts the iteration to the
-    lanes an enclosing loop still runs; other lanes return unspecified
-    values.  Returns v, plus the final dual and the Newton iteration count
-    when asked.
+    lanes an enclosing loop still runs; other lanes run no trip and return
+    v = clip(x − Aᵀλ₀, l, u) and λ₀.  Returns v, plus the final dual and the
+    Newton iteration count when asked.
     """
     dtype = x.dtype
     eps = torch.finfo(dtype).eps
@@ -74,7 +88,6 @@ def projection_polyhedron(
         tol = eps ** 0.75
     if reg is None:
         reg = eps ** 0.5
-    grow_pows, n_section = line_search_geometry(dtype)
 
     A, b, l, u = poly
     B, m, n = A.shape
@@ -88,6 +101,31 @@ def projection_polyhedron(
             out += (torch.zeros((B,), dtype=torch.int32, device=dev),)
         return out if len(out) > 1 else v
 
+    if newton_on_kernel(dev.type, dtype, m, n):
+        v, lam_fin, it = kern.polyhedron_newton(
+            _row_major_blocks(A), b.contiguous(), l.contiguous(), u.contiguous(),
+            x.contiguous(), tol, reg, max_iter, *line_search_geometry(dtype),
+            lam0=None if lam0 is None else lam0.to(dtype).contiguous(),
+            active=None if active is None else active.contiguous(),
+        )
+    else:
+        v, lam_fin, it = dual_newton(A, b, l, u, x, tol, reg, max_iter, lam0, active, *line_search_geometry(dtype))
+    ret = (v,)
+    if return_lam:
+        ret += (lam_fin,)
+    if return_iters:
+        ret += (it,)
+    return ret if len(ret) > 1 else ret[0]
+
+
+def dual_newton(A: Tensor, b: Tensor, l: Tensor, u: Tensor, x: Tensor, tol: float, reg: float, max_iter: int,
+                lam0: Optional[Tensor], active: Optional[Tensor], grow_pows: int, n_section: int):
+    """The dual Newton as a masked loop of batched torch ops, m > 0: the
+    plain version of the `polyhedron_newton` kernel, and the projection of
+    every call outside its gate.  Returns (v, λ, trips)."""
+    dtype = x.dtype
+    B, m, n = A.shape
+    dev = x.device
     eye = torch.eye(m, dtype=dtype, device=dev)
     tol_val = tol * (1 + norm(b))
     ts = 2.0 ** torch.arange(0, grow_pows + 1, device=dev).to(dtype)   # (T,)
@@ -188,12 +226,23 @@ def projection_polyhedron(
     run = cond(c) if active is None else active & cond(c)
     c = masked_while(cond, body, c, run, max_iter)   # `it` caps the trips at max_iter
     lam_fin = sel(c.Fnorm <= c.fbest, c.lam, c.lam_best)
-    ret = (v_of(lam_fin),)
-    if return_lam:
-        ret += (lam_fin,)
-    if return_iters:
-        ret += (c.it,)
-    return ret if len(ret) > 1 else ret[0]
+    return v_of(lam_fin), lam_fin, c.it
+
+
+def newton_plain(A: Tensor, b: Tensor, l: Tensor, u: Tensor, x: Tensor, tol: float, reg: float, max_iter: int,
+                 grow_pows: int, n_section: int, lam0: Optional[Tensor] = None, active: Optional[Tensor] = None):
+    """The plain PyTorch version of the `polyhedron_newton` kernel, with its
+    call signature: `dual_newton` with the given tolerances and geometry;
+    in bf16 that loop in float32 on the upcast inputs, v and λ rounded
+    once.  The kernel's wrapper runs it on CPU tensors."""
+    if x.dtype == torch.bfloat16:
+        up = [None if t is None else t.float() for t in (A, b, l, u, x, lam0)]
+        v, lam, it = dual_newton(*up[:5], tol, reg, max_iter, up[5], active, grow_pows, n_section)
+        return v.to(torch.bfloat16), lam.to(torch.bfloat16), it
+    return dual_newton(A, b, l, u, x, tol, reg, max_iter, lam0, active, grow_pows, n_section)
+
+
+kern.set_newton_plain(newton_plain)
 
 
 def criticality_measure_polyhedron(poly: Polyhedron, x: Tensor, g: Tensor) -> Tensor:

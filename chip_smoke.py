@@ -8,7 +8,7 @@ Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi); TF32 is off;
 2. build the CUDA kernels of benlsip_tpu_torch from csrc/ (nvcc, sm_90a);
-3. each of the six kernels against its plain PyTorch version on the card,
+3. each of the seven kernels against its plain PyTorch version on the card,
    in float32, at every path's shapes (batches of one included, config
    5's polish QR at 16,384 instances) and the
    kernel tests' shapes, with
@@ -28,6 +28,17 @@ Phases (any failure raises and the script exits non-zero):
    the degenerate pair, a shared A, ragged n, n = 40,960, m = 16, float64
    and bf16, lane by lane against the same lane run alone and call against
    call (bitwise);
+   the dual-Newton kernel `polyhedron_newton` (the whole loop of
+   `ops/polyproject` in one launch) against its plain version (that loop on
+   the card) at the paths' shapes (512×1×3, 64×6×192 with a shared A,
+   1×1×3, 1×8×10240, 1×8×1024 and 1×8×2048 in the split form; 512×1×3 and
+   64×6×192 in bf16),
+   cold, warm, warm from a stale dual that sends plain lanes into the cold
+   restart, with a third of the lanes inactive and a degenerate lane: v
+   within 1e-4·(1 + ‖x‖∞) where both converge, ‖F‖ ≤ tol wherever the
+   plain loop converges, no NaN the plain version lacks, the histogram of
+   trip-count differences printed; a lane alone bitwise equal to the same
+   lane in its batch, two calls bitwise equal, refused operands;
    then, taken in turns inside this one process (plain, kernel, library,
    library, kernel, plain; CUDA events over 200 calls, 20 for the panel
    QR), the time of every kernel, of its plain version and of the one
@@ -38,13 +49,20 @@ Phases (any failure raises and the script exits non-zero):
    with each form's device time a call from torch.profiler at every
    cluster size (at (1, 8, 10240) the split form must beat the old call
    site in every turn and take at most a tenth of the warp form's device
-   time);
+   time); the dual-Newton kernel in turns with its plain loop at each
+   path's shape, with its device µs a call and the bound from the run's
+   trips, and its layouts (the grid on the lanes against the columns on the
+   lanes at n from 3 to 32; the split form against one warp at 1×8×10240)
+   by device µs;
 4. the config-2 path: `solve_mixed_precision` on
    `exp_fit_family(1024, d=32, seed=42)` (float64 master data) on cuda:0,
-   with every kernel's launch count read around that run; 1024/1024 must
-   certify at max(pix) ≤ sqrt(eps(f64)) ≈ 1.49e-8, the independent numpy
-   KKT oracle must agree on 128 sampled instances, and a small batch must
-   agree with the port's CPU run (the plain versions);
+   with every kernel's launch count read around that run (the dual Newton
+   is `polyhedron_newton`, so `batched_cho_solve` must launch 0 times);
+   1024/1024 must certify at max(pix) ≤ sqrt(eps(f64)) ≈ 1.49e-8, the
+   independent numpy KKT oracle must agree on 128 sampled instances, and a
+   small batch must agree with the port's CPU run (the plain versions);
+   host syncs of the warm call and the device kernels of a traced warm run
+   beside the counts before the dual-Newton kernel (both must be lower);
 4b. the fused config-2 path: each of the four path kernels captured
    alone into a CUDA graph and replayed equals its eager call; then
    `solve_mixed_precision(..., fuse=True)` (`batch/fused_small.py`: the
@@ -177,13 +195,16 @@ Phases (any failure raises and the script exits non-zero):
 
 It imports nothing of JAX and nothing of the JAX package: the KKT oracle
 is the port's own copy.  The last two lines are the kernels' JSON record
-(launch counts per path, bf16 launches per bf16 path, times, bounds) and
-the result JSON.
+(launch counts per path, bf16 launches per bf16 path, times, bounds; the
+shapes the paths called the dual-Newton kernel at, recorded from phases
+4-10, whose layouts phase 3 must have checked) and the result JSON.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
+import functools
 import json
 import math
 import os
@@ -213,15 +234,25 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 # The kernels on each path; `batched_cholesky` runs there inside
-# `masked_aat_cholesky`, which holds its body.  Config 3 (n = 192) also
-# runs the panel QR kernel; config 2 (n = 3) has no wide QR.
-PATH_KERNELS = ("masked_aat_cholesky", "project_tangent", "batched_cho_solve", "batched_thin_qr")
-# Their CUDA function names, as a profiler trace shows them.
+# `masked_aat_cholesky`, which holds its body, and `batched_cho_solve`
+# inside `project_tangent` and `polyhedron_newton` (the dual Newton of
+# `ops/polyproject`, where every float32 path called it).  Config 3 (n = 192)
+# also runs the panel QR kernel; config 2 (n = 3) has no wide QR.
+PATH_KERNELS = ("masked_aat_cholesky", "project_tangent", "polyhedron_newton", "batched_thin_qr")
+# Their CUDA function names (the warp forms), as a profiler trace shows them.
 DEVICE_NAMES = {"masked_aat_cholesky": "masked_aat_cholesky_kernel", "project_tangent": "project_tangent_kernel",
-                "batched_cho_solve": "cho_solve_kernel", "batched_thin_qr": "mgs_qr_kernel"}
+                "polyhedron_newton": "polyhedron_newton_kernel", "batched_thin_qr": "mgs_qr_kernel"}
 CONFIG3_KERNELS = PATH_KERNELS + ("blocked_qr_r",)
 # Device kernels of one warm run before the panel QR kernel (H100 80GB HBM3, 700 W).
 DEVICE_KERNELS_BEFORE = {"config 2": "68,888-68,892", "config 3": "17,405-17,413"}
+# Device kernels of a traced warm run of config 3 before the dual-Newton kernel
+# (PERF.md §5; H100 80GB HBM3, 700 W).
+DEVICE_KERNELS_BEFORE_NEWTON = {"config 3": "16,878-17,010"}
+# Config 2 before the dual-Newton kernel (PERF.md §5; H100 80GB HBM3, 700 W):
+# host syncs of a warm eager call and device kernels of a traced warm eager
+# run; a warm fused call's WHILE-node trips and device kernels (exact).
+CONFIG2_BEFORE = {"host_syncs": "744-838", "device_kernels": "68,877-68,892", "while_trips": 491,
+                  "fused_device_kernels": 71481}
 # The sphere-regression fixture's optimum (float64 solves of both packages agree on these digits).
 SPHERE_X_STAR = (1.37471722, 0.08763489, 1.04998699)
 EPS32 = float(np.finfo(np.float32).eps)
@@ -388,7 +419,8 @@ def phase_build(kern) -> float:
             elif "Compiling entry function" in line:
                 entry = line.split("'")[1]
             elif "Used" in line and "registers" in line:
-                family = next((k for k in ("masked_aat_cholesky_split", "project_tangent_split", "masked_aat_cholesky",
+                family = next((k for k in ("polyhedron_newton_split", "polyhedron_newton",
+                                           "masked_aat_cholesky_split", "project_tangent_split", "masked_aat_cholesky",
                                            "project_tangent", "cholesky", "cho_solve", "mgs_qr", "blocked_qr_r")
                                if k in entry), entry)
                 used = int(line.split("Used")[1].split("registers")[0])
@@ -480,6 +512,8 @@ def phase_kernels(kern) -> dict:
     _check_fused(kern, rng, worst)
     _sync()
     _check_split(kern, rng)
+    _sync()
+    rec["polyhedron_newton"]["plans_checked"] = _check_newton(kern, rng, worst)
     _sync()
     print(f"fused kernels by plan (kernel, blocks per instance) over phase 3's checks: {dict(kern.LAUNCHES_BY_PLAN)}")
     _check_blocked_qr(kern, rng, worst)
@@ -664,6 +698,291 @@ def _check_split(kern, rng) -> None:
     split = {k: v - before.get(k, 0) for k, v in kern.LAUNCHES_BY_PLAN.items() if k[1] > 1 and v > before.get(k, 0)}
     if not {"masked_aat_cholesky", "project_tangent"} <= {name for name, _ in split}:
         raise AssertionError(f"split form: the checks above did not launch both kernels split: {split}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the dual-Newton kernel of ops/polyproject
+# ---------------------------------------------------------------------------
+
+# The kernel against its plain version (the masked loop of ops/polyproject on
+# the same card, the old solve kernel inside): the two sum in other orders,
+# so a lane may take another trip count; v within NEWTON_VTOL·(1 + ‖x‖∞) on
+# every lane where both converge (a bf16 v also within one bf16 ulp of the
+# plain one's: each rounds its float32 v once), ‖F‖ ≤ tol on every lane
+# the plain loop converges on, in both dtypes, no NaN where the plain version
+# has none, and at least one lane held in each case.
+NEWTON_VTOL = 1e-4
+# The paths' shapes (B, m, n, A shared by the batch): configs 2 and 5 and
+# sphere-b1024 (the bulk chunk), config 3, a float32 solve at B = 1, config 4.
+NEWTON_SHAPES = ((512, 1, 3, False), (64, 6, 192, True), (1, 1, 3, False), (1, 8, 10240, False))
+# The split form's other cluster sizes on a path: config 4's explicit-collective
+# run (n = 2048, S = 8) and its card-against-CPU run (n = 1024, S = 4).
+NEWTON_SPLIT_SHAPES = ((1, 8, 1024, False), (1, 8, 2048, False))
+# Shapes the paths called the kernel at, recorded from phases 4-10 (`_record_newton_shapes`).
+NEWTON_SEEN: dict = {}
+
+
+def _newton_case(rng, B, m, n, shared, dev, dtype=torch.float32):
+    """Polyhedra and points like the paths': A (a stride-0 expand of one
+    matrix when shared), boxes around 0, b = A·p for a point p in the box,
+    x spread over a few units; with B ≥ 3 the last lane is degenerate: x
+    above every upper bound, so no column is inside its box at λ = 0 and the
+    first Newton matrix is reg·I."""
+    A = rng.standard_normal((1 if shared else B, m, n))
+    l = -np.abs(rng.standard_normal((B, n))) - 0.1
+    u = np.abs(rng.standard_normal((B, n))) + 0.1
+    b = np.einsum("bmn,bn->bm", np.broadcast_to(A, (B, m, n)), rng.uniform(l, u))
+    x = 2.0 * rng.standard_normal((B, n))
+    if B >= 3:
+        x[-1] = u[-1] + 1.0 + rng.random(n)
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+    return (T(A).expand(B, m, n) if shared else T(A)), T(b), T(l), T(u), T(x)
+
+
+def _newton(fn, A, b, l, u, x, lam0=None, active=None):
+    """fn (the kernel wrapper or its plain version) with the projection's
+    defaults for x's dtype: tol eps^0.75, reg eps^0.5, 100 trips at most,
+    the line-search geometry of `line_search_geometry`."""
+    from benlsip_tpu_torch.ops.polyproject import line_search_geometry
+
+    eps = torch.finfo(x.dtype).eps
+    return fn(A, b, l, u, x, eps ** 0.75, eps ** 0.5, 100, *line_search_geometry(x.dtype), lam0=lam0, active=active)
+
+
+@contextlib.contextmanager
+def _forced_newton_plan(kern, plan: int):
+    """Run the dual-Newton kernel in one layout whatever the shape:
+    `newton_plan` swapped for a constant and restored after.  A measurement
+    of this script, not a knob of the port."""
+    saved = kern.newton_plan
+    kern.newton_plan = lambda M, n, dtype: plan
+    try:
+        yield
+    finally:
+        kern.newton_plan = saved
+
+
+@contextlib.contextmanager
+def _plain_restarts(out: list):
+    """Append to `out` how many lanes of each warm-started plain dual-Newton
+    loop run in the block spent their cold restart (read off the loop's
+    last carry)."""
+    from benlsip_tpu_torch.ops import polyproject
+
+    saved = polyproject.masked_while
+
+    def spy(cond, body, carry, run, cap):
+        c = saved(cond, body, carry, run, cap)
+        out.append(int(c.restarted.sum()))   # a warm start begins with no lane restarted
+        return c
+
+    polyproject.masked_while = spy
+    try:
+        yield
+    finally:
+        polyproject.masked_while = saved
+
+
+def _newton_gate(tag: str, got, want, A, b, x, lam0=None, active=None) -> float:
+    """Hold the kernel's (v, λ, trips) to the plain version's (module
+    comment above NEWTON_VTOL); returns the largest |v − v_plain| over the
+    lanes held."""
+    v, lam, it = got
+    vp, lamp, itp = want
+    B = x.shape[0]
+    eps = torch.finfo(x.dtype).eps
+    A64, b64 = A.double(), b.double()
+    tol_val = eps ** 0.75 * (1 + torch.linalg.vector_norm(b64, dim=-1))
+    fres = lambda vv: torch.linalg.vector_norm((A64 @ vv.double().unsqueeze(-1)).squeeze(-1) - b64, dim=-1)
+    run = torch.ones(B, dtype=torch.bool, device=x.device) if active is None else active
+    conv_k, conv_p = (fres(v) <= tol_val) & run, (fres(vp) <= tol_val) & run
+    scale = 1 + x.double().abs().amax(-1)
+    dv = (v.double() - vp.double()).abs()
+    slack = NEWTON_VTOL * scale
+    if x.dtype == torch.bfloat16:
+        dv = (dv - _bf16_ulp(vp.double()).double()).clamp_min(0)
+    dv = dv.amax(-1)
+    both = conv_k & conv_p
+    nan_k = torch.isnan(v).any(-1) | torch.isnan(lam).any(-1)
+    nan_p = torch.isnan(vp).any(-1) | torch.isnan(lamp).any(-1)
+    hist = collections.Counter((it - itp)[run].tolist())
+    print(f"polyhedron_newton {tag}: lanes {B} ({int(run.sum())} active), converged kernel {int(conv_k.sum())} plain "
+          f"{int(conv_p.sum())}, max |dv|/(1+|x|) where both converge {float((dv / scale)[both].max()) if both.any() else 0.0:.3e}, "
+          f"trips kernel {int(it[run].sum())} plain {int(itp[run].sum())}, trip differences (kernel - plain: lanes) "
+          f"{dict(sorted(hist.items()))}")
+    _require(not bool((nan_k & ~nan_p).any()), f"polyhedron_newton {tag}: NaN where the plain version has none")
+    _require(bool((dv <= slack)[both].all()), f"polyhedron_newton {tag}: v off the plain version's by "
+             f"{float((dv / scale)[both].max()):.3e}·(1 + |x|) where both converge")
+    _require(bool(both.any()), f"polyhedron_newton {tag}: no lane converged in both, so none was compared")
+    _require(bool(conv_k[conv_p].all()), f"polyhedron_newton {tag}: {int((conv_p & ~conv_k).sum())} lanes the plain "
+             "loop converges on miss ‖F‖ ≤ tol")
+    if active is not None:
+        idle = ~active
+        start = torch.zeros_like(lam) if lam0 is None else lam0
+        _require(bool((it[idle] == 0).all()) and torch.equal(_bits(lam[idle]), _bits(start[idle])),
+                 f"polyhedron_newton {tag}: an inactive lane ran or moved its dual")
+        _require(bool((dv[idle] <= slack[idle]).all()), f"polyhedron_newton {tag}: an inactive lane's v is off")
+    return float((v.double() - vp.double()).abs().amax(-1)[both | ~run].max()) if B else 0.0
+
+
+def _check_newton(kern, rng, worst) -> list:
+    """`polyhedron_newton` against its plain version at the paths' shapes
+    (NEWTON_SHAPES, NEWTON_SPLIT_SHAPES), cold, warm from the plain dual plus noise, warm from a
+    stale dual (λ* + 1e3·noise at config 3's shape: the plain loop spends
+    its cold restart on several lanes) and with a third of the lanes
+    inactive; in bf16 at the bf16 paths' shapes; batch independence (a lane
+    alone equals its bits in the batch, one per layout) and determinism
+    (two calls bitwise equal), in both dtypes.  Returns the layouts (plans)
+    checked."""
+    from benlsip_tpu_torch.ops.polyproject import newton_plain
+
+    dev = torch.device("cuda:0")
+    cases = [(s, torch.float32) for s in NEWTON_SHAPES + NEWTON_SPLIT_SHAPES]
+    cases += [((512, 1, 3, False), torch.bfloat16), ((64, 6, 192, True), torch.bfloat16)]
+    for (B, m, n, shared), dtype in cases:
+        A, b, l, u, x = _newton_case(rng, B, m, n, shared, dev, dtype)
+        tag = f"{B}x{m}x{n}{' shared A' if shared else ''} {str(dtype).removeprefix('torch.')} plan {kern.newton_plan(m, n, dtype)}"
+        cold = _newton(kern.polyhedron_newton, A, b, l, u, x)
+        cold_p = _newton(newton_plain, A, b, l, u, x)
+        worst("polyhedron_newton", _newton_gate(tag + " cold", cold, cold_p, A, b, x))
+        lam0 = (cold_p[1].float() + torch.as_tensor(rng.standard_normal((B, m)), dtype=torch.float32, device=dev)).to(dtype)
+        worst("polyhedron_newton", _newton_gate(tag + " warm", _newton(kern.polyhedron_newton, A, b, l, u, x, lam0),
+                                                _newton(newton_plain, A, b, l, u, x, lam0), A, b, x, lam0))
+        active = torch.as_tensor(np.arange(B) % 3 != 1, device=dev)
+        worst("polyhedron_newton", _newton_gate(
+            tag + " warm, lanes 1 mod 3 inactive", _newton(kern.polyhedron_newton, A, b, l, u, x, lam0, active),
+            _newton(newton_plain, A, b, l, u, x, lam0, active), A, b, x, lam0, active))
+        if (m, n) == (6, 192) and dtype == torch.float32:
+            stale = (cold_p[1] + 1e3 * torch.as_tensor(rng.standard_normal((B, m)), dtype=dtype, device=dev)).contiguous()
+            restarts = []
+            with _plain_restarts(restarts):
+                want = _newton(newton_plain, A, b, l, u, x, stale)
+            _require(restarts[-1] > 0, f"polyhedron_newton {tag}: the stale warm start restarted no plain lane")
+            worst("polyhedron_newton", _newton_gate(f"{tag} stale warm start ({restarts[-1]} plain lanes restarted)",
+                                                    _newton(kern.polyhedron_newton, A, b, l, u, x, stale), want, A, b, x, stale))
+        if B > 1:
+            again = _newton(kern.polyhedron_newton, A, b, l, u, x)
+            alone = [_newton(kern.polyhedron_newton, A[k:k + 1], b[k:k + 1], l[k:k + 1], u[k:k + 1], x[k:k + 1])
+                     for k in (0, B // 2, B - 1)]
+            _require(all(torch.equal(_bits(g), _bits(w)) for g, w in zip(again, cold)),
+                     f"polyhedron_newton {tag}: two calls differ")
+            for k, one in zip((0, B // 2, B - 1), alone):
+                _require(all(torch.equal(_bits(g), _bits(w[k:k + 1])) for g, w in zip(one, cold)),
+                         f"polyhedron_newton {tag}: lane {k} alone differs from its bits in the batch")
+    checked = {plan: k for (name, plan), k in kern.LAUNCHES_BY_PLAN.items() if name == "polyhedron_newton"}
+    print(f"polyhedron_newton: launches by plan over the checks {checked}")
+    # Refused operands raise before any launch.
+    A, b, l, u, x = _newton_case(rng, 8, 2, 5, False, dev)
+    before = dict(kern.LAUNCHES)
+    for exc, call in (
+        (TypeError, lambda: _newton(kern.polyhedron_newton, A.double(), b.double(), l.double(), u.double(), x.double())),
+        (ValueError, lambda: _newton(kern.polyhedron_newton, torch.zeros((8, 17, 5), device=dev), torch.zeros((8, 17), device=dev), l, u, x)),
+        (ValueError, lambda: _newton(kern.polyhedron_newton, A, b, l.cpu(), u, x)),
+        (ValueError, lambda: _newton(kern.polyhedron_newton, A, b, l, u, x.T.contiguous().T)),
+    ):
+        try:
+            call()
+        except exc:
+            continue
+        raise AssertionError("polyhedron_newton: a refused operand did not raise")
+    _require(kern.LAUNCHES == before, "polyhedron_newton: a refused operand launched")
+    return sorted(checked)
+
+
+def _newton_bound(B: int, m: int, n: int, shared: bool, trips: int, dtype: torch.dtype, warm: bool) -> dict:
+    """The least time of one call: inputs read once (A once if shared, b,
+    l, u, x, λ₀) and v, λ, trips written once, over the memory rate; or the
+    operations this run's trips need (each trip: z, K = A D Aᵀ over every
+    column, F and q; the m×m Cholesky and solve; w; ~5 flops a column at each
+    of the line search's 1 + grow_pows + 17·n_section points; F and q at the
+    trial point; plus F(0), F(λ₀) and the final v a lane) over the float32 peak."""
+    from benlsip_tpu_torch.ops.polyproject import line_search_geometry
+
+    G, n_sec = line_search_geometry(dtype)
+    item = torch.finfo(dtype).bits // 8
+    n_bytes = ((1 if shared else B) * m * n + B * (m + 3 * n) + (B * m if warm else 0) + B * (n + m)) * item + 4 * B
+    per_trip = n * (2 * m + m * (m + 1) + 2 * m + 3 + 2 * m + 5 * (1 + G + 17 * n_sec) + 4 * m + 3) + m ** 3 / 3 + 2 * m * m
+    return _bound(n_bytes, trips * per_trip + 6 * B * m * n)
+
+
+def _time_newton(kern, rng, rec) -> None:
+    """The dual-Newton kernel at the paths' shapes in turns with its plain
+    version on the card (the old call site: the masked loop with the old
+    solve kernel, one host sync a trip): kernel, plain, plain, kernel (CUDA
+    events; fewer calls of the plain loop), each kernel's device µs a call
+    from torch.profiler, the bound from this run's trips; bf16 beside
+    float32.  Then the layouts: the grid on the lanes against the columns on
+    the lanes at n from 3 to 32, and the split form against one warp at
+    config 4's shape, by device µs."""
+    from benlsip_tpu_torch.ops.polyproject import newton_plain
+
+    dev = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    cases = [(s, torch.float32) for s in NEWTON_SHAPES] + [((512, 1, 3, False), torch.bfloat16), ((64, 6, 192, True), torch.bfloat16)]
+    for (B, m, n, shared), dtype in cases:
+        A, b, l, u, x = _newton_case(rng, B, m, n, shared, dev, dtype)
+        x[-1] = x[0]    # no degenerate lane in a timed batch
+        kernel = lambda: _newton(kern.polyhedron_newton, A, b, l, u, x)
+        plain = lambda: _newton(newton_plain, A, b, l, u, x)
+        trips = int(kernel()[2].sum())
+        reps = {"kernel": 200 if n < 10240 else 50, "plain": 10 if n < 10240 else 3}
+        turns = {"kernel": [], "plain": []}
+        for name in ("kernel", "plain", "plain", "kernel"):
+            turns[name].append(_cuda_ms(kernel if name == "kernel" else plain, reps[name], 2))
+        ms = {k: sum(v) / len(v) for k, v in turns.items()}
+        dev_us = _device_us(kernel, 20)
+        bound = _newton_bound(B, m, n, shared, trips, dtype, False)
+        dt = "" if dtype == torch.float32 else "_bf16"
+        key = f"_{B}x{m}x{n}{dt}"
+        rec["polyhedron_newton"].update({
+            f"ms{key}": ms["kernel"], f"plain_ms{key}": ms["plain"],
+            # The float32 plain version is the old call site (the loop with the old solve kernel).
+            **({f"old_site_ms{key}": ms["plain"]} if dtype == torch.float32 else {}),
+            f"device_us{key}": dev_us, f"bound_ms{key}": bound["bound_ms"], f"bound_us{key}": bound["bound_us"],
+            f"bound_by{key}": bound["bound_by"], f"trips{key}": trips, f"plan{key}": kern.newton_plan(m, n, dtype),
+        })
+        if (B, m, n, dtype) == (512, 1, 3, torch.float32):
+            rec["polyhedron_newton"].update({"ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound["bound_ms"],
+                                             "bound_by": bound["bound_by"], "library_ms": None, "shape": "512x1x3"})
+        plain_name = "plain loop (old site)" if dtype == torch.float32 else "plain version (the float32 loop, rounded)"
+        print(f"polyhedron_newton {B}x{m}x{n}{' shared A' if shared else ''} {str(dtype).removeprefix('torch.')} "
+              f"(plan {kern.newton_plan(m, n, dtype)}, {trips} trips over the batch): kernel {ms['kernel']:.4f} ms "
+              f"(device {dev_us:.2f} us a call), {plain_name} {ms['plain']:.4f} ms "
+              f"(turns: kernel {['%.4f' % t for t in turns['kernel']]}, plain {['%.4f' % t for t in turns['plain']]}); "
+              f"bound {bound['bound_us']:.4f} us ({bound['bound_by']}: {bound['bytes']} B, {bound['flops']} flop)")
+    layouts = {}
+    for n in (3, 8, 16, 32):
+        A, b, l, u, x = _newton_case(rng, 512, 1, n, False, dev)
+        x[-1] = x[0]
+        for plan in (0, 1):
+            with _forced_newton_plan(kern, plan):
+                layouts[f"n={n} plan {plan}"] = _device_us(lambda: _newton(kern.polyhedron_newton, A, b, l, u, x), 20)
+    A, b, l, u, x = _newton_case(rng, 1, 8, 10240, False, dev)
+    plan = kern.newton_plan(8, 10240, torch.float32)
+    for p_ in (plan, 1):
+        with _forced_newton_plan(kern, p_):
+            layouts[f"1x8x10240 plan {p_}"] = _device_us(lambda: _newton(kern.polyhedron_newton, A, b, l, u, x), 3)
+    rec["polyhedron_newton"].update({f"device_us_layout_{k.replace(' ', '_')}": v for k, v in layouts.items()})
+    print("polyhedron_newton layouts, device us a call (512 x 1 x n: plan 0 the grid on the lanes, plan 1 the columns "
+          "on the lanes; 1 x 8 x 10240: the split form against one warp): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in layouts.items()))
+    print(f"polyhedron_newton timings: {time.perf_counter() - t0:.1f} s")
+
+
+def _record_newton_shapes(kern) -> None:
+    """From here on, record in NEWTON_SEEN each (B, m, n, dtype, plan) the
+    paths call the dual-Newton kernel at (the wrapper wrapped; it launches
+    as before)."""
+    call = kern.polyhedron_newton
+
+    @functools.wraps(call)   # `__wrapped__`: the wrapper itself, for calls that are not the paths'
+    def recording(A, b, l, u, x, *args, **kwargs):
+        key = (A.shape[0], A.shape[1], A.shape[2], str(x.dtype).removeprefix("torch."),
+               kern.newton_plan(A.shape[1], A.shape[2], x.dtype))
+        NEWTON_SEEN[key] = NEWTON_SEEN.get(key, 0) + 1
+        return call(A, b, l, u, x, *args, **kwargs)
+
+    kern.polyhedron_newton = recording
 
 
 def polish_stack(rng, B, d, n, dev, reg=0.0):
@@ -988,6 +1307,7 @@ def _time_kernels(kern, rng, rec) -> None:
         "plain": lambda: kern.batched_cho_solve_plain(L, b), "kernel": lambda: kern.batched_cho_solve(L, b),
         "library": lambda: torch.cholesky_solve(b.unsqueeze(-1), L)})
     _time_split(kern, rng, rec)
+    _time_newton(kern, rng, rec)
 
 
 # The split form's shapes: one instance of m = 8 from n = 192 (config 3's
@@ -1141,6 +1461,7 @@ def _oracle_agreement(tag: str, points) -> int:
 
 
 def phase_slice(kern) -> dict:
+    from benlsip_tpu_torch import _loops
     from benlsip_tpu_torch.batch.refine import solve_mixed_precision
     from benlsip_tpu_torch.problems.generators import exp_fit_family
     from benlsip_tpu_torch.solver.options import SolverOptions
@@ -1160,10 +1481,12 @@ def phase_slice(kern) -> dict:
     if not (torch.backends.cuda.matmul.allow_tf32 is False and torch.backends.cudnn.allow_tf32 is False):
         raise AssertionError("TF32 must be off on the main path")
 
+    _loops.reset_host_syncs()
     t0 = time.perf_counter()
     X2, _, info2 = solve_mixed_precision(bp, theta, X0, opts)
     _sync()
     warm = time.perf_counter() - t0
+    syncs = _loops.HOST_SYNCS
 
     n_cert = int(info.converged.sum())
     pix_max = float(info.pix.max())
@@ -1176,6 +1499,15 @@ def phase_slice(kern) -> dict:
     if not torch.equal(info2.converged, info.converged) or float((X2 - X).abs().max()) > SMALL_ATOL:
         raise AssertionError("slice: the warm run disagrees with the cold run")
     _check_launched("config 2", launches)
+    _require(launches["batched_cho_solve"] == 0, f"config 2: batched_cho_solve launched {launches['batched_cho_solve']} "
+             "times; the dual Newton, its one caller here, is the polyhedron_newton kernel")
+    # A traced warm run: device kernels in all and the dual Newton's.
+    kernels, newton = _traced_kernels(lambda: solve_mixed_precision(bp, theta, X0, opts), "polyhedron_newton")
+    print(f"config 2 eager: host syncs per warm call {syncs} (before the dual-Newton kernel "
+          f"{CONFIG2_BEFORE['host_syncs']}); a traced warm run: {kernels} device kernels (before "
+          f"{CONFIG2_BEFORE['device_kernels']}), {newton} of them polyhedron_newton")
+    _require(syncs < 744 and kernels < 68877, "config 2 eager: host syncs and device kernels must fall below the "
+             "lower ends of the counts before the dual-Newton kernel")
 
     # Independent first-principles KKT oracle on 128 sampled instances.
     fns = bp.instance_fns(theta)
@@ -1201,7 +1533,25 @@ def phase_slice(kern) -> dict:
     print(f"config 2 small batch (64): card vs CPU max |dX| {diff:.3e}, certified {int(ig.converged.sum())}/64 vs {int(ic.converged.sum())}/64")
     if not (bool(ig.converged.all()) and bool(ic.converged.all()) and diff <= SMALL_ATOL):
         raise AssertionError("small batch: the card's run disagrees with the CPU run")
-    return {"launches": launches, "cold_s": cold, "warm_s": warm, "certified": n_cert, "pix_max": pix_max}
+    return {"launches": launches, "cold_s": cold, "warm_s": warm, "certified": n_cert, "pix_max": pix_max,
+            "host_syncs": syncs, "device_kernels": kernels}
+
+
+def _traced_kernels(fn, name: str) -> tuple:
+    """(device kernels, those of kernel `name`) of one call of fn traced by
+    torch.profiler (a trace that sees no device kernel is taken again, at
+    most twice: the first trace of a process has come back empty there)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            _sync()
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return (sum(e.count for e in events),
+                    sum(e.count for e in events if re.search(rf"\b{DEVICE_NAMES[name]}[<(]", e.key)))
+    raise AssertionError("torch.profiler saw no device kernel in three traces")
 
 
 def _walled(fn):
@@ -1266,8 +1616,9 @@ def _check_while_nodes() -> None:
 
 
 def _check_captured_kernels(kern) -> None:
-    """Each kernel of the config-2 path captured alone into a CUDA graph at
-    the path's shapes and replayed: the replay equals the eager call."""
+    """Each kernel of the config-2 path (and the solve kernel, whose body
+    runs inside two of them) captured alone into a CUDA graph at the path's
+    shapes and replayed: the replay equals the eager call."""
     dev = torch.device("cuda:0")
     rng = np.random.default_rng(7)
     A, fixed, r = _fused_case(rng, 512, 1, 3, False, dev)
@@ -1276,10 +1627,13 @@ def _check_captured_kernels(kern) -> None:
     b = torch.as_tensor(rng.standard_normal((512, 1)), dtype=torch.float32, device=dev)
     S = torch.as_tensor(rng.standard_normal((1024, 35, 3)), dtype=torch.float32, device=dev)
     W = torch.as_tensor(rng.standard_normal((1024, 3, 1)), dtype=torch.float32, device=dev)
+    poly = _newton_case(rng, 512, 1, 3, False, dev)
     calls = {
         "masked_aat_cholesky": lambda: kern.masked_aat_cholesky(A, fixed),
         "project_tangent": lambda: kern.project_tangent(A, L, fixed, r),
         "batched_cho_solve": lambda: kern.batched_cho_solve(L, b),
+        # The wrapper itself: this check is not a path call for NEWTON_SEEN.
+        "polyhedron_newton": lambda: _newton(getattr(kern.polyhedron_newton, "__wrapped__", kern.polyhedron_newton), *poly),
         "batched_thin_qr": lambda: kern.batched_thin_qr(S) + kern.batched_thin_qr(W),
     }
     stream = torch.cuda.Stream()
@@ -1370,7 +1724,9 @@ def phase_fused(kern, smi: str, profile: bool) -> dict:
     # The replays run every trip the eager loops run, and branches the host
     # skips eagerly when no lane needs them.
     print(f"fused config 2: a warm call's {replay['replays']} graph replays ran {replay['loop_trips']} WHILE-node trips, "
-          f"{replay['device_kernels']} device kernels and {replay['device_copies']} copies (node counts x trips); "
+          f"{replay['device_kernels']} device kernels and {replay['device_copies']} copies (node counts x trips; "
+          f"before the dual-Newton kernel {CONFIG2_BEFORE['while_trips']} trips, {CONFIG2_BEFORE['fused_device_kernels']} "
+          f"device kernels); "
           f"path kernels run by the replays {executed}, "
           f"launched by the same stages run eagerly {eager_launches}")
     for name in PATH_KERNELS:
@@ -1485,6 +1841,9 @@ def phase_config3(kern) -> dict:
     if not torch.equal(info2.converged, info.converged) or float((X2 - X).abs().max()) > SMALL_ATOL:
         raise AssertionError("config 3: the warm run disagrees with the cold run")
     _check_launched("config 3", launches, CONFIG3_KERNELS)
+    kernels, newton = _traced_kernels(lambda: run("auto"), "polyhedron_newton")
+    print(f"config 3: a traced warm run: {kernels} device kernels (before the dual-Newton kernel "
+          f"{DEVICE_KERNELS_BEFORE_NEWTON['config 3']}), {newton} of them polyhedron_newton")
 
     # Host certification (f32 factors on the card, f64 chord on the CPU).
     kern.reset_launches()
@@ -1941,7 +2300,7 @@ def phase_config1(kern, smi: str) -> dict:
 # in the JAX package), and the gates `bench.py:223-240` holds it to.
 CONFIG4 = dict(n=10240, d=20480, m=8, seed=0, alpha=1.5)
 CONFIG4_ORACLE_TOL = 5e-4          # the oracle's stat_tol and feas_tol at f32 grade
-CONFIG4_KERNELS = ("masked_aat_cholesky", "project_tangent", "batched_cho_solve")
+CONFIG4_KERNELS = ("masked_aat_cholesky", "project_tangent", "polyhedron_newton")
 # The explicit-collective path on a one-rank group against the plain solve:
 # the same operations on the same data, so they agree far inside this.
 SHARDMAP_ATOL = 1e-5
@@ -2042,7 +2401,7 @@ def phase_config4(kern) -> dict:
     _require(list(builds) == ["normal/float32"] and builds["normal/float32"] > 0,
              f"config 4: the operator must be the Gram matrix in float32 only, built {builds}")
     _check_launched("config 4", launches, CONFIG4_KERNELS, small_n=False)
-    for name in ("masked_aat_cholesky", "project_tangent"):
+    for name in ("masked_aat_cholesky", "project_tangent", "polyhedron_newton"):
         _require(plan > 1 and by_plan.get(f"{name} S={plan}", 0) > 0,
                  f"config 4: {name} did not run in the split form (plan {plan}): {by_plan}")
     _require(bool(info2.converged) and warm_diff <= SMALL_ATOL,
@@ -2450,9 +2809,9 @@ def phase_profile(kern) -> None:
 BF16 = torch.bfloat16
 SMALL_KERNELS = ("batched_cholesky", "batched_cho_solve", "batched_thin_qr", "masked_aat_cholesky", "project_tangent")
 # The bf16 paths: config 2 and config 3 run the fused kernels and the dual
-# Newton's solve in bf16; only sphere_family (p = 1) runs the QR kernel in
-# its bulk (the multiplier estimate's thin_qr(Cᵀ)).
-BF16_PATH_KERNELS = ("masked_aat_cholesky", "project_tangent", "batched_cho_solve")
+# Newton in bf16; only sphere_family (p = 1) runs the QR kernel in its bulk
+# (the multiplier estimate's thin_qr(Cᵀ)).
+BF16_PATH_KERNELS = ("masked_aat_cholesky", "project_tangent", "polyhedron_newton")
 # The bulk's X against the float32 bulk's, both certified: the JAX package's
 # own bar for a bf16 bulk (tests/test_refine.py).
 BF16_RTOL, BF16_ATOL = 1e-7, 1e-8
@@ -2660,8 +3019,8 @@ def _record_bf16_time(rec: dict, name: str, shape: str, fns: dict, bound: dict) 
 
 
 def _bf16_launches(kern) -> dict:
-    """The bf16 launches of each small kernel since the last reset."""
-    return {name: kern.LAUNCHES_BY_DTYPE[name, "bfloat16"] for name in SMALL_KERNELS}
+    """The bf16 launches of each small kernel and of the dual Newton since the last reset."""
+    return {name: kern.LAUNCHES_BY_DTYPE[name, "bfloat16"] for name in SMALL_KERNELS + ("polyhedron_newton",)}
 
 
 def _first_polish(bp, theta, X0, opts, chunk: int, bulk_inner: int, bulk_dtype) -> int:
@@ -2980,6 +3339,7 @@ def main() -> None:
     print(f"card: {smi}")
     phase_build(kern)
     rec = phase_kernels(kern)
+    _record_newton_shapes(kern)
     res = phase_slice(kern)
     resf = phase_fused(kern, smi, "--profile" in sys.argv[1:])
     res3 = phase_config3(kern)
@@ -2999,6 +3359,7 @@ def main() -> None:
         "masked_aat_cholesky": (src + "masked_aat_cholesky.cu", "benlsip_tpu/kernels/batched_linalg.py:74"),
         "project_tangent": (src + "project_tangent.cu", "benlsip_tpu/kernels/batched_linalg.py:119"),
         "blocked_qr_r": (src + "blocked_qr.cu", "benlsip_tpu/kernels/batched_linalg.py:170"),
+        "polyhedron_newton": (src + "polyhedron_newton.cu", "benlsip_tpu/kernels/batched_linalg.py:119"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -3010,6 +3371,15 @@ def main() -> None:
             # record holds those launches; its own wrapper is behind
             # ops/cholesky.cholesky, which no path calls now.
             k["on_path_as"] = "masked_aat_cholesky"
+        if name == "batched_cho_solve":
+            # Its body runs inside project_tangent and polyhedron_newton (the
+            # dual Newton of ops/polyproject, its last caller on the paths).
+            k["on_path_as"] = "project_tangent, polyhedron_newton"
+        if name == "polyhedron_newton":
+            # The split form's own source and the device code both share;
+            # the (B, m, n, dtype, plan) the paths called it at, with counts.
+            k["sources"] = [source, src + "polyhedron_newton_split.cu", src + "polyhedron_newton.cuh"]
+            k["path_shapes"] = {"x".join(map(str, key)): v for key, v in sorted(NEWTON_SEEN.items())}
         if name == "blocked_qr_r":
             # Configs 1 and 2 (n = 3) have no wide QR and launch it 0 times.
             k["launches_config3_host"] = res3["launches_host"][name]
@@ -3040,13 +3410,19 @@ def main() -> None:
                   # Phase 10: ill_conditioned_family(64, n=100): the bulk with the
                   # QR split polish.
                   "launches_ill_conditioned": ress["ill"]["launches"][name], **rec[name]})
-        if name in SMALL_KERNELS:
+        if name in SMALL_KERNELS + ("polyhedron_newton",):
             # Phase 9: the bf16 instantiation's launches on each bf16 path's
-            # cold run, its check against the bf16 plain version and its times.
+            # cold run; the small kernels' check against the bf16 plain
+            # version and their times (the dual Newton's bf16 checks and times
+            # are phase 3's, in its record).
             k.update({"launches_bf16_config2": resb["config2"]["launches"][name],
                       "launches_bf16_config1_sphere": resb["sphere"]["launches"][name],
-                      "launches_bf16_config3": resb["config3"]["launches"][name], **resb["rec"][name]})
+                      "launches_bf16_config3": resb["config3"]["launches"][name], **resb["rec"].get(name, {})})
         kernels.append(k)
+    plans_checked = set(rec["polyhedron_newton"]["plans_checked"])
+    print(f"polyhedron_newton: (B, m, n, dtype, plan) the paths called it at, with counts: {NEWTON_SEEN}")
+    _require({key[-1] for key in NEWTON_SEEN} <= plans_checked,
+             f"polyhedron_newton: the paths ran a layout phase 3 did not check ({NEWTON_SEEN}, checked {plans_checked})")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

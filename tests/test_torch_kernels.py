@@ -174,7 +174,7 @@ def test_build_is_keyed_on_sources():
     assert p1 == p2 and p1.parent == tk.BUILD_DIR and p1.suffix == ".so"
     assert {s.name for s in tk.CSRC.glob("*.cu")} == {
         "cholesky.cu", "cho_solve.cu", "thin_qr.cu", "masked_aat_cholesky.cu", "project_tangent.cu",
-        "blocked_qr.cu", "graph_conditional.cu",
+        "blocked_qr.cu", "graph_conditional.cu", "polyhedron_newton.cu", "polyhedron_newton_split.cu",
     }
     assert "--use_fast_math" not in tk.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in tk.NVCC_FLAGS
     # Separately rounded products everywhere but in the panel QR, and the
@@ -361,7 +361,7 @@ def test_fused_dispatch_gate(rng):
         tk.masked_aat_cholesky(A_pi.to("meta"), fx.to("meta"))
     assert sum(tk.LAUNCHES.values()) == 0 and set(tk.LAUNCHES) == {
         "batched_cholesky", "batched_cho_solve", "batched_thin_qr", "masked_aat_cholesky", "project_tangent",
-        "blocked_qr_r",
+        "blocked_qr_r", "polyhedron_newton",
     }
 
 

@@ -38,19 +38,21 @@ rng = np.random.default_rng(11)
 TOL = dict(rtol=1e-11, atol=1e-11)
 
 
-def batched_polys(B=6, n=5, m=2, width=0.4):
-    A = rng.standard_normal((B, m, n))
-    x_feas = rng.standard_normal((B, n))
+def batched_polys(B=6, n=5, m=2, width=0.4, gen=None):
+    gen = rng if gen is None else gen
+    A = gen.standard_normal((B, m, n))
+    x_feas = gen.standard_normal((B, n))
     b = np.einsum("bmn,bn->bm", A, x_feas)
     xl, xu = x_feas - width, x_feas + width
     return A, b, xl, xu, x_feas
 
 
-def hs48_polys(B=4):
+def hs48_polys(B=4, gen=None):
+    gen = rng if gen is None else gen
     A = np.broadcast_to(np.asarray(hs48.A), (B, 2, 5)).copy()
     b = np.broadcast_to(np.asarray(hs48.b), (B, 2)).copy()
-    xl = np.full((B, 5), -4.0) + rng.uniform(-0.5, 0.0, (B, 5))
-    xu = np.full((B, 5), 4.0) + rng.uniform(0.0, 0.5, (B, 5))
+    xl = np.full((B, 5), -4.0) + gen.uniform(-0.5, 0.0, (B, 5))
+    xu = np.full((B, 5), 4.0) + gen.uniform(0.0, 0.5, (B, 5))
     return A, b, xl, xu, np.ones((B, 5))
 
 
@@ -230,29 +232,51 @@ def test_least_squares_multipliers_p_positive(method):
     np.testing.assert_allclose(tr[5].J.numpy(), np.asarray(jr[5].J), **TOL)
 
 
-@pytest.mark.parametrize("maker", [batched_polys, hs48_polys], ids=["random", "hs48"])
-def test_projection_polyhedron_cold_and_warm(maker):
-    A, b, xl, xu, _ = maker()
+@pytest.mark.parametrize(
+    "maker,dtype", [(batched_polys, np.float64), (hs48_polys, np.float64), (batched_polys, np.float32)],
+    ids=["random", "hs48", "random-float32"],
+)
+def test_projection_polyhedron_cold_and_warm(maker, dtype):
+    # float64: v to 1e-10, the dual to 1e-8; float32 (the kernel's dtypes,
+    # its plain loop on the CPU): v within 1e-5·(1 + |x|∞) a lane, no dual or
+    # trip-count comparison (a lane at the float32 floor may stall in one
+    # package and not the other).  The float32 case draws from its own
+    # generator, so the module's stream is the float64 cases' as before.
+    gen = rng if dtype == np.float64 else np.random.default_rng(23)
+    A, b, xl, xu, _ = (a.astype(dtype) for a in maker(gen=gen))
     B, m, n = A.shape
-    x = rng.standard_normal((B, n)) * 2.0
+    x = (gen.standard_normal((B, n)) * 2.0).astype(dtype)
+    f64 = dtype == np.float64
+
+    def v_close(got, want, pts):
+        if f64:
+            np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-10)
+        else:
+            bound = 1e-5 * (1 + np.abs(pts).max(-1, keepdims=True))
+            assert (np.abs(got - np.asarray(want)) <= bound).all(), np.abs(got - np.asarray(want)).max()
+
     jp, tp = jpoly(A, b, xl, xu), tpoly(A, b, xl, xu)
     jv, jlam = jax.vmap(lambda p, z: jpp.projection_polyhedron(p, z, return_lam=True), in_axes=(POLY_AXES, 0))(jp, jnp.asarray(x))
     tv, tlam, tit = tpp.projection_polyhedron(tp, torch.as_tensor(x), return_lam=True, return_iters=True)
-    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-10, atol=1e-10)
-    np.testing.assert_allclose(tlam.numpy(), np.asarray(jlam), rtol=1e-8, atol=1e-9)
+    v_close(tv.numpy(), jv, x)
+    if f64:
+        np.testing.assert_allclose(tlam.numpy(), np.asarray(jlam), rtol=1e-8, atol=1e-9)
     assert (tit.numpy() >= 1).all()
     # Warm start from a perturbed dual (exercises the restart machinery).
-    lam0 = np.asarray(jlam) + rng.standard_normal((B, m))
+    lam0 = (np.asarray(jlam) + gen.standard_normal((B, m))).astype(dtype)
     jw = jax.vmap(lambda p, z, l0: jpp.projection_polyhedron(p, z, lam0=l0), in_axes=(POLY_AXES, 0, 0))(jp, jnp.asarray(x), jnp.asarray(lam0))
     tw = tpp.projection_polyhedron(tp, torch.as_tensor(x), lam0=torch.as_tensor(lam0))
-    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-10, atol=1e-10)
+    v_close(tw.numpy(), jw, x)
     # Criticality measure, and the m == 0 (box only) case.
-    g = rng.standard_normal((B, n))
+    g = gen.standard_normal((B, n)).astype(dtype)
     xf = np.clip(x, xl, xu)
     jcm = jax.vmap(jpp.criticality_measure_polyhedron, in_axes=(POLY_AXES, 0, 0))(jp, jnp.asarray(xf), jnp.asarray(g))
     tcm = tpp.criticality_measure_polyhedron(tp, torch.as_tensor(xf), torch.as_tensor(g))
-    np.testing.assert_allclose(tcm.numpy(), np.asarray(jcm), rtol=1e-9, atol=1e-10)
-    box = tpoly(np.zeros((B, 0, n)), np.zeros((B, 0)), xl, xu)
+    if f64:
+        np.testing.assert_allclose(tcm.numpy(), np.asarray(jcm), rtol=1e-9, atol=1e-10)
+    else:
+        np.testing.assert_allclose(tcm.numpy(), np.asarray(jcm), rtol=0, atol=2e-5 * (1 + np.abs(xf - g).max()))
+    box = tpoly(np.zeros((B, 0, n), dtype), np.zeros((B, 0), dtype), xl, xu)
     np.testing.assert_array_equal(tpp.projection_polyhedron(box, torch.as_tensor(x)).numpy(), np.clip(x, xl, xu))
 
 
