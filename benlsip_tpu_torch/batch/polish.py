@@ -9,8 +9,9 @@ E = [C; A], through one of two factorizations (`sqp_polish`'s
 `kkt_factorization`; "auto" picks by the factors' dtype):
 
 * "qr", range-space: RJ = qr_r([JZ; D_fixed]) and Wᵀ = RJ⁻ᵀ(EZ)ᵀ = Qw Tw
-  (`qr_r` at (B, d+n, n): the narrow QR kernel at n ≤ 16, the panel QR
-  kernel above; `thin_qr` at (B, n, p+m): the narrow kernel),
+  (`qr_r_stacked` at (B, d+n, n): one launch of the narrow QR kernel's
+  R-only form at n ≤ 16, which makes D's rows up, the panel QR kernel on
+  the stacked matrix above; `thin_qr` at (B, n, p+m): the narrow kernel),
   O(κ(J)·eps) — the route for float32 factors;
 * "lu": the assembled (n+p+m)² KKT matrix
   [[ZJᵀJZ + diag(fixed) + reg·Z, (EZ)ᵀ], [EZ, -dual_reg·I]] by LU,
@@ -115,11 +116,11 @@ def _factor_qr(JZ: Tensor, EZ: Tensor, fixed: Tensor, reg: float, dual_reg: floa
     """RJ = qr_r([JZ; D]) with D = diag(fixed ? 1 : sqrt(reg)), so RJᵀRJ is
     the KKT matrix's H block, and Qw Tw = RJ⁻ᵀ(EZ)ᵀ (`dual_reg` is the LU
     route's; the range-space solve needs none)."""
-    from ..ops.qr import qr_r, thin_qr
+    from ..ops.qr import qr_r_stacked, thin_qr
 
     sreg = torch.sqrt(torch.full((), reg, dtype=JZ.dtype, device=JZ.device))
     dbot = torch.where(fixed, torch.ones((), dtype=JZ.dtype, device=JZ.device), sreg)
-    RJ = qr_r(torch.cat([JZ, torch.diag_embed(dbot)], dim=-2))        # (B, n, n)
+    RJ = qr_r_stacked(JZ, dbot)                                       # (B, n, n)
     Wt = torch.linalg.solve_triangular(RJ.mT, EZ.mT, upper=False)    # (B, n, q)
     return _QRFactors(RJ, *thin_qr(Wt))
 

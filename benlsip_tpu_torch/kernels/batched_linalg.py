@@ -7,7 +7,13 @@ CUDA C++ twins of the three Pallas TPU kernels of
 * `batched_cho_solve` ← `batched_cho_solve` / `_cho_solve_kernel` (:101, :119)
 * `batched_thin_qr`   ← `batched_thin_qr` / `_mgs_qr_kernel`     (:147, :170)
 
-and the four kernels that redesign them for this card:
+and the kernels that redesign them for this card:
+
+* the narrow thin QR itself (`csrc/thin_qr.cuh`): an instance read once and
+  factored in registers, G lanes an instance (the group form) or in shared
+  memory, one block an instance (the wide form), by `narrow_qr_plan(D, N,
+  dtype)`; `batched_thin_qr` returns Q and R, `narrow_qr_r` R only, of S or
+  of the stacked [S; diag(dbot)] (the polish's factor, one launch);
 
 * `masked_aat_cholesky`: L = chol(A Z Aᵀ + reg·I), the Cholesky kernel
   with the masked Gram product in front of it, one launch per call site;
@@ -29,7 +35,7 @@ and the four kernels that redesign them for this card:
   the columns on the lanes (plan 1), or the fused kernels' cluster of S
   blocks per instance (plan S, from `SPLIT_MIN_N` on).
 
-The five small kernels take float32, float64 and bfloat16, as the TPU
+The small kernels (all but the panel QR and the dual Newton) take float32, float64 and bfloat16, as the TPU
 kernels take float32 and bfloat16: a bf16 kernel computes in float32 and
 rounds each output once, and its plain version is the float32 plain
 version on the upcast inputs, rounded once (`_rounded_from_f32`).  The
@@ -84,6 +90,13 @@ Tensor = torch.Tensor
 
 MAX_DIM = 16        # largest M (Cholesky, solve) and N (QR) the kernels take
 MAX_QR_ROWS = 2048  # largest D the QR kernels take (the JAX gate's bound)
+# The narrow QR's group form (csrc/thin_qr.cuh): a lane holds at most
+# NARROW_QR_LANE_ROWS rows of its instance and at most
+# NARROW_QR_LANE_REGISTERS 32-bit registers of them (the rows a power of two); the wide form's block
+# has NARROW_QR_WIDE_WARPS warps (their partial sums in static shared memory).
+NARROW_QR_LANE_ROWS = 8
+NARROW_QR_LANE_REGISTERS = 128
+NARROW_QR_WIDE_WARPS = 8
 # The panel QR kernel behind `ops/qr.qr_r`: as many columns as it is measured
 # against the library call, and as few instances as it still beats it with
 # (one thread block factors one instance, the library gives each the card).
@@ -116,7 +129,7 @@ NVCC_FLAGS = (*NVCC_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 FMAD_SOURCES = ("blocked_qr.cu",)
 
 LAUNCHES = {
-    "batched_cholesky": 0, "batched_cho_solve": 0, "batched_thin_qr": 0,
+    "batched_cholesky": 0, "batched_cho_solve": 0, "batched_thin_qr": 0, "narrow_qr_r": 0,
     "masked_aat_cholesky": 0, "project_tangent": 0, "blocked_qr_r": 0, "polyhedron_newton": 0,
 }
 CAPTURED = dict.fromkeys(LAUNCHES, 0)   # launches recorded into CUDA graphs
@@ -177,8 +190,8 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "benlsip_cholesky": [_PTR, _PTR, _INT, _INT, _PTR],
     "benlsip_cho_solve": [_PTR] * 3 + [_INT, _INT, _PTR],
-    # A, Q, R, float workspace (bf16 only), B, D, N, stream
-    "benlsip_thin_qr": [_PTR] * 4 + [_INT] * 3 + [_PTR],
+    # A, dbot (or null), Q (or null), R, B, D, N, plan, stream
+    "benlsip_thin_qr": [_PTR] * 4 + [_INT] * 4 + [_PTR],
     # A, its batch stride, fixed, reg, L, B, M, n, plan (blocks per instance), stream
     "benlsip_masked_aat_cholesky": [_PTR, ctypes.c_longlong, _PTR, ctypes.c_double, _PTR] + [_INT] * 4 + [_PTR],
     # A, its batch stride, L, fixed, r, out, B, M, n, unmasked_output, plan, stream
@@ -507,6 +520,41 @@ def batched_thin_qr_plain(A: Tensor):
     return torch.stack(q, dim=2), R
 
 
+def narrow_qr_plan(D: int, N: int, dtype: torch.dtype) -> int:
+    """Layout of the narrow QR kernel for an instance of D rows (the stacked
+    rows included) and N columns: G ≥ 1, the group form with G lanes an
+    instance (the fewest, a power of two up to 32, that leave each lane at
+    most its share of rows), or 0, the wide form (one block an instance,
+    the instance in shared memory).  A function of the shape only, never of
+    the batch, so that a lane's bits do not depend on the batch it runs in."""
+    words = 2 if dtype == torch.float64 else 1
+    rows = NARROW_QR_LANE_ROWS              # a power of two: the kernel's slot counts are 1, 2, 4, 8
+    while rows > 1 and rows * N * words > NARROW_QR_LANE_REGISTERS:
+        rows //= 2
+    G = 1
+    while G <= 32:
+        if -(-D // G) <= rows:
+            return G
+        G *= 2
+    return 0
+
+
+def _narrow_qr_args(name: str, S: Tensor, dbot) -> int:
+    """Check the operands of the narrow QR kernel on the card; returns the
+    plan.  D counts the stacked rows of dbot."""
+    _require_cuda(name, S, *(() if dbot is None else (dbot,)))
+    B, D, N = S.shape
+    if dbot is not None:
+        D += N
+    if not (N <= MAX_DIM and N <= D <= MAX_QR_ROWS):
+        raise ValueError(f"{name}: need N <= {MAX_DIM} and N <= D <= {MAX_QR_ROWS} (stacked rows included), got D={D}, N={N}")
+    plan = narrow_qr_plan(D, N, S.dtype)
+    compute_size = 8 if S.dtype == torch.float64 else 4
+    if plan == 0 and (D | 1) * N * compute_size + NARROW_QR_WIDE_WARPS * MAX_DIM * compute_size > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{name}: a {D}x{N} {S.dtype} instance does not fit in one block's shared memory")
+    return plan
+
+
 def batched_thin_qr(A: Tensor):
     """Thin QR of a batch: A (B, D, N) -> (Q (B, D, N), R (B, N, N))."""
     if A.ndim != 3:
@@ -516,16 +564,39 @@ def batched_thin_qr(A: Tensor):
         return torch.zeros_like(A), torch.zeros((B, N, N), dtype=A.dtype, device=A.device)
     if _on_cpu(A):
         return batched_thin_qr_plain(A)
-    _require_cuda("batched_thin_qr", A)
-    if not (N <= MAX_DIM and N <= D <= MAX_QR_ROWS):
-        raise ValueError(f"batched_thin_qr: need N <= {MAX_DIM} and N <= D <= {MAX_QR_ROWS}, got D={D}, N={N}")
+    plan = _narrow_qr_args("batched_thin_qr", A, None)
     Q = torch.empty_like(A)
     R = torch.empty((B, N, N), dtype=A.dtype, device=A.device)
-    # bf16 computes its columns in a float32 workspace; float32/64 in Q.
-    work = torch.empty_like(A, dtype=torch.float32) if A.dtype == torch.bfloat16 else None
-    _launch("batched_thin_qr", "benlsip_thin_qr", A, A.data_ptr(), Q.data_ptr(), R.data_ptr(),
-            None if work is None else work.data_ptr(), B, D, N)
+    _launch("batched_thin_qr", "benlsip_thin_qr", A, A.data_ptr(), None, Q.data_ptr(), R.data_ptr(), B, D, N, plan)
     return Q, R
+
+
+def narrow_qr_r_plain(S: Tensor, dbot=None) -> Tensor:
+    """Plain PyTorch twin of the R-only narrow QR: `batched_thin_qr_plain`
+    of S, or of the stacked [S; diag(dbot)], R only."""
+    if dbot is not None:
+        S = torch.cat([S, torch.diag_embed(dbot)], dim=-2)
+    return batched_thin_qr_plain(S)[1]
+
+
+def narrow_qr_r(S: Tensor, dbot=None) -> Tensor:
+    """R factor of a batch by the narrow QR kernel, no Q written: S (B, D, N)
+    -> R (B, N, N); with dbot (B, N), R of [S; diag(dbot)] (B, D + N, N)
+    without the stacked matrix.  On the card R is bitwise the R of
+    `batched_thin_qr` of the same (stacked) matrix."""
+    if S.ndim != 3 or (dbot is not None and tuple(dbot.shape) != (S.shape[0], S.shape[2])):
+        raise ValueError(f"narrow_qr_r: expected (B, D, N) and (B, N), got {tuple(S.shape)}, "
+                         f"{None if dbot is None else tuple(dbot.shape)}")
+    B, D, N = S.shape
+    if B == 0 or N == 0:
+        return torch.zeros((B, N, N), dtype=S.dtype, device=S.device)
+    if _on_cpu(S):
+        return narrow_qr_r_plain(S, dbot)
+    plan = _narrow_qr_args("narrow_qr_r", S, dbot)
+    R = torch.empty((B, N, N), dtype=S.dtype, device=S.device)
+    _launch("narrow_qr_r", "benlsip_thin_qr", S, S.data_ptr(), None if dbot is None else dbot.data_ptr(), None,
+            R.data_ptr(), B, D, N, plan)
+    return R
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,11 @@
 Dispatch starts from the JAX gate (`ops/qr.py:31-40` there): batched
 float32 and bfloat16 matrices with 0 < N ≤ 16 columns and N ≤ D ≤ 2048 rows go to the
 hand-written modified Gram–Schmidt kernel (`kernels/batched_linalg.py`;
-its plain PyTorch version on a CPU tensor).  The bound N ≤ 16 is the TPU
+its plain PyTorch version on a CPU tensor): `batched_thin_qr` where Q is
+wanted, `narrow_qr_r` (no Q written) where R alone is.  `qr_r_stacked(JZ,
+dbot)` is R of [JZ; diag(dbot)], the polish's factor: inside the narrow gate
+one launch of `narrow_qr_r` that makes the diagonal rows up, elsewhere
+`qr_r` of the stacked matrix.  The bound N ≤ 16 is the TPU
 kernel's (it unrolls N(N+1)/2 column updates over a slab held in VMEM), not
 this card's: `qr_r`, which wants R only, sends float32 16 < N ≤ 256 at the
 same row bound and a batch of at least 4 to the panel kernel `blocked_qr_r` (block
@@ -45,11 +49,13 @@ _BF16 = torch.bfloat16
 
 
 def _kernel_eligible(S: Tensor, max_cols: int = kern.MAX_DIM, min_batch: int = 0,
-                     dtypes: tuple = (torch.float32, _BF16)) -> bool:
+                     dtypes: tuple = (torch.float32, _BF16), extra_rows: int = 0) -> bool:
+    """Whether S (B, D, N), with `extra_rows` more rows stacked under it,
+    is inside a kernel's gate."""
     if S.ndim != 3:
         return False
     B, D, N = S.shape
-    return (0 < N <= max_cols and N <= D <= kern.MAX_QR_ROWS and B >= min_batch
+    return (0 < N <= max_cols and N <= D + extra_rows <= kern.MAX_QR_ROWS and B >= min_batch
             and S.dtype in dtypes)
 
 
@@ -66,12 +72,22 @@ def thin_qr(S: Tensor):
 def qr_r(S: Tensor) -> Tensor:
     """R factor only of a batch (B, D, N) -> (B, K, N): RᵀR = SᵀS."""
     if _kernel_eligible(S):
-        return kern.batched_thin_qr(S.contiguous())[1]
+        return kern.narrow_qr_r(S.contiguous())
     if S.dtype == _BF16:
         return qr_r(S.float()).to(_BF16)
     if _kernel_eligible(S, kern.MAX_BLOCKED_QR_COLS, kern.MIN_BLOCKED_QR_BATCH, (torch.float32,)):
         return kern.blocked_qr_r(S.contiguous())
     return torch.linalg.qr(S, mode="r")[1]
+
+
+def qr_r_stacked(JZ: Tensor, dbot: Tensor) -> Tensor:
+    """R factor of the stacked [JZ; diag(dbot)], JZ (B, d, n), dbot (B, n)
+    -> (B, n, n): one launch of the narrow kernel, which makes the diagonal
+    rows up (the same bits as the kernel on the stacked matrix); `qr_r` of
+    the stacked matrix outside its gate."""
+    if _kernel_eligible(JZ, extra_rows=JZ.shape[-1]):
+        return kern.narrow_qr_r(JZ.contiguous(), dbot.contiguous())
+    return qr_r(torch.cat([JZ, torch.diag_embed(dbot)], dim=-2))
 
 
 def _chol_upper(G: Tensor) -> Tensor:

@@ -8,11 +8,16 @@ Phases (any failure raises and the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi); TF32 is off;
 2. build the CUDA kernels of benlsip_tpu_torch from csrc/ (nvcc, sm_90a);
-3. each of the seven kernels against its plain PyTorch version on the card,
+3. each kernel against its plain PyTorch version on the card,
    in float32, at every path's shapes (batches of one included, config
    5's polish QR at 16,384 instances) and the
    kernel tests' shapes, with
    the NaN, positive-diagonal, empty-batch and refused-operand checks; the
+   narrow QR also in its R-only form (`narrow_qr_r`) and its stacked form
+   (R of [JZ; diag(dbot)], the polish's factor) bitwise equal to the full
+   R of the same matrix, lanes alone and a permuted batch bitwise equal to
+   the batch's, NaN and a zero column in one lane, and at the gate's
+   corners (4 and 64 instances of 2048 x 16: the wide form); the
    two fused kernels also with a batch-shared (stride-0) A, ragged n,
    degenerate lanes and reg > 0, and against the call site they replace;
    the panel QR kernel also against `torch.linalg.qr` and SᵀS, at the
@@ -51,7 +56,9 @@ Phases (any failure raises and the script exits non-zero):
    site in every turn and take at most a tenth of the warp form's device
    time); the dual-Newton kernel in turns with its plain loop at each
    path's shape, with its device µs a call and the bound from the run's
-   trips, and its layouts (the grid on the lanes against the columns on the
+   trips; the narrow QR's three forms at every path's shape and the gate's
+   corners, with the plain version and `torch.linalg.qr`, and by device µs
+   a call; the dual Newton's layouts (the grid on the lanes against the columns on the
    lanes at n from 3 to 32; the split form against one warp at 1×8×10240)
    by device µs;
 4. the config-2 path: `solve_mixed_precision` on
@@ -239,9 +246,15 @@ PEAK_F32_FLOPS = 67e12
 # `ops/polyproject`, where every float32 path called it).  Config 3 (n = 192)
 # also runs the panel QR kernel; config 2 (n = 3) has no wide QR.
 PATH_KERNELS = ("masked_aat_cholesky", "project_tangent", "polyhedron_newton", "batched_thin_qr")
-# Their CUDA function names (the warp forms), as a profiler trace shows them.
+# Configs 1, 2 and 5 (n = 3) also factor the polish's [JZ; D] by the narrow
+# QR's R-only form, one launch of `narrow_qr_r` a factor step.
+POLISH_KERNELS = PATH_KERNELS + ("narrow_qr_r",)
+# Their CUDA function names (the warp forms), as a profiler trace shows them;
+# the two narrow QR entries launch the same kernels (group or wide form).
+NARROW_QR_DEVICE = "narrow_qr_(?:group|wide)_kernel"
 DEVICE_NAMES = {"masked_aat_cholesky": "masked_aat_cholesky_kernel", "project_tangent": "project_tangent_kernel",
-                "polyhedron_newton": "polyhedron_newton_kernel", "batched_thin_qr": "mgs_qr_kernel"}
+                "polyhedron_newton": "polyhedron_newton_kernel", "batched_thin_qr": NARROW_QR_DEVICE,
+                "narrow_qr_r": NARROW_QR_DEVICE}
 CONFIG3_KERNELS = PATH_KERNELS + ("blocked_qr_r",)
 # Device kernels of one warm run before the panel QR kernel (H100 80GB HBM3, 700 W).
 DEVICE_KERNELS_BEFORE = {"config 2": "68,888-68,892", "config 3": "17,405-17,413"}
@@ -253,6 +266,9 @@ DEVICE_KERNELS_BEFORE_NEWTON = {"config 3": "16,878-17,010"}
 # run; a warm fused call's WHILE-node trips and device kernels (exact).
 CONFIG2_BEFORE = {"host_syncs": "744-838", "device_kernels": "68,877-68,892", "while_trips": 491,
                   "fused_device_kernels": 71481}
+# Device kernels of config 2's traced warm eager run before the polish's
+# [JZ; D] was one launch of the stacked narrow QR (PERF.md §5; H100 80GB HBM3, 700 W).
+CONFIG2_DEVICE_KERNELS_BEFORE_STACKED = 53672
 # The sphere-regression fixture's optimum (float64 solves of both packages agree on these digits).
 SPHERE_X_STAR = (1.37471722, 0.08763489, 1.04998699)
 EPS32 = float(np.finfo(np.float32).eps)
@@ -410,7 +426,8 @@ def phase_build(kern) -> float:
         # ptxas report: the most registers of any instantiation of each
         # kernel, those of the float32 instantiations the paths run
         # (M = 1 and M = 6; config 4's split form at M = 8; the panel QR at
-        # width 32), and every instantiation that spills.
+        # width 32; the narrow QR's group form at N = 1, 2, 3 and 6), and every
+        # instantiation that spills.
         regs, on_path, entry, seconds = {}, {}, "?", {}
         for line in log.read_text().splitlines():
             if line.startswith("== ") and "compiled in" in line:
@@ -421,7 +438,8 @@ def phase_build(kern) -> float:
             elif "Used" in line and "registers" in line:
                 family = next((k for k in ("polyhedron_newton_split", "polyhedron_newton",
                                            "masked_aat_cholesky_split", "project_tangent_split", "masked_aat_cholesky",
-                                           "project_tangent", "cholesky", "cho_solve", "mgs_qr", "blocked_qr_r")
+                                           "project_tangent", "cholesky", "cho_solve", "narrow_qr_group", "narrow_qr_wide",
+                                           "blocked_qr_r")
                                if k in entry), entry)
                 used = int(line.split("Used")[1].split("registers")[0])
                 regs[family] = max(regs.get(family, 0), used)
@@ -429,7 +447,9 @@ def phase_build(kern) -> float:
                     if "IfLi32E" in entry:
                         on_path[f"{family} width=32"] = used
                     continue
-                for M in ((8,) if family.endswith("_split") else (1, 6)):
+                # The narrow QR's group form at the paths' N (its template argument).
+                dims = (8,) if family.endswith("_split") else (1, 2, 3, 6) if family == "narrow_qr_group" else (1, 6)
+                for M in dims:
                     for dt, mangled in (("", "f"), (" bf16", "13__nv_bfloat16")):
                         if f"I{mangled}Li{M}E" in entry:
                             key = f"{family}{dt} M={M}"
@@ -476,19 +496,7 @@ def phase_kernels(kern) -> dict:
     if not torch.equal(torch.isnan(L), torch.isnan(kern.batched_cholesky_plain(K))):
         raise AssertionError("cholesky: NaN pattern differs from the plain version")
 
-    for B, D, N in ((1024, 35, 3), (1024, 3, 1), (16384, 35, 3), (16384, 3, 1), (64, 192, 6), (200, 32, 3), (140, 16, 8),
-                    (1024, 3, 2), (1024, 7, 3), (1, 3, 1), (1, 3, 2), (1, 7, 3), (1, 35, 3), (1, 192, 6)):
-        A = torch.as_tensor(rng.standard_normal((B, D, N)), dtype=f32, device=dev)
-        Q, R = kern.batched_thin_qr(A)
-        Qp, Rp = kern.batched_thin_qr_plain(A)
-        worst("batched_thin_qr", max(
-            _check_close(f"qr Q {B}x{D}x{N}", Q, Qp),
-            _check_close(f"qr R {B}x{D}x{N}", R, Rp, atol=KERNEL_ATOL * math.sqrt(D)),
-        ))
-        if not (torch.diagonal(R, dim1=1, dim2=2) > 0).all() or torch.tril(R, -1).abs().max() != 0:
-            raise AssertionError("qr: R must be upper triangular with a positive diagonal")
-        if not torch.allclose(Q @ R, A, rtol=1e-4, atol=1e-4):
-            raise AssertionError("qr: Q R does not reproduce A")
+    _check_narrow_qr(kern, rng, worst)
 
     # Empty batches: no launch, JAX-shaped outputs.
     before = dict(kern.LAUNCHES)
@@ -523,6 +531,125 @@ def phase_kernels(kern) -> dict:
     _time_kernels(kern, rng, rec)
     print(f"phase 3 (kernels): {time.perf_counter() - t_phase:.1f} s")
     return rec
+
+
+# The narrow QR's checked shapes: every path's, the kernel tests' and the
+# gate's two corners (4 and 64 instances of 2048 x 16: the wide form).
+NARROW_QR_CHECKS = ((1024, 35, 3), (1024, 3, 1), (16384, 35, 3), (16384, 3, 1), (64, 192, 6), (200, 32, 3), (140, 16, 8),
+                    (1024, 3, 2), (1024, 7, 3), (512, 3, 1), (1, 3, 1), (1, 3, 2), (1, 7, 3), (1, 35, 3), (1, 192, 6),
+                    (130, 300, 16), (4, 2048, 16), (64, 2048, 16))
+
+
+def _stack(JZ: torch.Tensor, dbot: torch.Tensor) -> torch.Tensor:
+    """The polish's stacked matrix [JZ; diag(dbot)]."""
+    return torch.cat([JZ, torch.diag_embed(dbot)], dim=-2)
+
+
+def _polish_dbot(rng, B: int, N: int, dev, dtype=torch.float32) -> torch.Tensor:
+    """dbot as the polish builds it: 1 on a fixed coordinate, sqrt(reg) on
+    a free one (reg = 1e-3), a third of the coordinates fixed; the first
+    lane has none fixed, the second all."""
+    fixed = rng.random((B, N)) < 1 / 3
+    fixed[0], fixed[min(1, B - 1)] = False, True
+    return torch.as_tensor(np.where(fixed, 1.0, math.sqrt(1e-3)), dtype=torch.float32, device=dev).to(dtype)
+
+
+def _check_narrow_qr(kern, rng, worst) -> None:
+    """The narrow QR kernel (`batched_thin_qr`, Q and R; `narrow_qr_r`, R
+    only, of S or of the stacked [JZ; diag(dbot)]) against its plain version
+    at every shape of NARROW_QR_CHECKS in float32 (Q within KERNEL_ATOL, R
+    within KERNEL_ATOL·√D: the sums run in another order), R upper
+    triangular with a positive diagonal, QR = A; the R-only and stacked
+    forms bitwise equal to the full R of the same (stacked) matrix; a lane
+    alone and a permuted batch bitwise equal to the batch's lanes; NaN in one
+    instance only; a zero column floored at √tiny; refused operands."""
+    dev = torch.device("cuda:0")
+    f32 = torch.float32
+    forms = collections.Counter()
+    for B, D, N in NARROW_QR_CHECKS:
+        A = torch.as_tensor(rng.standard_normal((B, D, N)), dtype=f32, device=dev)
+        tag = f"{B}x{D}x{N} (plan {kern.narrow_qr_plan(D, N, f32)})"
+        forms["wide" if kern.narrow_qr_plan(D, N, f32) == 0 else "group"] += 1
+        Q, R = kern.batched_thin_qr(A)
+        Qp, Rp = kern.batched_thin_qr_plain(A)
+        worst("batched_thin_qr", max(
+            _check_close(f"qr Q {tag}", Q, Qp),
+            _check_close(f"qr R {tag}", R, Rp, atol=KERNEL_ATOL * math.sqrt(D)),
+        ))
+        if not (torch.diagonal(R, dim1=1, dim2=2) > 0).all() or torch.tril(R, -1).abs().max() != 0:
+            raise AssertionError(f"qr {tag}: R must be upper triangular with a positive diagonal")
+        if not torch.allclose(Q @ R, A, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"qr {tag}: Q R does not reproduce A")
+        _require(torch.equal(_bits(kern.narrow_qr_r(A)), _bits(R)), f"narrow_qr_r {tag}: R only differs from the full R")
+        # The stacked form at the same total rows: JZ of D - N rows and dbot.
+        if D > N:
+            JZ, dbot = A[:, : D - N].contiguous(), _polish_dbot(rng, B, N, dev)
+            S = _stack(JZ, dbot)
+            Rs = kern.narrow_qr_r(JZ, dbot)
+            worst("narrow_qr_r", _check_close(f"narrow_qr_r stacked {tag}", Rs, kern.narrow_qr_r_plain(JZ, dbot),
+                                              atol=KERNEL_ATOL * math.sqrt(D)))
+            _require(torch.equal(_bits(Rs), _bits(kern.narrow_qr_r(S))) and torch.equal(_bits(Rs), _bits(kern.batched_thin_qr(S)[1])),
+                     f"narrow_qr_r stacked {tag}: not bitwise the R of the stacked matrix")
+        # A lane's bits do not depend on its batch: lanes alone, a permuted batch.
+        if B > 1 and (D, N) in ((35, 3), (3, 1), (7, 3), (192, 6), (2048, 16)):
+            perm = torch.as_tensor(rng.permutation(B), device=dev)
+            Qq, Rq = kern.batched_thin_qr(A[perm].contiguous())
+            _require(torch.equal(_bits(Qq), _bits(Q[perm])) and torch.equal(_bits(Rq), _bits(R[perm])),
+                     f"qr {tag}: a permuted batch differs from the batch's lanes")
+            for b in (0, B // 2, B - 1):
+                Qb, Rb = kern.batched_thin_qr(A[b:b + 1].contiguous())
+                _require(torch.equal(_bits(Qb), _bits(Q[b:b + 1])) and torch.equal(_bits(Rb), _bits(R[b:b + 1])),
+                         f"qr {tag}: lane {b} alone differs from lane {b} in the batch")
+                if D > N:
+                    _require(torch.equal(_bits(kern.narrow_qr_r(JZ[b:b + 1], dbot[b:b + 1])), _bits(Rs[b:b + 1])),
+                             f"narrow_qr_r stacked {tag}: lane {b} alone differs from lane {b} in the batch")
+    print(f"narrow QR: {sum(forms.values())} shapes checked ({dict(forms)} by form); R only and stacked bitwise equal "
+          "to the full R; lanes alone and permuted batches bitwise equal to the batch's")
+    # NaN in one instance stays there; a zero column floors at sqrt(tiny); in
+    # both forms, the other lanes' bits unchanged.
+    sqrt_tiny = torch.sqrt(torch.tensor(torch.finfo(f32).tiny, device=dev))
+    for B, D, N in ((1024, 35, 3), (64, 192, 6), (4, 2048, 16)):
+        A = torch.as_tensor(rng.standard_normal((B, D, N)), dtype=f32, device=dev)
+        Q0, R0 = kern.batched_thin_qr(A)
+        A[1, D // 2, N - 1] = float("nan")
+        A[2, :, 1] = 0.0
+        Q, R = kern.batched_thin_qr(A)
+        Qp, Rp = kern.batched_thin_qr_plain(A)
+        rest = torch.ones(B, dtype=torch.bool, device=dev)
+        rest[1:3] = False
+        tag = f"qr {B}x{D}x{N}"
+        _require(torch.equal(torch.isnan(R), torch.isnan(Rp)) and torch.equal(torch.isnan(Q), torch.isnan(Qp)),
+                 f"{tag}: NaN pattern differs from the plain version's")
+        _require(bool(torch.isnan(R[1]).any()) and bool(torch.isfinite(R[rest]).all()) and bool(torch.isfinite(R[2]).all()),
+                 f"{tag}: NaN must stay in its own instance")
+        _require(torch.equal(_bits(R[rest]), _bits(R0[rest])) and torch.equal(_bits(Q[rest]), _bits(Q0[rest])),
+                 f"{tag}: a NaN or a zero column in one instance moved another's bits")
+        _require(bool(R[2, 1, 1] == sqrt_tiny) and bool(Rp[2, 1, 1] == sqrt_tiny) and bool((Q[2, :, 1] == 0).all()),
+                 f"{tag}: a zero column must floor its norm at sqrt(tiny) = {float(sqrt_tiny):.3e}, got {float(R[2, 1, 1]):.3e}")
+        _require(torch.equal(_bits(kern.narrow_qr_r(A)), _bits(R)), f"narrow_qr_r {B}x{D}x{N}: R only differs with a NaN lane")
+    print("narrow QR: NaN stays in its instance, a zero column floors at sqrt(tiny), the other lanes' bits unchanged "
+          "(group and wide forms)")
+    # Empty batches launch nothing; refused operands raise before any launch.
+    before = dict(kern.LAUNCHES)
+    z = lambda *shape, **kw: torch.zeros(shape, device=dev, **kw)
+    _require(kern.narrow_qr_r(z(0, 32, 3), z(0, 3)).shape == (0, 3, 3) and kern.narrow_qr_r(z(0, 35, 3)).shape == (0, 3, 3),
+             "narrow_qr_r: an empty batch must give (0, N, N)")
+    for i, (exc, call) in enumerate((
+        (ValueError, lambda: kern.narrow_qr_r(z(4, 40, 17))),                     # N > 16
+        (ValueError, lambda: kern.narrow_qr_r(z(4, 2040, 16), z(4, 16))),         # D + N > 2048
+        (ValueError, lambda: kern.narrow_qr_r(z(4, 32, 3), z(4, 3, dtype=torch.float64))),
+        (ValueError, lambda: kern.narrow_qr_r(z(4, 32, 3), z(4, 3).cpu())),
+        (ValueError, lambda: kern.narrow_qr_r(z(4, 3, 32).mT)),                    # not contiguous
+        (ValueError, lambda: kern.narrow_qr_r(z(4, 32, 3), z(4, 2))),
+        (ValueError, lambda: kern.batched_thin_qr(z(4, 2, 3))),                   # D < N
+        (ValueError, lambda: kern.batched_thin_qr(z(4, 2048, 16, dtype=torch.float64))),  # the wide form's shared memory
+    )):
+        try:
+            call()
+        except exc:
+            continue
+        raise AssertionError(f"narrow QR: refused operand {i} was accepted")
+    _require(kern.LAUNCHES == before, "narrow QR: an empty batch or a refused operand launched")
 
 
 def _fused_case(rng, B, m, n, shared, dev):
@@ -1207,15 +1334,13 @@ def _time_kernels(kern, rng, rec) -> None:
     """Times at each path's shapes, in turns, with bounds and library calls.
 
     Config 2: the bulk factors and projects at the chunk width
-    (512, m = 1, n = 3) with a per-instance A, the certification's QR runs
-    at B = 1024.  Config 3: (64, m = 6, n = 192) with one A shared by the
-    batch (a stride-0 expand), the polish's thin_qr(Wᵀ) at (64, 192, 6)."""
+    (512, m = 1, n = 3) with a per-instance A.  Config 3: (64, m = 6,
+    n = 192) with one A shared by the batch (a stride-0 expand).  The narrow
+    QR at every path's shapes in `_time_narrow_qr`."""
     dev = torch.device("cuda:0")
     f32 = torch.float32
     paths = {}
-    for suffix, (B, m, n, shared, qr_shape) in {
-        "": (512, 1, 3, False, (1024, 35, 3)), "_config3": (64, 6, 192, True, (64, 192, 6)),
-    }.items():
+    for suffix, (B, m, n, shared) in {"": (512, 1, 3, False), "_config3": (64, 6, 192, True)}.items():
         A, fixed, r = _fused_case(rng, B, m, n, shared, dev)
         fixed[B - 2:] = fixed[0]     # no degenerate lanes in the timed batch
         if shared:                    # a generic shared matrix, as the path has
@@ -1223,7 +1348,6 @@ def _time_kernels(kern, rng, rec) -> None:
         L = kern.masked_aat_cholesky(A, fixed)
         K = (L @ L.mT).contiguous()
         b = torch.as_tensor(rng.standard_normal((B, m)), dtype=f32, device=dev)
-        S = torch.as_tensor(rng.standard_normal(qr_shape), dtype=f32, device=dev)
         n_free = int((~fixed).sum())
         a_bytes = (1 if shared else B) * m * n * 4
         paths[suffix] = {
@@ -1236,10 +1360,6 @@ def _time_kernels(kern, rng, rec) -> None:
                 plain=lambda L=L, b=b: kern.batched_cho_solve_plain(L, b),
                 library=lambda L=L, b=b: torch.cholesky_solve(b.unsqueeze(-1), L),
                 bound=_bound(B * (m * m + 2 * m) * 4, 2 * B * m * m)),
-            "batched_thin_qr": dict(
-                shape="x".join(map(str, qr_shape)), kernel=lambda S=S: kern.batched_thin_qr(S),
-                plain=lambda S=S: kern.batched_thin_qr_plain(S), library=lambda S=S: torch.linalg.qr(S, mode="reduced"),
-                bound=_qr_bound(*qr_shape)),
             "masked_aat_cholesky": dict(
                 shape=f"{B}x{m}x{n}{' shared A' if shared else ''}",
                 kernel=lambda A=A, fixed=fixed: kern.masked_aat_cholesky(A, fixed),
@@ -1269,17 +1389,7 @@ def _time_kernels(kern, rng, rec) -> None:
             print(f"{name} {case['shape']}: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
                   f"{yard.replace('_', ' ')} {t[yard]:.4f} ms, bound {case['bound']['bound_us']:.4f} us "
                   f"({case['bound']['bound_by']}: {case['bound']['bytes']} B, {case['bound']['flops']} flop)")
-    # The narrow QR at the other call sites' shapes: the multiplier estimate's
-    # thin_qr(Cᵀ) (config 2's polish has the same shape), the config-1
-    # polish's qr_r([JZ; D]) and thin_qr(Wᵀ), and one instance.
-    # Config 5's polish runs both at the sweep chunk's 16,384 lanes, where
-    # the library call takes about a second: 5 calls a turn there.
-    for shape in ((1024, 3, 1), (1024, 7, 3), (1024, 3, 2), (1, 3, 1), (16384, 35, 3), (16384, 3, 1)):
-        W = torch.as_tensor(rng.standard_normal(shape), dtype=f32, device=dev)
-        _time_extra(rec, "batched_thin_qr", shape, _qr_bound(*shape), {
-            "plain": lambda W=W: kern.batched_thin_qr_plain(W), "kernel": lambda W=W: kern.batched_thin_qr(W),
-            "library": lambda W=W: torch.linalg.qr(W, mode="reduced")},
-            *((5, 2) if shape[0] > 1024 else ()))
+    _time_narrow_qr(kern, rng, rec)
     # One instance (a float32 `solve` at B = 1), n = 3, m = 1.
     A, fixed, r = (t[:1].contiguous() for t in _fused_case(rng, 3, 1, 3, False, dev))
     L = kern.masked_aat_cholesky(A, fixed)
@@ -1415,17 +1525,74 @@ def _time_split(kern, rng, rec) -> None:
     print(f"split form timings: {time.perf_counter() - t0:.1f} s")
 
 
-def _time_extra(rec: dict, name: str, shape: tuple, bound: dict, fns: dict, reps: int = 200, warm: int = 10) -> None:
+def _time_extra(rec: dict, name: str, shape: tuple, bound: dict, fns: dict) -> None:
     """Time one kernel at one more shape, in turns with its plain version
     and its library call (or the call site it replaces); the record's keys
     carry the shape as a suffix."""
-    t = _in_turns(fns, reps, warm)
+    t = _in_turns(fns)
     yard = "library" if "library" in fns else "old_site"
     suffix = "_" + "x".join(map(str, shape))
     rec[name].update({"ms" + suffix: t["kernel"], "plain_ms" + suffix: t["plain"], f"{yard}_ms" + suffix: t[yard],
                       "bound_us" + suffix: bound["bound_us"], "bound_by" + suffix: bound["bound_by"]})
     print(f"{name} {suffix[1:]}: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, {yard.replace('_', ' ')} {t[yard]:.4f} ms, "
           f"bound {bound['bound_us']:.4f} us ({bound['bound_by']}: {bound['bytes']} B, {bound['flops']} flop)")
+
+
+# The narrow QR's timed shapes: every path's (the polishes' qr_r([JZ; D]) and
+# thin_qr(Wᵀ) of configs 2, 5, 1 and 3, the multiplier estimate's thin_qr(Cᵀ),
+# a float32 solve at B = 1, phase 3's one instance) and the gate's corners.
+NARROW_QR_SHAPES = ((1024, 35, 3), (1024, 3, 1), (16384, 35, 3), (16384, 3, 1), (1024, 7, 3), (1024, 3, 2),
+                    (512, 3, 1), (64, 192, 6), (1, 3, 1), (1, 35, 3), (4, 2048, 16), (64, 2048, 16))
+# The polish's stacked [JZ; D] among them (d + n rows): configs 2 and 5 (d = 32) and config 1's sphere (d = 4).
+NARROW_QR_STACKED = ((1024, 35, 3), (16384, 35, 3), (1024, 7, 3))
+
+
+def _time_narrow_qr(kern, rng, rec) -> None:
+    """The narrow QR at every shape of NARROW_QR_SHAPES, float32: its forms
+    (`batched_thin_qr`, Q and R; `narrow_qr_r`, R only; at the polish's
+    shapes `narrow_qr_r(JZ, dbot)`, the stacked form) in turns with the plain
+    version and `torch.linalg.qr` (CUDA events: forms, plain, library,
+    library, plain, forms; fewer calls of the plain and library), then each
+    form's device µs a call (torch.profiler), beside the bounds: Q and R
+    `_qr_bound`, R only `_r_bound`, stacked JZ and dbot read and R written.
+    The record's main keys: batched_thin_qr at config 2's thin_qr(Wᵀ),
+    1024x3x1, narrow_qr_r at config 2's polish, the stacked form at
+    1024x(32+3)x3."""
+    dev = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    for shape in NARROW_QR_SHAPES:
+        B, D, N = shape
+        A = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+        key = "x".join(map(str, shape))
+        forms = {"qr": lambda A=A: kern.batched_thin_qr(A), "r_only": lambda A=A: kern.narrow_qr_r(A)}
+        bounds = {"qr": _qr_bound(B, D, N), "r_only": _r_bound(B, D, N)}
+        if shape in NARROW_QR_STACKED:
+            JZ, dbot = A[:, : D - N].contiguous(), _polish_dbot(rng, B, N, dev)
+            forms["stacked"] = lambda JZ=JZ, dbot=dbot: kern.narrow_qr_r(JZ, dbot)
+            bounds["stacked"] = _bound(B * ((D - N) * N + N + N * N) * 4, B * (2 * D * N * N - 2 * N ** 3 / 3))
+        calls = {**forms, "plain": lambda A=A: kern.batched_thin_qr_plain(A),
+                 "library": lambda A=A: torch.linalg.qr(A, mode="reduced")}
+        reps = {name: 200 for name in forms} | {"plain": 20, "library": 2 if B > 1024 else (5 if B > 1 else 50)}
+        total = dict.fromkeys(calls, 0.0)
+        for name in list(calls) + list(calls)[::-1]:
+            total[name] += _cuda_ms(calls[name], reps[name], 2) / 2
+        dev_us = {name: _device_us(fn, 20) for name, fn in forms.items()}
+        for name in forms:
+            rk, sfx = ("batched_thin_qr", "") if name == "qr" else ("narrow_qr_r", "_stacked" if name == "stacked" else "")
+            b = bounds[name]
+            rec[rk].update({f"ms_{key}{sfx}": total[name], f"device_us_{key}{sfx}": dev_us[name],
+                            f"plain_ms_{key}": total["plain"], f"library_ms_{key}": total["library"],
+                            f"bound_ms_{key}{sfx}": b["bound_ms"], f"bound_us_{key}{sfx}": b["bound_us"],
+                            f"bound_by_{key}{sfx}": b["bound_by"]})
+            if (key, name) in (("1024x3x1", "qr"), ("1024x35x3", "stacked")):   # the record's main keys
+                rec[rk].update({"ms": total[name], "plain_ms": total["plain"], "library_ms": total["library"],
+                                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "device_us": dev_us[name],
+                                "shape": key + (" stacked (32+3 rows)" if name == "stacked" else "")})
+        print(f"narrow QR {key} (plan {kern.narrow_qr_plan(D, N, torch.float32)}): device us a call "
+              + ", ".join(f"{name} {dev_us[name]:.3f} (bound {bounds[name]['bound_us']:.4f} us, {bounds[name]['bound_by']}: "
+                          f"{bounds[name]['bytes']} B)" for name in forms)
+              + "; events ms a call " + ", ".join(f"{name} {t:.4f}" for name, t in total.items()))
+    print(f"narrow QR timings: {time.perf_counter() - t0:.1f} s")
 
 
 def _check_launched(tag: str, launches: dict, names=PATH_KERNELS, small_n: bool = True) -> None:
@@ -1498,14 +1665,16 @@ def phase_slice(kern) -> dict:
         raise AssertionError(f"slice: {n_cert}/{B} certified, max pix {pix_max:.3e} (need {B} at ≤ {CERT_PIX:.3e})")
     if not torch.equal(info2.converged, info.converged) or float((X2 - X).abs().max()) > SMALL_ATOL:
         raise AssertionError("slice: the warm run disagrees with the cold run")
-    _check_launched("config 2", launches)
+    _check_launched("config 2", launches, POLISH_KERNELS)
     _require(launches["batched_cho_solve"] == 0, f"config 2: batched_cho_solve launched {launches['batched_cho_solve']} "
              "times; the dual Newton, its one caller here, is the polyhedron_newton kernel")
     # A traced warm run: device kernels in all and the dual Newton's.
     kernels, newton = _traced_kernels(lambda: solve_mixed_precision(bp, theta, X0, opts), "polyhedron_newton")
     print(f"config 2 eager: host syncs per warm call {syncs} (before the dual-Newton kernel "
-          f"{CONFIG2_BEFORE['host_syncs']}); a traced warm run: {kernels} device kernels (before "
-          f"{CONFIG2_BEFORE['device_kernels']}), {newton} of them polyhedron_newton")
+          f"{CONFIG2_BEFORE['host_syncs']}); a traced warm run: {kernels} device kernels (before the dual-Newton "
+          f"kernel {CONFIG2_BEFORE['device_kernels']}; before the stacked narrow QR "
+          f"{CONFIG2_DEVICE_KERNELS_BEFORE_STACKED:,}: {kernels - CONFIG2_DEVICE_KERNELS_BEFORE_STACKED:+d}), "
+          f"{newton} of them polyhedron_newton")
     _require(syncs < 744 and kernels < 68877, "config 2 eager: host syncs and device kernels must fall below the "
              "lower ends of the counts before the dual-Newton kernel")
 
@@ -1627,6 +1796,7 @@ def _check_captured_kernels(kern) -> None:
     b = torch.as_tensor(rng.standard_normal((512, 1)), dtype=torch.float32, device=dev)
     S = torch.as_tensor(rng.standard_normal((1024, 35, 3)), dtype=torch.float32, device=dev)
     W = torch.as_tensor(rng.standard_normal((1024, 3, 1)), dtype=torch.float32, device=dev)
+    JZ, dbot = S[:, :32].contiguous(), _polish_dbot(rng, 1024, 3, dev)
     poly = _newton_case(rng, 512, 1, 3, False, dev)
     calls = {
         "masked_aat_cholesky": lambda: kern.masked_aat_cholesky(A, fixed),
@@ -1635,6 +1805,7 @@ def _check_captured_kernels(kern) -> None:
         # The wrapper itself: this check is not a path call for NEWTON_SEEN.
         "polyhedron_newton": lambda: _newton(getattr(kern.polyhedron_newton, "__wrapped__", kern.polyhedron_newton), *poly),
         "batched_thin_qr": lambda: kern.batched_thin_qr(S) + kern.batched_thin_qr(W),
+        "narrow_qr_r": lambda: (kern.narrow_qr_r(JZ, dbot), kern.narrow_qr_r(S)),
     }
     stream = torch.cuda.Stream()
     for name, fn in calls.items():
@@ -1729,9 +1900,9 @@ def phase_fused(kern, smi: str, profile: bool) -> dict:
           f"device kernels); "
           f"path kernels run by the replays {executed}, "
           f"launched by the same stages run eagerly {eager_launches}")
-    for name in PATH_KERNELS:
+    for name in POLISH_KERNELS:
         _require(captured[name] > 0 and executed[name] > 0, f"fused config 2: kernel {name} captured {captured[name]}, run by the replays {executed[name]}")
-    _require(all(executed[k] >= eager_launches[k] for k in PATH_KERNELS),
+    _require(all(executed[k] >= eager_launches[k] for k in POLISH_KERNELS),
              f"fused config 2: the replays ran fewer path kernels ({executed}) than the same stages eagerly ({eager_launches})")
 
     # The oracle on 128 sampled instances.
@@ -1780,7 +1951,7 @@ def phase_fused(kern, smi: str, profile: bool) -> dict:
             events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
             dev_us = sum(e.self_device_time_total for e in events)
             on_device = {k: sum(e.count for e in events if re.search(rf"\b{DEVICE_NAMES[k]}[<(]", e.key))
-                         for k in PATH_KERNELS}
+                         for k in PATH_KERNELS}   # batched_thin_qr: both narrow QR entries
             print(f"profile fused config 2 ({name}): wall {wall:.4f} s, device span {span:.4f} s ({100 * span / wall:.1f}%); "
                   f"traced wall {traced:.3f} s, traced device time {dev_us / 1e6:.4f} s ({100 * dev_us / 1e6 / traced:.1f}%), "
                   f"{sum(e.count for e in events)} traced device kernels, path kernels in the trace {on_device}")
@@ -2204,7 +2375,8 @@ def _sphere_batch(kern, smi: str) -> dict:
         _require(n_cert >= 0.9 * B, f"{tag}: only {n_cert}/{B} certified")
         _require(float(info.pix[ok].max()) <= CERT_PIX and float(info.feas[ok].max()) <= CERT_PIX, f"{tag}: a certified lane misses 1.49e-8")
         _require(torch.equal(info2.converged, ok) and float((X2 - X)[ok].abs().max()) <= SMALL_ATOL, f"{tag}: the warm run disagrees with the cold run")
-        _check_launched(tag, launches)
+        # certify="host" polishes in float64 on the CPU: no polish kernel there.
+        _check_launched(tag, launches, PATH_KERNELS if mode == "host" else POLISH_KERNELS)
         _require(launches["blocked_qr_r"] == 0, f"{tag}: n = 3 has no wide QR")
 
         # The oracle on 128 sampled certified lanes, the nonlinear block handed over.
@@ -2539,7 +2711,7 @@ def phase_config5(kern, smi: str) -> dict:
     (X, Y, info), cold = _walled(call["plain"])
     launches = {"plain": dict(kern.LAUNCHES)}
     _check_certified("config 5 plain", X, info, B, 3)
-    _check_launched("config 5", launches["plain"])
+    _check_launched("config 5", launches["plain"], POLISH_KERNELS)
     out, first = {"plain": (X, Y, info)}, {"plain": cold}
     kern.reset_launches()
     compact.reset_stats()
@@ -2554,8 +2726,8 @@ def phase_config5(kern, smi: str) -> dict:
     executed = fused_small.replay_counts()["launches"]
     for name, (Xr, _, ir) in out.items():
         _check_certified(f"config 5 {name}", Xr, ir, B, 3)
-    _check_launched("config 5 compact", launches["compact"])
-    for k in PATH_KERNELS:
+    _check_launched("config 5 compact", launches["compact"], POLISH_KERNELS)
+    for k in POLISH_KERNELS:
         _require(captured[k] > 0 and executed[k] > 0,
                  f"config 5 fused: kernel {k} captured {captured[k]}, run by the replays {executed[k]}")
     Xk, Xf = out["compact"][0], out["fused"][0]
@@ -2807,7 +2979,8 @@ def phase_profile(kern) -> None:
 # ---------------------------------------------------------------------------
 
 BF16 = torch.bfloat16
-SMALL_KERNELS = ("batched_cholesky", "batched_cho_solve", "batched_thin_qr", "masked_aat_cholesky", "project_tangent")
+SMALL_KERNELS = ("batched_cholesky", "batched_cho_solve", "batched_thin_qr", "narrow_qr_r", "masked_aat_cholesky",
+                 "project_tangent")
 # The bf16 paths: config 2 and config 3 run the fused kernels and the dual
 # Newton in bf16; only sphere_family (p = 1) runs the QR kernel in its bulk
 # (the multiplier estimate's thin_qr(Cᵀ)).
@@ -2883,6 +3056,16 @@ def _bf16_kernel_checks(kern) -> dict:
         worst("batched_thin_qr", _check_bf16(f"qr bf16 R {B}x{D}x{N}", R, Rp, KERNEL_ATOL * math.sqrt(D)))
         if not (torch.diagonal(R.float(), dim1=1, dim2=2) > 0).all() or torch.tril(R.float(), -1).abs().max() != 0:
             raise AssertionError("qr bf16: R must be upper triangular with a positive diagonal")
+        # The R-only and stacked forms: R of the same (stacked) matrix, bit for bit.
+        worst("narrow_qr_r", _check_bf16(f"narrow_qr_r bf16 {B}x{D}x{N}", kern.narrow_qr_r(A), Rp, KERNEL_ATOL * math.sqrt(D)))
+        _require(torch.equal(_bits(kern.narrow_qr_r(A)), _bits(R)), f"narrow_qr_r bf16 {B}x{D}x{N}: R only differs from the full R")
+        if D > N:
+            JZ, dbot = A[:, : D - N].contiguous(), _polish_dbot(rng, B, N, dev, BF16)
+            Rs = kern.narrow_qr_r(JZ, dbot)
+            worst("narrow_qr_r", _check_bf16(f"narrow_qr_r bf16 stacked {B}x{D}x{N}", Rs, kern.narrow_qr_r_plain(JZ, dbot),
+                                             KERNEL_ATOL * math.sqrt(D)))
+            _require(torch.equal(_bits(Rs), _bits(kern.batched_thin_qr(_stack(JZ, dbot))[1])),
+                     f"narrow_qr_r bf16 stacked {B}x{D}x{N}: not bitwise the R of the stacked matrix")
 
     cases = [(512, 1, 3, False), (64, 6, 192, True), (64, 6, 192, False), (130, 3, 37, False), (130, 16, 200, True)]
     for B, m, n, shared in cases + [(1, 1, 3, False), (1, 6, 192, False), (2, 2, 5, False)]:
@@ -3000,11 +3183,22 @@ def _bf16_times(kern, rec: dict) -> None:
         Wb = torch.as_tensor(rng.standard_normal(shape), dtype=BF16, device=dev)
         W32 = Wb.float()
         B, D, N = shape
-        _record_bf16_time(rec, "batched_thin_qr", "x".join(map(str, shape)), dict(
+        key = "x".join(map(str, shape))
+        _record_bf16_time(rec, "batched_thin_qr", key, dict(
             kernel_bf16=lambda: kern.batched_thin_qr(Wb), kernel_f32=lambda: kern.batched_thin_qr(W32),
             plain=lambda: kern.batched_thin_qr_plain(Wb),
             library=lambda: tuple(t.to(BF16) for t in torch.linalg.qr(W32, mode="reduced"))),
             _bound(B * (2 * D * N + N * N) * 2, 2 * B * D * N * N))
+        JZ, dbot = Wb[:, : D - N].contiguous(), _polish_dbot(rng, B, N, dev, BF16)
+        _record_bf16_time(rec, "narrow_qr_r", key + "_stacked", dict(
+            kernel_bf16=lambda: kern.narrow_qr_r(JZ, dbot), kernel_f32=lambda: kern.narrow_qr_r(JZ.float(), dbot.float()),
+            plain=lambda: kern.narrow_qr_r_plain(JZ, dbot),
+            library=lambda: torch.linalg.qr(_stack(JZ, dbot).float(), mode="r")[1].to(BF16)),
+            _bound(B * ((D - N) * N + N + N * N) * 2, B * (2 * D * N * N - 2 * N ** 3 / 3)))
+        us = {"qr": _device_us(lambda: kern.batched_thin_qr(Wb), 20), "stacked": _device_us(lambda: kern.narrow_qr_r(JZ, dbot), 20)}
+        rec["batched_thin_qr"][f"device_us_bf16_{key}"] = us["qr"]
+        rec["narrow_qr_r"][f"device_us_bf16_{key}_stacked"] = us["stacked"]
+        print(f"narrow QR bf16 {key}: device us a call batched_thin_qr {us['qr']:.3f}, narrow_qr_r stacked {us['stacked']:.3f}")
 
 
 def _record_bf16_time(rec: dict, name: str, shape: str, fns: dict, bound: dict) -> None:
@@ -3355,7 +3549,8 @@ def main() -> None:
     sources = {
         "batched_cholesky": (src + "cholesky.cu", "benlsip_tpu/kernels/batched_linalg.py:74"),
         "batched_cho_solve": (src + "cho_solve.cu", "benlsip_tpu/kernels/batched_linalg.py:119"),
-        "batched_thin_qr": (src + "thin_qr.cu", "benlsip_tpu/kernels/batched_linalg.py:170"),
+        "batched_thin_qr": (src + "thin_qr.cuh", "benlsip_tpu/kernels/batched_linalg.py:170"),
+        "narrow_qr_r": (src + "thin_qr.cuh", "benlsip_tpu/kernels/batched_linalg.py:170"),
         "masked_aat_cholesky": (src + "masked_aat_cholesky.cu", "benlsip_tpu/kernels/batched_linalg.py:74"),
         "project_tangent": (src + "project_tangent.cu", "benlsip_tpu/kernels/batched_linalg.py:119"),
         "blocked_qr_r": (src + "blocked_qr.cu", "benlsip_tpu/kernels/batched_linalg.py:170"),
@@ -3380,6 +3575,11 @@ def main() -> None:
             # the (B, m, n, dtype, plan) the paths called it at, with counts.
             k["sources"] = [source, src + "polyhedron_newton_split.cu", src + "polyhedron_newton.cuh"]
             k["path_shapes"] = {"x".join(map(str, key)): v for key, v in sorted(NEWTON_SEEN.items())}
+        if name in ("batched_thin_qr", "narrow_qr_r"):
+            # One kernel, two entries (Q and R; R only, of S or of the
+            # stacked [JZ; diag(dbot)]); the device code is in the header,
+            # one source a dtype.
+            k["sources"] = [src + f for f in ("thin_qr.cuh", "thin_qr.cu", "thin_qr_bf16.cu", "thin_qr_f64.cu")]
         if name == "blocked_qr_r":
             # Configs 1 and 2 (n = 3) have no wide QR and launch it 0 times.
             k["launches_config3_host"] = res3["launches_host"][name]

@@ -173,8 +173,9 @@ def test_build_is_keyed_on_sources():
     p1, p2 = tk.library_path(), tk.library_path()
     assert p1 == p2 and p1.parent == tk.BUILD_DIR and p1.suffix == ".so"
     assert {s.name for s in tk.CSRC.glob("*.cu")} == {
-        "cholesky.cu", "cho_solve.cu", "thin_qr.cu", "masked_aat_cholesky.cu", "project_tangent.cu",
-        "blocked_qr.cu", "graph_conditional.cu", "polyhedron_newton.cu", "polyhedron_newton_split.cu",
+        "cholesky.cu", "cho_solve.cu", "thin_qr.cu", "thin_qr_bf16.cu", "thin_qr_f64.cu", "masked_aat_cholesky.cu",
+        "project_tangent.cu", "blocked_qr.cu", "graph_conditional.cu", "polyhedron_newton.cu",
+        "polyhedron_newton_split.cu",
     }
     assert "--use_fast_math" not in tk.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in tk.NVCC_FLAGS
     # Separately rounded products everywhere but in the panel QR, and the
@@ -360,8 +361,8 @@ def test_fused_dispatch_gate(rng):
     with pytest.raises(ValueError):
         tk.masked_aat_cholesky(A_pi.to("meta"), fx.to("meta"))
     assert sum(tk.LAUNCHES.values()) == 0 and set(tk.LAUNCHES) == {
-        "batched_cholesky", "batched_cho_solve", "batched_thin_qr", "masked_aat_cholesky", "project_tangent",
-        "blocked_qr_r", "polyhedron_newton",
+        "batched_cholesky", "batched_cho_solve", "batched_thin_qr", "narrow_qr_r", "masked_aat_cholesky",
+        "project_tangent", "blocked_qr_r", "polyhedron_newton",
     }
 
 
@@ -572,8 +573,8 @@ def test_blocked_qr_r_plain_zero_column_and_nan_lane(rng):
 
 QR_ROUTES = [
     # shape, dtype, route
-    ((2, 35, 3), torch.float32, "batched_thin_qr"),
-    ((2, 40, 16), torch.float32, "batched_thin_qr"),
+    ((2, 35, 3), torch.float32, "narrow_qr_r"),
+    ((2, 40, 16), torch.float32, "narrow_qr_r"),
     ((4, 40, 17), torch.float32, "blocked_qr_r"),
     ((4, 300, 256), torch.float32, "blocked_qr_r"),
     ((4, 2048, 20), torch.float32, "blocked_qr_r"),
@@ -588,12 +589,13 @@ QR_ROUTES = [
 
 @pytest.mark.parametrize("shape,dtype,route", QR_ROUTES, ids=lambda v: str(v).replace("torch.", ""))
 def test_qr_r_gate(shape, dtype, route, monkeypatch, rng):
-    # Which wrapper `qr_r` hands a CPU tensor to: the narrow kernel's at
-    # N ≤ 16, the panel kernel's at 16 < N ≤ 256 and a batch of 4 or more,
-    # both float32 with N ≤ D ≤ 2048; torch.linalg.qr otherwise.  `thin_qr`
-    # (Q wanted) never takes the panel kernel.
+    # Which wrapper `qr_r` hands a CPU tensor to: the narrow kernel's R-only
+    # form at N ≤ 16, the panel kernel's at 16 < N ≤ 256 and a batch of 4 or
+    # more, both float32 with N ≤ D ≤ 2048; torch.linalg.qr otherwise.
+    # `thin_qr` (Q wanted) takes the narrow kernel's Q and R form, never the
+    # panel kernel.
     calls = []
-    for name in ("batched_thin_qr", "blocked_qr_r"):
+    for name in ("batched_thin_qr", "narrow_qr_r", "blocked_qr_r"):
         orig = getattr(tk, name)
         monkeypatch.setattr(tk, name, lambda S, _o=orig, _n=name: calls.append(_n) or _o(S))
     S = torch.from_numpy(rng.standard_normal(shape)).to(dtype)
@@ -603,7 +605,7 @@ def test_qr_r_gate(shape, dtype, route, monkeypatch, rng):
     assert R.shape == shape[:-2] + (K, shape[-1]) and R.dtype == dtype
     calls.clear()
     Q, R2 = tqr.thin_qr(S)
-    assert calls == (["batched_thin_qr"] if route == "batched_thin_qr" else [])
+    assert calls == (["batched_thin_qr"] if route == "narrow_qr_r" else [])
     torch.testing.assert_close(Q @ R2, S, rtol=1e-4, atol=1e-4)
 
 
