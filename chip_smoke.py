@@ -368,29 +368,76 @@ def _split_launches(kern) -> dict:
     return {f"{name} S={S}": k for (name, S), k in kern.LAUNCHES_BY_PLAN.items() if S > 1}
 
 
-def _device_us(fn, reps: int = 50) -> float:
-    """Device time a call of fn from torch.profiler: the time of every
-    device kernel over `reps` warm calls, divided by `reps`.  CUDA events
-    over back-to-back calls stop at the wrapper's host time (20-56 us a
-    call), which would hide a kernel of a few microseconds."""
+# Seconds waited before each retry of a trace that saw no device kernel.
+TRACE_RETRY_WAITS = (0.1, 0.3, 1.0, 2.0)
+TRACE_ATTEMPTS = len(TRACE_RETRY_WAITS) + 1
+
+
+def _traced_device_events(fn) -> list:
+    """The device kernels of fn() traced by torch.profiler (key_averages),
+    or [] where every one of TRACE_ATTEMPTS traces saw none.  On the card's
+    machine a trace comes back empty now and then, sometimes several in a
+    row; each retry waits longer (CUPTI is set up again for each trace)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
-        fn()
-    _sync()
-    # The first trace of a process has come back empty on the card's
-    # machine (CUPTI starting up); a trace is taken again, at most twice.
-    for attempt in range(3):
+    for attempt in range(TRACE_ATTEMPTS):
+        if attempt:
+            time.sleep(TRACE_RETRY_WAITS[attempt - 1])
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+            fn()
             _sync()
         events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         if events:
             if attempt:
                 print(f"torch.profiler: trace {attempt + 1} saw the device kernels, the earlier ones none")
-            return sum(e.self_device_time_total for e in events) / reps
-    raise AssertionError("torch.profiler saw no device kernel in three traces")
+            return events
+    return []
+
+
+def _held_stream_us(fn, reps: int) -> float:
+    """Device time a call of fn by CUDA events, the stream held by a spin
+    kernel while the host queues `reps` calls: the events then time the
+    device running the calls back to back, gaps between kernels included,
+    and not the host queueing them.  The hold is taken longer if the host
+    was still queueing when it ended."""
+    for hold_ms in (50, 400):
+        start, end, held = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event())
+        torch.cuda._sleep(int(hold_ms * 2e6))    # cycles at 2 GHz at most: at least hold_ms
+        held.record()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_in_time = not held.query()
+        _sync()
+        if queued_in_time:
+            return start.elapsed_time(end) * 1e3 / reps
+    raise AssertionError("held-stream timing: the host was still queueing the calls when a 400 ms hold ended")
+
+
+def _device_us(fn, reps: int = 50) -> float:
+    """Device time a call of fn from torch.profiler: the time of every
+    device kernel over `reps` warm calls, divided by `reps`.  CUDA events
+    over back-to-back calls stop at the wrapper's host time (20-56 us a
+    call), which would hide a kernel of a few microseconds.  Where no trace
+    sees a device kernel, the time is taken by CUDA events behind a held
+    stream (`_held_stream_us`), and a line says so."""
+    for _ in range(3):
+        fn()
+    _sync()
+
+    def calls():
+        for _ in range(reps):
+            fn()
+
+    events = _traced_device_events(calls)
+    if events:
+        return sum(e.self_device_time_total for e in events) / reps
+    us = _held_stream_us(fn, reps)
+    print(f"torch.profiler saw no device kernel in {TRACE_ATTEMPTS} traces: {us:.3f} us a call by CUDA events "
+          "behind a held stream (gaps between kernels included)")
+    return us
 
 
 def _check_close(name: str, got: torch.Tensor, want: torch.Tensor, atol: float = KERNEL_ATOL) -> float:
@@ -1708,19 +1755,12 @@ def phase_slice(kern) -> dict:
 
 def _traced_kernels(fn, name: str) -> tuple:
     """(device kernels, those of kernel `name`) of one call of fn traced by
-    torch.profiler (a trace that sees no device kernel is taken again, at
-    most twice: the first trace of a process has come back empty there)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            _sync()
-        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
-            return (sum(e.count for e in events),
-                    sum(e.count for e in events if re.search(rf"\b{DEVICE_NAMES[name]}[<(]", e.key)))
-    raise AssertionError("torch.profiler saw no device kernel in three traces")
+    torch.profiler (`_traced_device_events`)."""
+    events = _traced_device_events(fn)
+    if not events:
+        raise AssertionError(f"torch.profiler saw no device kernel in {TRACE_ATTEMPTS} traces")
+    return (sum(e.count for e in events),
+            sum(e.count for e in events if re.search(rf"\b{DEVICE_NAMES[name]}[<(]", e.key)))
 
 
 def _walled(fn):
