@@ -24,9 +24,11 @@ and the kernels that redesign them for this card:
   warp per instance (plan 1, every n up to `SPLIT_MIN_N`), or, for large
   n, a thread-block cluster of S blocks per instance that splits the n
   columns and adds the blocks' partial sums in rank order (plan S);
-* `blocked_qr_r`: the R factor of wide tall matrices (16 < N), a panel
-  QR in shared memory, one thread block per instance, where the TPU
-  kernel's gate left the factorization to the library;
+* `blocked_qr_r`: the R factor of wide tall matrices (16 < N), of S or of
+  the stacked [S; diag(dbot)], a panel QR where the TPU kernel's gate left
+  the factorization to the library: a thread-block cluster per instance
+  that splits the rows (`blocked_qr_plan(D, N, dtype)`), the panel
+  products on the tensor cores in 3xTF32;
 * `polyhedron_newton`: the whole dual Newton of the polyhedral projection
   (`ops/polyproject`), the factor and the solve of each trip inside it, each
   instance to its own exit in one launch; in one of three layouts by
@@ -99,11 +101,17 @@ NARROW_QR_LANE_REGISTERS = 128
 NARROW_QR_WIDE_WARPS = 8
 # The panel QR kernel behind `ops/qr.qr_r`: as many columns as it is measured
 # against the library call, and as few instances as it still beats it with
-# (one thread block factors one instance, the library gives each the card).
+# (the library gives each matrix the whole card in turn).
 MAX_BLOCKED_QR_COLS = 256
 MIN_BLOCKED_QR_BATCH = 4
-QR_PANEL_WIDTHS = (32, 16, 8)    # the panel QR kernel's instantiations, widest first
-QR_BLOCK_WARPS = 8               # warps of one block of the panel QR kernel
+# Its plan (csrc/blocked_qr.cu): panels of 64 columns in float32 (the
+# tensor-core form), 32 in float64; a cluster of 1, 2, 4 or 8 blocks an
+# instance, each over a slice of at most QR_BLOCK_ROWS rows, padded to a
+# multiple of QR_ROW_TILE (the tensor cores' 16-row tiles).
+QR_PANEL_WIDTH = {torch.float32: 64, torch.float64: 32}
+QR_CLUSTER_SIZES = (1, 2, 4, 8)
+QR_BLOCK_ROWS = 640
+QR_ROW_TILE = 16
 MAX_DYNAMIC_SMEM = 232448        # bytes of shared memory a block may opt in to on sm_90
 # The split form of the fused kernels (csrc/common.cuh): blocks of
 # SPLIT_THREADS threads, at most MAX_CLUSTER of them per instance (above 8 a
@@ -196,8 +204,8 @@ _SIGNATURES = {
     "benlsip_masked_aat_cholesky": [_PTR, ctypes.c_longlong, _PTR, ctypes.c_double, _PTR] + [_INT] * 4 + [_PTR],
     # A, its batch stride, L, fixed, r, out, B, M, n, unmasked_output, plan, stream
     "benlsip_project_tangent": [_PTR, ctypes.c_longlong] + [_PTR] * 4 + [_INT] * 5 + [_PTR],
-    # S, R, workspace, B, D, N, panel width, leading dimension, stream
-    "benlsip_blocked_qr_r": [_PTR] * 3 + [_INT] * 5 + [_PTR],
+    # S, dbot (or null), R, workspace, B, D, N, cluster size, rows a block, leading dimension, stream
+    "benlsip_blocked_qr_r": [_PTR] * 4 + [_INT] * 6 + [_PTR],
     # A, its batch stride, b, l, u, x, lam0, active, tol, reg, max_iter, grow_pows,
     # n_section, v, lam, iters, workspace, B, M, n, plan, stream
     "benlsip_polyhedron_newton": [_PTR, ctypes.c_longlong] + [_PTR] * 6 + [ctypes.c_double] * 2 + [_INT] * 3
@@ -605,36 +613,56 @@ def narrow_qr_r(S: Tensor, dbot=None) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
-def qr_panel_layout(D: int, itemsize: int):
-    """(panel width, leading dimension) of the panel QR kernel for D rows:
-    the rows padded to a multiple of 4 and then to 4 mod 32 (shared-memory
-    banks), and the widest panel that fits, beside one width × width block
-    per warp and two rows of scalars, in the shared memory of one block.
-    None when not even the narrowest fits."""
-    ld = -(-D // 4) * 4
-    ld += (4 - ld) % 32
-    for bw in QR_PANEL_WIDTHS:
-        if (bw * ld + QR_BLOCK_WARPS * bw * bw + 2 * bw) * itemsize <= MAX_DYNAMIC_SMEM:
-            return bw, ld
-    return None
+def blocked_qr_plan(D: int, N: int, dtype: torch.dtype):
+    """(C, panel width, rows, LD) of the panel QR kernel for an instance of D
+    rows (stacked rows included) and N columns of `dtype`: the fewest blocks
+    a cluster, C in QR_CLUSTER_SIZES, whose row slices hold at most
+    QR_BLOCK_ROWS rows; each slice padded to a multiple of QR_ROW_TILE rows;
+    the panel's leading dimension LD the padded rows brought to 4 mod 32
+    (shared-memory banks).  A function of the shape and dtype only, never of
+    the batch, so that an instance's bits do not depend on its batch.  None
+    when the kernel cannot take the instance (more than 8 blocks' rows, a
+    dtype without a kernel, or a block's shared memory above 227 KB)."""
+    bw = QR_PANEL_WIDTH.get(dtype)
+    if bw is None or D < 1 or N < 1:
+        return None
+    C = next((c for c in QR_CLUSTER_SIZES if -(-D // c) <= QR_BLOCK_ROWS), None)
+    if C is None:
+        return None
+    rows = -(-(-(-D // C)) // QR_ROW_TILE) * QR_ROW_TILE
+    ld = rows + (4 - rows) % 32
+    if blocked_qr_smem(ld, dtype) > MAX_DYNAMIC_SMEM:
+        return None
+    return C, bw, rows, ld
 
 
-def blocked_qr_r_plain(S: Tensor) -> Tensor:
-    """Plain PyTorch twin of the panel QR kernel, in the same panel order:
-    each panel has the finished panels projected out one after another,
-    twice (W = QⱼᵀP added into R, P −= QⱼW; the second pass takes out what
-    the first left: block CGS2), then modified Gram–Schmidt inside the
-    panel on unnormalised columns (dots s with column c, R row
-    s/√max(s_cc, tiny), later columns −= column c · s/max(s_cc, tiny)),
-    then the division by the norms.  A panel whose Q the later panels
-    reuse is then reorthogonalized by one CholeskyQR step, since modified
-    Gram–Schmidt leaves it κ(panel)·eps off orthonormal and "twice is
-    enough" assumes it orthonormal: G = QᵀQ, R₂ = chol(G), Q ← QR₂⁻¹ and
-    the panel's diagonal block of R ← R₂R₁.  A panel whose G is not
-    positive definite (a zero or NaN column) keeps R₂ = I."""
+def blocked_qr_smem(ld: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory a block of the panel QR kernel takes: the
+    panel (width × ld), three width × (width + 4) blocks (two partial sums
+    and the reduced one), the column steps' partial dots (two rows of width
+    scalars for each block of the largest cluster) and the column norms."""
+    bw = QR_PANEL_WIDTH[dtype]
+    return (bw * ld + 3 * bw * (bw + 4) + (2 * QR_CLUSTER_SIZES[-1] + 1) * bw) * torch.finfo(dtype).bits // 8
+
+
+def blocked_qr_r_plain(S: Tensor, dbot=None) -> Tensor:
+    """Plain PyTorch twin of the panel QR kernel, in the same panel order
+    and at its panel width: each panel has the finished panels projected out
+    one after another, twice (W = QⱼᵀP added into R, P −= QⱼW; the second
+    pass takes out what the first left: block CGS2), then modified
+    Gram–Schmidt inside the panel on unnormalised columns (dots s with
+    column c, R row s/√max(s_cc, tiny), later columns −= column c ·
+    s/max(s_cc, tiny)), then the division by the norms.  A panel whose Q the
+    later panels reuse is then reorthogonalized by one CholeskyQR step,
+    since modified Gram–Schmidt leaves it κ(panel)·eps off orthonormal and
+    "twice is enough" assumes it orthonormal: G = QᵀQ, R₂ = chol(G),
+    Q ← QR₂⁻¹ and the panel's diagonal block of R ← R₂R₁.  A panel whose G
+    is not positive definite (a zero or NaN column) keeps R₂ = I.  With dbot
+    (B, N), R of the stacked [S; diag(dbot)]."""
+    if dbot is not None:
+        S = torch.cat([S, torch.diag_embed(dbot)], dim=-2)
     B, D, N = S.shape
-    layout = qr_panel_layout(D, S.element_size())
-    bw = layout[0] if layout else QR_PANEL_WIDTHS[-1]
+    bw = QR_PANEL_WIDTH.get(S.dtype, QR_PANEL_WIDTH[torch.float32])
     tiny = torch.finfo(S.dtype).tiny
     R = torch.zeros((B, N, N), dtype=S.dtype, device=S.device)
     finished = []
@@ -667,28 +695,38 @@ def blocked_qr_r_plain(S: Tensor) -> Tensor:
     return R
 
 
-def blocked_qr_r(S: Tensor) -> Tensor:
+def blocked_qr_r(S: Tensor, dbot=None) -> Tensor:
     """R factor of a batch of tall matrices: S (B, D, N), D ≥ N -> upper
-    triangular R (B, N, N) with RᵀR = SᵀS and a positive diagonal.  S is
-    not written.  float32 and float64 only, on either device."""
-    if S.ndim != 3 or S.shape[1] < S.shape[2]:
+    triangular R (B, N, N) with RᵀR = SᵀS and a positive diagonal; with
+    dbot (B, N), R of the stacked [S; diag(dbot)] (B, D + N, N) without the
+    stacked matrix, bitwise the R of the stacked matrix (the kernel makes
+    the diagonal rows up as it loads them; on a CPU tensor the plain version
+    runs on the stacked matrix).  S is not written.  float32 and float64
+    only, on either device."""
+    if S.ndim != 3 or (dbot is not None and tuple(dbot.shape) != (S.shape[0], S.shape[2])):
+        raise ValueError(f"blocked_qr_r: expected (B, D, N) and (B, N), got {tuple(S.shape)}, "
+                         f"{None if dbot is None else tuple(dbot.shape)}")
+    B, D, N = S.shape
+    rows = D + (N if dbot is not None else 0)
+    if rows < N:
         raise ValueError(f"blocked_qr_r: expected (B, D, N) with D >= N, got {tuple(S.shape)}")
     if S.dtype not in _WIDE_DTYPES:
         raise TypeError(f"blocked_qr_r: dtype {S.dtype} (the kernel takes float32 or float64)")
-    B, D, N = S.shape
     if B == 0 or N == 0:
         return torch.zeros((B, N, N), dtype=S.dtype, device=S.device)
     if _on_cpu(S):
-        return blocked_qr_r_plain(S)
-    _require_cuda("blocked_qr_r", S, dtypes=_WIDE_DTYPES)
-    layout = qr_panel_layout(D, S.element_size())
-    if layout is None:
-        raise ValueError(f"blocked_qr_r: a panel of D={D} rows does not fit in shared memory")
-    bw, ld = layout
+        return blocked_qr_r_plain(S if dbot is None else torch.cat([S, torch.diag_embed(dbot)], dim=-2))
+    _require_cuda("blocked_qr_r", S, *(() if dbot is None else (dbot,)), dtypes=_WIDE_DTYPES)
+    plan = blocked_qr_plan(rows, N, S.dtype)
+    if plan is None:
+        raise ValueError(f"blocked_qr_r: an instance of {rows} rows does not fit in a cluster's shared memory")
+    C, bw, block_rows, ld = plan
     R = torch.empty((B, N, N), dtype=S.dtype, device=S.device)
-    # The finished Q panels, all but the last, column-major with leading dimension ld.
-    ws = torch.empty((B, (-(-N // bw) - 1) * bw * ld), dtype=S.dtype, device=S.device)
-    _launch("blocked_qr_r", "benlsip_blocked_qr_r", S, S.data_ptr(), R.data_ptr(), ws.data_ptr(), B, D, N, bw, ld)
+    # The finished Q panels, all but the last, column-major over the
+    # cluster's padded rows; each block writes and reads its own rows.
+    ws = torch.empty((B, (-(-N // bw) - 1) * bw * C * block_rows), dtype=S.dtype, device=S.device)
+    _launch("blocked_qr_r", "benlsip_blocked_qr_r", S, S.data_ptr(), None if dbot is None else dbot.data_ptr(),
+            R.data_ptr(), ws.data_ptr(), B, D, N, C, block_rows, ld)
     return R
 
 

@@ -12,7 +12,9 @@ one launch of `narrow_qr_r` that makes the diagonal rows up, elsewhere
 kernel's (it unrolls N(N+1)/2 column updates over a slab held in VMEM), not
 this card's: `qr_r`, which wants R only, sends float32 16 < N ≤ 256 at the
 same row bound and a batch of at least 4 to the panel kernel `blocked_qr_r` (block
-Gram–Schmidt in shared memory, one thread block per instance).  256
+Gram–Schmidt, a thread-block cluster per instance that splits the rows), and
+`qr_r_stacked` sends the stacked matrix of that gate to one launch of it
+that makes the diagonal rows up.  256
 columns, 2048 rows and 4 instances are the card's gate: where the kernel is
 measured no slower than the library call, which gives every matrix the
 whole card in turn and so wins on one or two large ones.
@@ -82,11 +84,15 @@ def qr_r(S: Tensor) -> Tensor:
 
 def qr_r_stacked(JZ: Tensor, dbot: Tensor) -> Tensor:
     """R factor of the stacked [JZ; diag(dbot)], JZ (B, d, n), dbot (B, n)
-    -> (B, n, n): one launch of the narrow kernel, which makes the diagonal
-    rows up (the same bits as the kernel on the stacked matrix); `qr_r` of
-    the stacked matrix outside its gate."""
-    if _kernel_eligible(JZ, extra_rows=JZ.shape[-1]):
+    -> (B, n, n): one launch of the narrow kernel inside its gate, or of the
+    panel kernel inside `qr_r`'s panel gate, either making the diagonal rows
+    up (the same bits as the kernel on the stacked matrix); `qr_r` of the
+    stacked matrix elsewhere."""
+    n = JZ.shape[-1]
+    if _kernel_eligible(JZ, extra_rows=n):
         return kern.narrow_qr_r(JZ.contiguous(), dbot.contiguous())
+    if _kernel_eligible(JZ, kern.MAX_BLOCKED_QR_COLS, kern.MIN_BLOCKED_QR_BATCH, (torch.float32,), extra_rows=n):
+        return kern.blocked_qr_r(JZ.contiguous(), dbot.contiguous())
     return qr_r(torch.cat([JZ, torch.diag_embed(dbot)], dim=-2))
 
 

@@ -21,13 +21,17 @@ Phases (any failure raises and the script exits non-zero):
    two fused kernels also with a batch-shared (stride-0) A, ragged n,
    degenerate lanes and reg > 0, and against the call site they replace;
    the panel QR kernel also against `torch.linalg.qr` and SᵀS, at the
-   polish's shape, ragged panels, every panel width, κ = 1e4 and float64,
-   a zero column in a reused panel (its CholeskyQR step keeps R₂ = I),
-   and at (4, 300, 36/40/48/70) with κ = 1e4, 1e5 and 1e6 (ragged last
-   panels) the chord contraction ‖R⁻ᵀ(SᵀS − RᵀR)R⁻¹‖₂ ≤ 2·κ·eps of the
-   kernel and of its plain version, printed beside the library R's, and
-   over the 40 seeded draws of scripts/blocked_qr_contraction.py at
-   (4, 300, 36), κ = 1e5 and 1e6;
+   polish's shape, ragged panels, clusters of 1, 2 and 4 blocks, κ = 1e4
+   and float64, a zero column in a reused panel (its CholeskyQR step keeps
+   R₂ = I), and at (4, 300, 36/40/48/70/100/136) with κ = 1e4, 1e5 and 1e6
+   (ragged last panels) the chord contraction ‖R⁻ᵀ(SᵀS − RᵀR)R⁻¹‖₂ ≤
+   2·κ·eps of the kernel and of its plain version, printed beside the
+   library R's, and over the 40 seeded draws of
+   scripts/blocked_qr_contraction.py at (4, 300, 36), κ = 1e5 and 1e6; its
+   stacked form (R of [JZ; diag(dbot)] from JZ and dbot) bitwise equal to
+   the R of the materialized stack at the polish's (64, 1024 + 192, 192)
+   and at (5, 301 + 70, 70), and an instance's R alone, in a batch of 4
+   and in a permuted batch of 64 bitwise the batch's;
    the fused kernels' split form (a thread-block cluster per instance, the
    plan of `fused_plan` for large n) also at config 4's (1, 8, 10240) with
    the degenerate pair, a shared A, ragged n, n = 40,960, m = 16, float64
@@ -60,7 +64,10 @@ Phases (any failure raises and the script exits non-zero):
    corners, with the plain version and `torch.linalg.qr`, and by device µs
    a call; the dual Newton's layouts (the grid on the lanes against the columns on the
    lanes at n from 3 to 32; the split form against one warp at 1×8×10240)
-   by device µs;
+   by device µs; the panel QR also by device µs a call at every shape it is
+   timed at, and its stacked form in turns with the materialized stack;
+   the fused kernels' warp forms by device µs a call at config 2's and
+   config 3's shapes;
 4. the config-2 path: `solve_mixed_precision` on
    `exp_fit_family(1024, d=32, seed=42)` (float64 master data) on cuda:0,
    with every kernel's launch count read around that run (the dual Newton
@@ -235,10 +242,12 @@ KERNEL_ATOL = 1e-5
 CERT_PIX = math.sqrt(np.finfo(np.float64).eps)   # 1.49e-8: f64 KKT grade
 SMALL_ATOL = 1e-7                                # card vs CPU run of the port
 
-# Published peaks of the H100 SXM, for the bounds: device memory rate and
-# the float32 rate outside the tensor cores (no kernel here uses them).
+# Published peaks of the H100 SXM, for the bounds: device memory rate, the
+# float32 rate outside the tensor cores and the TF32 rate of the tensor cores
+# (which the panel QR's products use).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12      # dense TF32 on the tensor cores (the panel QR's 3xTF32 products)
 
 # The kernels on each path; `batched_cholesky` runs there inside
 # `masked_aat_cholesky`, which holds its body, and `batched_cho_solve`
@@ -319,6 +328,22 @@ def _qr_bound(B: int, D: int, N: int) -> dict:
 def _r_bound(B: int, D: int, N: int, itemsize: int = 4) -> dict:
     """R factor of (B, D, N): S read, R written; 2·D·N² − ⅔·N³ operations."""
     return _bound(B * (D * N + N * N) * itemsize, B * (2 * D * N * N - 2 * N ** 3 / 3))
+
+
+def _panel_qr_bound(B: int, D: int, N: int, width: int = 64) -> dict:
+    """The float32 panel QR's bound: S read and R written once, and of the
+    R factor's 2·D·N² − ⅔·N³ operations the column steps' 2·D·nc² a panel
+    of nc columns at the float32 rate of the CUDA cores, the rest (the panel
+    products, 3xTF32 on the tensor cores) as three products each at the
+    TF32 rate."""
+    total = 2 * D * N * N - 2 * N ** 3 / 3
+    steps = min(total, sum(2 * D * min(width, N - c0) ** 2 for c0 in range(0, N, width)))
+    n_bytes = B * (D * N + N * N) * 4
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = B * (steps / PEAK_F32_FLOPS + 3 * (total - steps) / PEAK_TF32_FLOPS)
+    ms = max(t_bytes, t_ops) * 1e3
+    return {"bound_ms": ms, "bound_us": ms * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(n_bytes), "flops": int(B * total), "bound_us_f32": _r_bound(B, D, N)["bound_us"]}
 
 
 def _check_same_nan(name: str, got: torch.Tensor, want: torch.Tensor, atol: float) -> float:
@@ -473,7 +498,7 @@ def phase_build(kern) -> float:
         # ptxas report: the most registers of any instantiation of each
         # kernel, those of the float32 instantiations the paths run
         # (M = 1 and M = 6; config 4's split form at M = 8; the panel QR at
-        # width 32; the narrow QR's group form at N = 1, 2, 3 and 6), and every
+        # float32; the narrow QR's group form at N = 1, 2, 3 and 6), and every
         # instantiation that spills.
         regs, on_path, entry, seconds = {}, {}, "?", {}
         for line in log.read_text().splitlines():
@@ -490,9 +515,9 @@ def phase_build(kern) -> float:
                                if k in entry), entry)
                 used = int(line.split("Used")[1].split("registers")[0])
                 regs[family] = max(regs.get(family, 0), used)
-                if family == "blocked_qr_r":   # config 3 runs the float32 kernel at panel width 32
-                    if "IfLi32E" in entry:
-                        on_path[f"{family} width=32"] = used
+                if family == "blocked_qr_r":   # config 3 runs the float32 kernel (panels of 64 columns)
+                    if "kernelIfE" in entry:
+                        on_path[f"{family} float32"] = used
                     continue
                 # The narrow QR's group form at the paths' N (its template argument).
                 dims = (8,) if family.endswith("_split") else (1, 2, 3, 6) if family == "narrow_qr_group" else (1, 6)
@@ -1223,12 +1248,13 @@ def _check_blocked_qr(kern, rng, worst) -> None:
     cases = {
         "64x1216x192 polish-shaped": polish_stack(rng, 64, 1024, 192, dev),
         "8x300x17": normal(8, 300, 17),                  # one ragged panel
-        "5x2048x256 (the gate's corner, width 16)": normal(5, 2048, 256),
+        "5x2048x256 (the gate's corner, a cluster of 4)": normal(5, 2048, 256),
         "3x40x40 square": normal(3, 40, 40),
         "6x534x150": normal(6, 534, 150),                # D not a multiple of 4, ragged last panel
-        "4x1540x70 (the tallest at width 32)": normal(4, 1540, 70),
+        "4x1540x70 (a cluster of 4, ragged)": normal(4, 1540, 70),
         "4x600x96 kappa=1e4": conditioned(rng, 4, 600, 96, 1e4, dev),
         "1x300x40 one instance": normal(1, 300, 40),
+        "2x3000x70 (a cluster of 8, outside qr_r's gate)": normal(2, 3000, 70),
     }
     for tag, S in cases.items():
         S0 = S.clone()
@@ -1243,7 +1269,7 @@ def _check_blocked_qr(kern, rng, worst) -> None:
         if err > c["tol"]:
             raise AssertionError(f"blocked_qr_r {tag}: kernel disagrees with its plain version ({err:.3e} > {c['tol']:.3e})")
         worst("blocked_qr_r", err)
-        print(f"blocked_qr_r {tag}: width {kern.qr_panel_layout(S.shape[1], 4)[0]}, vs plain {err:.3e}, "
+        print(f"blocked_qr_r {tag}: plan {kern.blocked_qr_plan(S.shape[1], S.shape[2], S.dtype)}, vs plain {err:.3e}, "
               f"vs library {c['err']:.3e} (tol {c['tol']:.3e}, κ {c['kappa']:.3e}, max|R| {c['scale']:.3e}), "
               f"Gram {c['gram']:.3e} (plain {cp['gram']:.3e}, tol {2 * S.shape[2] * EPS32:.3e})")
 
@@ -1252,7 +1278,9 @@ def _check_blocked_qr(kern, rng, worst) -> None:
     # with two but without the CholeskyQR step on each finished panel
     # 8·κ·eps at κ = 1e6 (on the CPU); the kernel must keep it under
     # 2·κ·eps, a bound the library's Householder R meets on the same S.
-    for N in (36, 40, 48, 70):
+    # N = 36-48 were ragged at the old panel width of 32 and are one panel
+    # at 64; 70, 100 and 136 are ragged at 64.
+    for N in (36, 40, 48, 70, 100, 136):
         for kappa in (1e4, 1e5, 1e6):
             tag = f"4x300x{N} kappa={kappa:.0e}"
             S = conditioned(rng, 4, 300, N, kappa, dev)
@@ -1296,23 +1324,50 @@ def _check_blocked_qr(kern, rng, worst) -> None:
         if max(con["kernel"]) > 2 or max(con["plain"]) > 2:
             raise AssertionError(f"blocked_qr_r 4x300x36 kappa={kappa:.0e}: a draw's chord contraction is above 2*kappa*eps")
 
-    # float64 through the same source: widths 32 and 8.
-    for B, D, N in ((4, 600, 50), (3, 2048, 40)):
+    # float64 through the same source (panels of 32 columns on the CUDA
+    # cores): one to four panels, one to four blocks an instance.
+    for B, D, N in ((4, 600, 50), (3, 2048, 40), (2, 300, 100)):
         S = torch.as_tensor(rng.standard_normal((B, D, N)), dtype=torch.float64, device=dev)
         c = _check_r(f"blocked_qr_r float64 {B}x{D}x{N}", kern.blocked_qr_r(S), S)
-        print(f"blocked_qr_r float64 {B}x{D}x{N}: width {kern.qr_panel_layout(D, 8)[0]}, vs library {c['err']:.3e}, Gram {c['gram']:.3e}")
+        print(f"blocked_qr_r float64 {B}x{D}x{N}: plan {kern.blocked_qr_plan(D, N, S.dtype)}, vs library {c['err']:.3e}, "
+              f"Gram {c['gram']:.3e}")
+
+    # The stacked form: R of [JZ; diag(dbot)] from JZ and dbot, bitwise the R
+    # of the materialized stack, at the polish's shape and at a ragged one
+    # (D and N off every tile); an instance's R alone, in a batch of 4 and in
+    # a permuted batch of 64 bitwise the batch's (the plan is the shape's).
+    for B, d, N in ((64, 1024, 192), (5, 301, 70)):
+        JZ = normal(B, d, N)
+        dbot = _polish_dbot(rng, B, N, dev)
+        Rs = kern.blocked_qr_r(JZ, dbot)
+        _require(torch.equal(_bits(Rs), _bits(kern.blocked_qr_r(_stack(JZ, dbot)))),
+                 f"blocked_qr_r stacked {B}x({d}+{N})x{N}: not bitwise the R of the materialized stack")
+        _check_r(f"blocked_qr_r stacked {B}x({d}+{N})x{N}", Rs, _stack(JZ, dbot))
+        err = float((Rs - kern.blocked_qr_r_plain(JZ, dbot)).abs().max())
+        worst("blocked_qr_r", err)
+        print(f"blocked_qr_r stacked {B}x({d}+{N})x{N}: bitwise the materialized stack's R, vs plain {err:.3e}")
+    S = polish_stack(rng, 64, 1024, 192, dev)
+    R = kern.blocked_qr_r(S)
+    perm = torch.as_tensor(rng.permutation(64), device=dev)
+    _require(torch.equal(_bits(kern.blocked_qr_r(S[perm].contiguous())), _bits(R[perm])),
+             "blocked_qr_r 64x1216x192: a permuted batch differs from the batch's lanes")
+    for b in (0, 31, 60):
+        _require(torch.equal(_bits(kern.blocked_qr_r(S[b:b + 1].contiguous())), _bits(R[b:b + 1]))
+                 and torch.equal(_bits(kern.blocked_qr_r(S[b:b + 4].contiguous())), _bits(R[b:b + 4])),
+                 f"blocked_qr_r 64x1216x192: lane {b} alone or in a batch of 4 differs from the batch's")
+    print("blocked_qr_r 64x1216x192: lanes alone, in batches of 4 and in a permuted batch of 64 bitwise the batch's")
 
     # A zero column gets the `tiny` floor on the diagonal and zeros beside it;
     # a NaN stays in its own instance.  A zero column in the first panel
     # (lane 1) makes that panel's Gram singular: its CholeskyQR step keeps
     # R₂ = I and the lane's R stays finite and agrees with the plain version.
-    S = normal(6, 200, 40)
+    S = normal(6, 200, 80)
     S[1, :, 5] = 0.0
-    S[2, :, 35] = 0.0
+    S[2, :, 70] = 0.0
     S[4, 17, 3] = float("nan")
     R, Rp = kern.blocked_qr_r(S), kern.blocked_qr_r_plain(S)
     floor = math.sqrt(float(torch.finfo(torch.float32).tiny))
-    if not (abs(float(R[2, 35, 35]) - floor) <= 1e-6 * floor and R[2, 35, 36:].abs().max() == 0
+    if not (abs(float(R[2, 70, 70]) - floor) <= 1e-6 * floor and R[2, 70, 71:].abs().max() == 0
             and abs(float(R[1, 5, 5]) - floor) <= 1e-6 * floor and torch.isfinite(R[[0, 1, 2, 3, 5]]).all()):
         raise AssertionError("blocked_qr_r: a zero column must give sqrt(tiny) on the diagonal and a finite R")
     err = float((R[[0, 1, 2, 3, 5]] - Rp[[0, 1, 2, 3, 5]]).abs().max())
@@ -1332,6 +1387,9 @@ def _check_blocked_qr(kern, rng, worst) -> None:
         lambda: kern.blocked_qr_r(normal(1, 50, 20)[0]),
         lambda: kern.blocked_qr_r(normal(2, 50, 20).half()),
         lambda: kern._require_cuda("blocked_qr_r", torch.zeros((2, 50, 20))),
+        lambda: kern.blocked_qr_r(normal(2, 50, 20), normal(2, 20, 1)[:, :, 0][:, :19]),     # dbot of the wrong shape
+        lambda: kern.blocked_qr_r(normal(2, 50, 20), torch.ones((2, 20))),                   # dbot on the CPU
+        lambda: kern.blocked_qr_r(normal(2, 50, 20), torch.ones((2, 20), dtype=torch.float64, device=dev)),
     )
     for i, call in enumerate(refused):
         try:
@@ -1349,7 +1407,10 @@ def _time_blocked_qr(kern, rng, rec) -> None:
     a smaller shape and at the corners of `qr_r`'s gate (4 instances, 2048
     rows, 256 columns), where it must be no slower than the library call;
     then below the gate's batch bound, where the library call, which gives
-    each matrix the whole card, may win; 20 calls a turn."""
+    each matrix the whole card, may win; 20 calls a turn; and the kernel's
+    device µs a call at each shape (torch.profiler).  At the polish's shape
+    also the stacked form (R of [JZ; diag(dbot)] from JZ and dbot) in turns
+    with the route it replaced (`torch.cat` + `diag_embed`, then the kernel)."""
     dev = torch.device("cuda:0")
     shapes = {
         "": polish_stack(rng, 64, 1024, 192, dev),
@@ -1363,18 +1424,33 @@ def _time_blocked_qr(kern, rng, rec) -> None:
     for suffix, S in shapes.items():
         t = _in_turns({"plain": lambda: kern.blocked_qr_r_plain(S), "kernel": lambda: kern.blocked_qr_r(S),
                        "library": lambda: torch.linalg.qr(S, mode="r")}, reps=20, warm=3)
-        bound = _r_bound(*S.shape)
+        us = _device_us(lambda: kern.blocked_qr_r(S), reps=20)
+        bound = _panel_qr_bound(*S.shape)
         rec["blocked_qr_r"].update({
             "ms" + suffix: t["kernel"], "plain_ms" + suffix: t["plain"], "library_ms" + suffix: t["library"],
-            **{k + suffix: bound[k] for k in ("bound_ms", "bound_us", "bound_by")},
+            "device_us" + suffix: us, **{k + suffix: bound[k] for k in ("bound_ms", "bound_us", "bound_by")},
         })
         shape = "x".join(map(str, S.shape))
-        print(f"blocked_qr_r {shape}: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+        print(f"blocked_qr_r {shape}: kernel {t['kernel']:.4f} ms (device {us:.2f} us, plan "
+              f"{kern.blocked_qr_plan(S.shape[1], S.shape[2], S.dtype)}), plain {t['plain']:.4f} ms, "
               f"library {t['library']:.4f} ms, bound {bound['bound_us']:.4f} us "
-              f"({bound['bound_by']}: {bound['bytes']} B, {bound['flops']} flop)")
+              f"({bound['bound_by']}: {bound['bytes']} B, {bound['flops']} flop; all on FP32 FMA "
+              f"{bound['bound_us_f32']:.4f} us)")
         if S.shape[0] >= kern.MIN_BLOCKED_QR_BATCH and t["kernel"] > t["library"]:
             raise AssertionError(f"blocked_qr_r {shape}: slower than the library call inside qr_r's gate")
     rec["blocked_qr_r"]["shape"] = "64x1216x192"
+    # The polish's factor: one stacked launch against the materialized stack.
+    B, d, n = 64, 1024, 192
+    JZ = torch.as_tensor(rng.standard_normal((B, d, n)), dtype=torch.float32, device=dev)
+    dbot = _polish_dbot(rng, B, n, dev)
+    t = _in_turns({"stacked": lambda: kern.blocked_qr_r(JZ, dbot),
+                   "materialized": lambda: kern.blocked_qr_r(_stack(JZ, dbot))}, reps=20, warm=3)
+    us = {k: _device_us(f, reps=20) for k, f in (("stacked", lambda: kern.blocked_qr_r(JZ, dbot)),
+                                                 ("materialized", lambda: kern.blocked_qr_r(_stack(JZ, dbot))))}
+    rec["blocked_qr_r"].update({"ms_stacked": t["stacked"], "ms_materialized": t["materialized"],
+                                "device_us_stacked": us["stacked"], "device_us_materialized": us["materialized"]})
+    print(f"blocked_qr_r stacked {B}x({d}+{n})x{n}: {t['stacked']:.4f} ms (device {us['stacked']:.2f} us) against "
+          f"torch.cat + diag_embed + the kernel {t['materialized']:.4f} ms (device {us['materialized']:.2f} us)")
 
 
 def _time_kernels(kern, rng, rec) -> None:
@@ -1433,6 +1509,11 @@ def _time_kernels(kern, rng, rec) -> None:
             })
             if yard == "old_site":
                 rec[name]["old_site_ms" + suffix] = t["old_site"]
+            if name in ("masked_aat_cholesky", "project_tangent"):
+                # The CUDA-event wall above is the wrapper's host time; the
+                # warp form's own device time a call, by torch.profiler.
+                rec[name]["device_us" + suffix] = _device_us(case["kernel"])
+                print(f"{name} {case['shape']}: device {rec[name]['device_us' + suffix]:.3f} us a call")
             print(f"{name} {case['shape']}: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
                   f"{yard.replace('_', ' ')} {t[yard]:.4f} ms, bound {case['bound']['bound_us']:.4f} us "
                   f"({case['bound']['bound_by']}: {case['bound']['bytes']} B, {case['bound']['flops']} flop)")

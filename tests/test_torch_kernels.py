@@ -497,10 +497,11 @@ def test_blocked_qr_r_plain_ill_conditioned(kappa, rng):
 
 
 @pytest.mark.parametrize("kappa", [1e4, 1e5, 1e6])
-@pytest.mark.parametrize("N", [36, 40, 48, 70])
+@pytest.mark.parametrize("N", [36, 40, 48, 70, 100, 136])
 def test_blocked_qr_r_plain_ragged_panel_matches_householder(N, kappa, rng):
-    # N not a multiple of the 32-column panel: the last panel holds 4, 8,
-    # 16 or 6 columns.  With one projection pass against the finished
+    # N not a multiple of the panel width: at the float32 width of 64 the
+    # last panel holds 36, 40, 48, 6, 36 or 8 columns (at the width of 32
+    # before it, 4, 8, 16, 6, 4 and 8).  With one projection pass against the finished
     # panels the contraction reached 1e2·κ·eps here; with two passes but
     # without the CholeskyQR step on each finished panel (whose modified
     # Gram–Schmidt Q is orthonormal only to κ(panel)·eps) it reached
@@ -534,13 +535,13 @@ def test_blocked_qr_r_plain_contraction_over_seeded_draws(kappa):
 
 
 def test_blocked_qr_r_plain_singular_panel_gram_keeps_r2_identity(rng, monkeypatch):
-    # A zero column in the first panel (of two: only the first is reused)
-    # makes that panel's Gram QᵀQ singular: its CholeskyQR step keeps
-    # R₂ = I, so the lane's R is the one of two passes without the step
-    # (every Cholesky forced to fail gives that R), finite, with the
-    # sqrt(tiny) floor on the diagonal.  The healthy lanes are
-    # reorthogonalized.
-    S = rng.standard_normal((3, 120, 40)).astype(np.float32)
+    # A zero column in the first panel (of two at the float32 panel width
+    # 64: only the first is reused) makes that panel's Gram QᵀQ singular:
+    # its CholeskyQR step keeps R₂ = I, so the lane's R is the one of two
+    # passes without the step (every Cholesky forced to fail gives that R),
+    # finite, with the sqrt(tiny) floor on the diagonal.  The healthy lanes
+    # are reorthogonalized.
+    S = rng.standard_normal((3, 120, 80)).astype(np.float32)
     S[1, :, 5] = 0.0
     St = torch.from_numpy(S)
     R = tk.blocked_qr_r(St)
@@ -610,12 +611,14 @@ def test_qr_r_gate(shape, dtype, route, monkeypatch, rng):
 
 
 def test_blocked_qr_r_wrapper_contract():
-    # Layout rule: the widest panel that fits in 227 KB beside the partial
-    # sums, leading dimension 4 mod 32.
-    assert tk.qr_panel_layout(1216, 4) == (32, 1220) and tk.qr_panel_layout(1540, 4) == (32, 1540)
-    assert tk.qr_panel_layout(1541, 4) == (16, 1572) and tk.qr_panel_layout(2048, 4) == (16, 2052)
-    assert tk.qr_panel_layout(2048, 8) == (8, 2052) and tk.qr_panel_layout(17, 4) == (32, 36)
-    assert tk.qr_panel_layout(10 ** 6, 4) is None
+    # Plan rule: the fewest blocks a cluster whose row slices hold at most
+    # 640 rows, each slice padded to 16 rows, leading dimension 4 mod 32;
+    # panels of 64 columns in float32, 32 in float64.
+    f32, f64 = torch.float32, torch.float64
+    assert tk.blocked_qr_plan(1216, 192, f32) == (2, 64, 608, 612) and tk.blocked_qr_plan(1540, 70, f32) == (4, 64, 400, 420)
+    assert tk.blocked_qr_plan(2048, 256, f32) == (4, 64, 512, 516) and tk.blocked_qr_plan(534, 150, f32) == (1, 64, 544, 548)
+    assert tk.blocked_qr_plan(2048, 40, f64) == (4, 32, 512, 516) and tk.blocked_qr_plan(17, 17, f32) == (1, 64, 32, 36)
+    assert tk.blocked_qr_plan(10 ** 6, 20, f32) is None and tk.blocked_qr_plan(300, 20, torch.bfloat16) is None
     # Empty batches and refused operands; nothing on the CPU counts as a launch.
     tk.reset_launches()
     assert tk.blocked_qr_r(torch.zeros((0, 50, 20))).shape == (0, 20, 20)
@@ -633,5 +636,5 @@ def test_blocked_qr_r_wrapper_contract():
         tk._require_cuda("blocked_qr_r", torch.zeros((2, 50, 20)))
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, OSError, AssertionError)):
-            tk._launch("blocked_qr_r", "benlsip_blocked_qr_r", torch.zeros((2, 50, 20)), 0, 0, 0, 2, 50, 20, 32, 68)
+            tk._launch("blocked_qr_r", "benlsip_blocked_qr_r", torch.zeros((2, 50, 20)), 0, None, 0, 0, 2, 50, 20, 1, 64, 68)
     assert tk.LAUNCHES["blocked_qr_r"] == 0

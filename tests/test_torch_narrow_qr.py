@@ -121,6 +121,7 @@ STACKED_ROUTES = [
     ((2, 2032, 16), torch.float32, "narrow_qr_r"),
     ((2, 2033, 16), torch.float32, "linalg"),
     ((4, 23, 17), torch.float32, "blocked_qr_r"),
+    ((64, 1024, 192), torch.float32, "blocked_qr_r"),     # config 3's polish: one stacked panel launch
     ((3, 23, 17), torch.float32, "linalg"),
     ((4, 32, 3), torch.float64, "linalg"),
 ]
