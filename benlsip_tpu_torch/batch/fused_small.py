@@ -51,7 +51,7 @@ from .._batched import tree_map
 from ..kernels import batched_linalg as kern
 from ..solver.options import SolverOptions
 from ..solver.outer import SolveInfo, default_atol, outer_done, outer_init, outer_loop
-from .polish import FusedPolish, PolishState, finish_polish
+from .polish import FusedPolish, PolishState, _check_fallback_pad, finish_polish
 from .vmap_solve import BatchedProblem, map_poly_fields
 
 Tensor = torch.Tensor
@@ -336,12 +336,13 @@ def solve_small_fused(
     bulk's loosened crit_tol and inner cap; only the scheduling differs.
     `fallback_device=None` runs the fallback refine of uncertified lanes on
     X0's device ("cpu": on the host, and the results come back there).
-    `fallback_pad` keeps the JAX signature; eager PyTorch pads no bucket,
-    so another value raises `NotImplementedError`.  On a CUDA card the
-    stages run as graph replays, on the CPU as plain calls in the current
-    loop mode.  A bulk that materializes an (n, n) operator (n ≥ 64 with a
-    tall Jacobian, `solver/subproblem.resolve_operator_route`) builds it
-    inside the bulk's graph, its rebuilds and rescues behind IF nodes.
+    `fallback_pad` keeps the JAX signature and is refused at any value but
+    64 (`batch/polish._check_fallback_pad`: the port pads no bucket).  On
+    a CUDA card the stages run as graph replays, on the CPU as plain calls
+    in the current loop mode.  A bulk that materializes an (n, n) operator
+    (n ≥ 64 with a tall Jacobian, `solver/subproblem.resolve_operator_route`)
+    builds it inside the bulk's graph, its rebuilds and rescues behind IF
+    nodes.
     `options.verbose` raises (`ValueError`, on either device): a WHILE
     node's body cannot write the log's rows on the host.
     """
@@ -350,8 +351,7 @@ def solve_small_fused(
     if options.verbose:
         raise ValueError("solve_small_fused: verbose=True writes its rows on the host from eager loops, and this "
                          "route runs its loops as CUDA-graph WHILE nodes; use fuse=False")
-    if fallback_pad != 64:
-        raise NotImplementedError(f"solve_small_fused(fallback_pad={fallback_pad!r}): not ported yet")
+    _check_fallback_pad("solve_small_fused", fallback_pad)
     B, n = X0.shape
     dev = X0.device
     graphs = dev.type == "cuda" and _USE_GRAPHS

@@ -452,6 +452,20 @@ def _gather_uncertified(ok: Tensor) -> Tensor:
     return torch.nonzero(~ok).squeeze(-1)
 
 
+def _check_fallback_pad(where: str, fallback_pad: int) -> None:
+    """`fallback_pad` is kept at its JAX position and refused at any value
+    but 64.  In the JAX package it caps the power-of-two buckets that the
+    uncertified lanes are padded to, which bounds XLA's compile cache; the
+    padding only repeats lanes, so no result depends on it.  The port pads
+    no bucket: a deliberate difference, not a missing feature."""
+    if fallback_pad != 64:
+        raise ValueError(
+            f"{where}(fallback_pad={fallback_pad!r}): fallback_pad is an XLA compile-cache knob of the JAX "
+            "package (the padded bucket of uncertified lanes); this port pads no bucket, so only the default "
+            "64 is taken. This is a deliberate difference from the JAX package, not a missing feature."
+        )
+
+
 def polish_then_refine(
     bp: BatchedProblem,
     theta,
@@ -459,30 +473,48 @@ def polish_then_refine(
     options: SolverOptions = SolverOptions(),
     num_steps: int = 3,
     active_tol: float = 1e-4,
+    fallback_pad: int = 64,
     chunk: int = 512,
     device=None,
     rounds: int = 2,
     refactor_steps: int = 2,
     bp32: Optional[BatchedProblem] = None,
     theta32=None,
+    split: str = "auto",
+    kkt_factorization: str = "auto",
+    fallback_device=None,
     straggler_bucket: int = 64,
 ) -> Tuple[Tensor, Tensor, SolveInfo]:
     """f64 certification phase: SQP polish, re-polish rounds and the
     full-refine fallback for the lanes still uncertified.
 
-    The route follows from the inputs.  `device=None` certifies on X32's
-    device: the fused polish (`sqp_polish_fused`) when the bulk phase's
-    float32 working set `bp32`/`theta32` (on X32's device) is given, else
-    the all-f64 `sqp_polish` there.  `device="cpu"` is the host
-    certification: the split polish (`sqp_polish_split`: f32 factors where
-    X32 lives, f64 chord on the CPU) when `bp32`/`theta32` are given and
-    n ≥ 64, else the all-f64 `sqp_polish` on the CPU.  Outside the fused
-    polish, uncertified lanes get up to `rounds - 1` re-polishes through
-    `sqp_polish`.  The fallback refine runs where the certification ran.
-    Returns f64 (X, Y, SolveInfo) on the certification's device.
+    `device=None` certifies on X32's device: the fused polish
+    (`sqp_polish_fused`: float32 QR factors, f64 chord) when the bulk
+    phase's float32 working set `bp32`/`theta32` (on X32's device) is given
+    and `split` is not "off", else the all-f64 `sqp_polish` there.
+    `device="cpu"` is the host certification: the split polish
+    (`sqp_polish_split`: f32 factors where X32 lives, f64 chord on the CPU)
+    when `bp32`/`theta32` are given and `split` is "on", or "auto" with
+    n ≥ 64; else the all-f64 `sqp_polish` on the CPU.  `split="off"` is
+    the opt-out from float32 factors for families whose conditioning needs
+    the all-f64 polish.  Outside the fused polish, uncertified lanes get up
+    to `rounds - 1` re-polishes through `sqp_polish`.
+    `kkt_factorization` goes to every polish but the fused one (QR by
+    construction); "auto" is QR for float32 factors and LU for float64 on
+    every device (the JAX package takes QR on an accelerator because the
+    TPU had no f64 LU).  The lanes still uncertified go to
+    `fallback_full_refine` on `fallback_device` (None: where the
+    certification ran).  `fallback_pad` is refused at any value but 64
+    (`_check_fallback_pad`).  Returns f64 (X, Y, SolveInfo) on the
+    certification's device, or on `fallback_device` when a lane went to
+    the fallback refine.
     """
     from .refine import _cast_problem, _cast_tree
 
+    _check_fallback_pad("polish_then_refine", fallback_pad)
+    if split not in ("auto", "on", "off"):
+        raise ValueError(f"split={split!r}: expected 'auto', 'on' or 'off'")
+    _resolve_kkt(kkt_factorization, torch.float64)   # refuse an unknown value before any work
     host = device is not None
     if host and torch.device(device).type != "cpu":
         raise ValueError(f"device={device!r}: None (X32's device) or 'cpu' (host certification)")
@@ -491,14 +523,17 @@ def polish_then_refine(
     bp64 = _cast_problem(bp, torch.float64, dev)
     have32 = bp32 is not None and theta32 is not None
     kw = dict(num_steps=num_steps, active_tol=active_tol, refactor_steps=refactor_steps)
+    use_fused = have32 and not host and split != "off"
+    use_split = have32 and host and (split == "on" or (split == "auto" and X32.shape[-1] >= 64))
 
-    if have32 and not host:
+    if use_fused:
         X, Y, ok, pix, feas, obj = sqp_polish_fused(
             bp32, theta32, X32, bp64, theta64, options, rounds=rounds,
             straggler_bucket=straggler_bucket, **kw,
         )
     else:
-        if have32 and X32.shape[-1] >= 64:
+        kw["kkt_factorization"] = kkt_factorization
+        if use_split:
             out = sqp_polish_split(bp32, theta32, X32, bp64, theta64, options, **kw)
         else:
             out = sqp_polish(bp64, theta64, X32.to(device=dev, dtype=torch.float64), options, **kw)
@@ -513,7 +548,7 @@ def polish_then_refine(
             new = sqp_polish(bp_r, theta_r, X[idx], options, **kw)
             for t, t_new in zip(out, new):
                 t[idx] = t_new
-    return finish_polish(bp64, theta64, (X, Y, ok, pix, feas, obj), options, num_steps, chunk)
+    return finish_polish(bp64, theta64, (X, Y, ok, pix, feas, obj), options, num_steps, chunk, fallback_device)
 
 
 def finish_polish(bp64, theta64, polished, options: SolverOptions, num_steps: int, chunk: int,
@@ -521,8 +556,7 @@ def finish_polish(bp64, theta64, polished, options: SolverOptions, num_steps: in
     """The polished lanes' (X, Y, SolveInfo) — converged where certified,
     no outer iterations, `num_steps` inner ones, mu at its start — after
     one host sync to ask whether a lane is uncertified; those go to
-    `fallback_full_refine`, on `fallback_device` when given (the results
-    come back there), else where they are."""
+    `fallback_full_refine` on `fallback_device`."""
     X, Y, ok, pix, feas, obj = polished
     B = X.shape[0]
     zeros_i = torch.zeros((B,), dtype=torch.int32, device=X.device)
@@ -540,22 +574,25 @@ def finish_polish(bp64, theta64, polished, options: SolverOptions, num_steps: in
     )
     if not host_any(~ok):
         return X, Y, info
+    return fallback_full_refine(bp64, theta64, X, Y, info, options, chunk=chunk, fallback_device=fallback_device)
+
+
+def fallback_full_refine(bp64, theta64, X: Tensor, Y: Tensor, info: SolveInfo, options, fallback_pad: int = 64,
+                         chunk: int = 512, fallback_device=None):
+    """Full-f64-refine fallback for the uncertified lanes (`info.converged`),
+    warm-started from the polished points, with the stall-restart rescue
+    (one more refine from its own output for the lanes the first refine
+    left unconverged); results scattered back.  It runs on
+    `fallback_device` when given (the data move there, and the results
+    come back there), else where X is.  `fallback_pad` is refused at any
+    value but 64 (`_check_fallback_pad`)."""
+    from .refine import _cast_problem, refine_f64
+
+    _check_fallback_pad("fallback_full_refine", fallback_pad)
     if fallback_device is not None:
-        from .refine import _cast_problem
-
-        host = torch.device(fallback_device)
-        bp64, theta64 = _cast_problem(bp64, torch.float64, host), tree_map(lambda a: a.to(host), theta64)
-        X, Y, info = X.to(host), Y.to(host), SolveInfo(*[t.to(host) for t in info])
-    return fallback_full_refine(bp64, theta64, X, Y, info, options, chunk)
-
-
-def fallback_full_refine(bp64, theta64, X: Tensor, Y: Tensor, info: SolveInfo, options, chunk: int):
-    """Full-f64-refine fallback for the uncertified lanes (`info.converged`)
-    on their own device, warm-started from the polished points, with the
-    stall-restart rescue (one more refine from its own output for the
-    lanes the first refine left unconverged); results scattered back."""
-    from .refine import refine_f64
-
+        to = torch.device(fallback_device)
+        bp64, theta64 = _cast_problem(bp64, torch.float64, to), tree_map(lambda a: a.to(to), theta64)
+        X, Y, info = X.to(to), Y.to(to), SolveInfo(*[t.to(to) for t in info])
     idx = _gather_uncertified(info.converged)
     bp_f, theta_f = _take_batched(bp64, theta64, idx)
     Xf, Yf, inf_f = refine_f64(bp_f, theta_f, X[idx], options, chunk=chunk)
@@ -573,4 +610,3 @@ def fallback_full_refine(bp64, theta64, X: Tensor, Y: Tensor, info: SolveInfo, o
     for f in SolveInfo._fields:
         getattr(info, f)[idx] = getattr(inf_f, f).to(getattr(info, f).dtype)
     return X, Y, info
-

@@ -19,8 +19,10 @@ def residuals(x):
     return torch.stack([x[0] - 1.0, x[1] - x[2], x[3] - x[4]])
 
 
-def make_problem() -> Problem:
-    return Problem(residuals=residuals, A=A, b=b)
+def make_problem(dtype: torch.dtype = torch.float64) -> Problem:
+    """The problem with its constraint data as `dtype` tensors on the CPU
+    (`Problem.build` casts them to the solve's dtype and device)."""
+    return Problem(residuals=residuals, A=torch.tensor(A, dtype=dtype), b=torch.tensor(b, dtype=dtype))
 
 
 def x0(dtype: torch.dtype = torch.float64, device=None):

@@ -4,8 +4,9 @@
 The reference's end-to-end fixture: 3 parameters, 4 residuals, 1 nonlinear
 equality constraint (sphere of radius sqrt(3)), 1 linear equality
 constraint, full box bounds.  The callables are per-instance functions of
-x (3,); the constraint data are plain lists, cast by `Problem.build` to the
-solve's dtype and device.
+x (3,); the constraint data are plain lists here, and `make_problem` hands
+them to the `Problem` as tensors of its `dtype` on the CPU, which
+`Problem.build` casts to the solve's dtype and device.
 """
 from __future__ import annotations
 
@@ -53,14 +54,15 @@ xl = [-2.0, -1.5, 0.0]
 xu = [2.0, 1.5, 2.0]
 
 
-def make_problem(analytic_jacobians: bool = True) -> Problem:
-    """The fixture with its constraint data."""
+def make_problem(dtype: torch.dtype = torch.float64, analytic_jacobians: bool = True) -> Problem:
+    """The fixture with its constraint data as `dtype` tensors on the CPU."""
+    data = lambda a: torch.tensor(a, dtype=dtype)
     return Problem(
         residuals=residuals,
         nlconstraints=nlconstraints,
         jac_res=jac_res if analytic_jacobians else None,
         jac_nlcons=jac_nlcons if analytic_jacobians else None,
-        A=A, b=b, xl=xl, xu=xu,
+        A=data(A), b=data(b), xl=data(xl), xu=data(xu),
     )
 
 

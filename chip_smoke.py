@@ -196,7 +196,20 @@ Phases (any failure raises and the script exits non-zero):
    with `--profile`, also `solve_mixed_precision` on the family once
    (config 3's options): its certified count and wall (minutes: the f64
    refine of the lanes the polish leaves);
-11. with `--profile` only: each path's warm wall split into bulk and
+11. `polish_then_refine`'s routes at full width, each cold after one
+   float32 bulk: on config 2 the host route's split polish
+   (`split="on"`: `narrow_qr_r` on the card, f64 chord steps on the CPU),
+   its all-f64 polish (`split="off"`: no kernel), the all-f64 polish on
+   the card (`split="off"`) with `kkt_factorization="lu"` and `"qr"`, and
+   the default fused polish: 1024/1024 certified at ≤ 1.49e-8 each, X
+   within rtol 1e-6 / atol 1e-8 of the default route's, the oracle on 128;
+   on config 3 the all-f64 polish on the card with LU and QR, the split
+   polish on the host route (`blocked_qr_r`'s stacked form) and the fused
+   polish with four lanes sent back to their cold start, `num_steps=2,
+   rounds=1` and `fallback_device="cpu"` (those lanes refined on the CPU,
+   every returned tensor on the CPU): 64/64 each, the oracle on all 64;
+   each route's wall, certified count and launches;
+12. with `--profile` only: each path's warm wall split into bulk and
    certification, how many lanes the fused polish certifies alone and with
    its re-polish buckets, and the device's busy share and kernel count from
    torch.profiler, with the time and calls of cuSOLVER's `geqr2*` and of
@@ -211,7 +224,8 @@ It imports nothing of JAX and nothing of the JAX package: the KKT oracle
 is the port's own copy.  The last two lines are the kernels' JSON record
 (launch counts per path, bf16 launches per bf16 path, times, bounds; the
 shapes the paths called the dual-Newton kernel at, recorded from phases
-4-10, whose layouts phase 3 must have checked) and the result JSON.
+4-11, whose layouts phase 3 must have checked; phase 11's launches per
+route) and the result JSON.
 """
 from __future__ import annotations
 
@@ -917,7 +931,7 @@ NEWTON_SHAPES = ((512, 1, 3, False), (64, 6, 192, True), (1, 1, 3, False), (1, 8
 # The split form's other cluster sizes on a path: config 4's explicit-collective
 # run (n = 2048, S = 8) and its card-against-CPU run (n = 1024, S = 4).
 NEWTON_SPLIT_SHAPES = ((1, 8, 1024, False), (1, 8, 2048, False))
-# Shapes the paths called the kernel at, recorded from phases 4-10 (`_record_newton_shapes`).
+# Shapes the paths called the kernel at, recorded from phases 4-11 (`_record_newton_shapes`).
 NEWTON_SEEN: dict = {}
 
 
@@ -3647,6 +3661,131 @@ def phase_surface(kern, profile: bool) -> dict:
     return res
 
 
+# A route whose lanes the fallback refine finished against the default
+# route: the refine stops at pix ≤ 1.49e-8, not at the polish's f64 floor.
+FALLBACK_ATOL = 1e-6
+
+
+def _polish_route(kern, tag: str, run, B: int, n: int, X_ref=None, atol: float = FUSED_ATOL) -> dict:
+    """One `polish_then_refine` route, cold: its launches read around the
+    call, every lane certified at f64 KKT grade, X within rtol FUSED_RTOL /
+    `atol` (the fused-vs-unfused bar by default) of the reference route's."""
+    kern.reset_launches()
+    (X, Y, info), wall = _walled(run)
+    launches = {k: v for k, v in kern.LAUNCHES.items() if v}
+    diff = "" if X_ref is None else f", max |dX| vs the default route {float((X.cpu() - X_ref.cpu()).abs().max()):.3e}"
+    print(f"{tag}: certified {int(info.converged.sum())}/{B}, max pix {float(info.pix.max()):.3e}, "
+          f"lanes refined by the fallback {int((info.outer_iters > 0).sum())}, X on {X.device.type}, "
+          f"wall {wall:.3f} s{diff}, launches {launches}")
+    _check_certified(tag, X, info, B, n)
+    if X_ref is not None and not torch.allclose(X.cpu(), X_ref.cpu(), rtol=FUSED_RTOL, atol=atol):
+        raise AssertionError(f"{tag}: X differs from the default route's beyond rtol {FUSED_RTOL} / atol {atol}")
+    return {"X": X, "info": info, "wall_s": wall, "certified": int(info.converged.sum()),
+            "launches": dict(kern.LAUNCHES)}
+
+
+def phase_polish_routes(kern) -> dict:
+    """Phase 11: `polish_then_refine`'s routes at full width, each after
+    one float32 bulk of its family.  Config 2 (`exp_fit_family(1024)`):
+    the split polish on the host route (`split="on"`: float32 QR factors
+    on the card through `narrow_qr_r`, f64 chord steps on the CPU), the
+    all-f64 polish on the CPU (`split="off"`, no kernel), the all-f64
+    polish on the card with the LU and with the QR factor, and the default
+    fused polish; each certifies 1024/1024, agrees with the default route
+    and passes the KKT oracle on 128 lanes.  Config 3
+    (`dense_quadratic_family(64, n=192)`): the all-f64 polish on the card
+    with LU and QR, the split polish on the host route (the panel QR
+    kernel's stacked form), and the fused polish with four lanes sent back
+    to their cold start, `num_steps=2, rounds=1` and
+    `fallback_device="cpu"`: the fallback refine runs on the CPU and the
+    results come back there, every lane certified or converged."""
+    from benlsip_tpu_torch.batch.polish import polish_then_refine
+    from benlsip_tpu_torch.batch.refine import _cast_problem, _cast_tree
+    from benlsip_tpu_torch.batch.vmap_solve import solve_batched_chunked
+    from benlsip_tpu_torch.problems.generators import dense_quadratic_family, exp_fit_family
+    from benlsip_tpu_torch.solver.options import SolverOptions
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda:0")
+    res = {}
+
+    # Config 2: the bulk as solve_mixed_precision runs it (crit_tol 1e-2,
+    # 8 inner iterations a subproblem at n <= 8), then five routes.
+    B = 1024
+    opts = SolverOptions(max_outer_iter=40, max_inner_iter=120)
+    bp, theta, X0 = exp_fit_family(B, d=32, seed=42, dtype=torch.float64, device=dev)
+    bp32, th32 = _cast_problem(bp, torch.float32, dev), _cast_tree(theta, torch.float32)
+    bulk_opts = SolverOptions(max_outer_iter=40, max_inner_iter=8, crit_tol=1e-2)
+    X32, bulk = _walled(lambda: solve_batched_chunked(bp32, th32, X0.float(), bulk_opts, chunk=512)[0].float())
+    print(f"config 2 polish routes: the float32 bulk {bulk:.3f} s")
+    route = lambda **kw: (lambda: polish_then_refine(bp, theta, X32, opts, num_steps=5, bp32=bp32, theta32=th32,
+                                                     **kw))
+    c2 = {"default (fused)": _polish_route(kern, "config 2 default (fused polish)", route(), B, 3)}
+    X_ref = c2["default (fused)"]["X"]
+    c2["cpu split=on"] = _polish_route(kern, "config 2 device='cpu' split='on'", route(device="cpu", split="on"),
+                                       B, 3, X_ref)
+    c2["cpu split=off"] = _polish_route(kern, "config 2 device='cpu' split='off'", route(device="cpu", split="off"),
+                                        B, 3, X_ref)
+    for kkt in ("lu", "qr"):
+        c2[f"device split=off {kkt}"] = _polish_route(
+            kern, f"config 2 device=None split='off' kkt_factorization='{kkt}'",
+            route(split="off", kkt_factorization=kkt), B, 3, X_ref)
+    _check_launched("config 2 default polish", c2["default (fused)"]["launches"], ("narrow_qr_r",))
+    _check_launched("config 2 split polish", c2["cpu split=on"]["launches"], ("narrow_qr_r",))
+    _require(not any(c2["cpu split=off"]["launches"].values()),
+             "config 2 device='cpu' split='off': the all-f64 polish on the CPU must launch no kernel")
+    for tag, r in c2.items():
+        _require(_oracle_exp_fit(f"config 2 {tag}", bp, theta, r["X"].to(dev), 128, 0) == 128,
+                 f"config 2 {tag}: the oracle must agree on 128 lanes")
+
+    # Config 3: its bulk (crit_tol 1e-2, no inner cap at n = 192), then four routes.
+    B3, n3 = 64, 192
+    opts3 = SolverOptions(max_outer_iter=30, max_inner_iter=100)
+    bp3, theta3, X03 = dense_quadratic_family(B3, n=n3, d=1024, m=6, seed=3, dtype=torch.float64, device=dev)
+    bp3_32, th3_32 = _cast_problem(bp3, torch.float32, dev), _cast_tree(theta3, torch.float32)
+    bulk3 = SolverOptions(max_outer_iter=30, max_inner_iter=100, crit_tol=1e-2)
+    X3, bulk_s3 = _walled(lambda: solve_batched_chunked(bp3_32, th3_32, X03.float(), bulk3, chunk=B3)[0].float())
+    print(f"config 3 polish routes: the float32 bulk {bulk_s3:.3f} s")
+    route3 = lambda X, **kw: (lambda: polish_then_refine(bp3, theta3, X, opts3, bp32=bp3_32, theta32=th3_32, **kw))
+    c3 = {"default (fused)": _polish_route(kern, "config 3 default (fused polish)", route3(X3, num_steps=5), B3, n3)}
+    X3_ref = c3["default (fused)"]["X"]
+    for kkt in ("lu", "qr"):
+        c3[f"device split=off {kkt}"] = _polish_route(
+            kern, f"config 3 device=None split='off' kkt_factorization='{kkt}'",
+            route3(X3, num_steps=5, split="off", kkt_factorization=kkt), B3, n3, X3_ref)
+    c3["cpu split=on"] = _polish_route(kern, "config 3 device='cpu' split='on'",
+                                       route3(X3, num_steps=5, device="cpu", split="on"), B3, n3, X3_ref)
+    _check_launched("config 3 split polish", c3["cpu split=on"]["launches"], ("blocked_qr_r",))
+    # Four lanes back at their cold start, one factor and one chord step, no
+    # re-polish: those lanes go to the fallback refine, on the CPU.
+    X3_forced = X3.clone()
+    X3_forced[:4] = X03[:4].float()
+    forced = _polish_route(kern, "config 3 fallback_device='cpu' (4 lanes at their cold start, num_steps=2, rounds=1)",
+                           route3(X3_forced, num_steps=2, rounds=1, fallback_device="cpu"), B3, n3, X3_ref,
+                           FALLBACK_ATOL)
+    X, info = forced["X"], forced["info"]
+    refined = int((info.outer_iters > 0).sum())
+    _require(refined >= 1 and all(t.device.type == "cpu" for t in (X, *info)),
+             f"config 3 fallback_device='cpu': {refined} lanes went to the fallback refine and X is on "
+             f"{X.device}; at least one lane must, and every returned tensor must be on the CPU")
+    c3["fallback_device=cpu"] = forced
+    fns = bp3.instance_fns(theta3)
+    J = fns.jac_res(X03)[0].cpu().numpy()   # shared by every instance (a stride-0 expand)
+    A, b_rhs = bp3.A.cpu().numpy(), bp3.b.cpu().numpy()
+    xl, xu = bp3.xl.cpu().numpy(), bp3.xu.cpu().numpy()
+    for tag, r in c3.items():
+        Xd = r["X"].to(dev)
+        rr, Xn = fns.residuals(Xd).cpu().numpy(), Xd.cpu().numpy()
+        agree = _oracle_agreement(f"config 3 {tag}", [(Xn[i], rr[i], J, None, None, A, b_rhs, xl, xu) for i in range(B3)])
+        _require(agree == B3, f"config 3 {tag}: the oracle agrees on {agree}/{B3}")
+
+    routes = {**{f"config 2 {k}": v for k, v in c2.items()}, **{f"config 3 {k}": v for k, v in c3.items()}}
+    res["routes"] = {k: {"wall_s": v["wall_s"], "certified": v["certified"]} for k, v in routes.items()}
+    res["launches"] = {name: {k: v["launches"][name] for k, v in routes.items()} for name in kern.LAUNCHES}
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s; walls and certified counts {res['routes']}")
+    return res
+
+
 def main() -> None:
     smi = phase_card()   # raises without a CUDA device, before any output
     from benlsip_tpu_torch.kernels import batched_linalg as kern
@@ -3664,6 +3803,7 @@ def main() -> None:
     res5 = phase_config5(kern, smi)
     resb = phase_bf16(kern, smi)
     ress = phase_surface(kern, "--profile" in sys.argv[1:])
+    resp = phase_polish_routes(kern)
     if "--profile" in sys.argv[1:]:
         phase_profile(kern)
     src = "benlsip_tpu_torch/kernels/csrc/"
@@ -3706,7 +3846,9 @@ def main() -> None:
             k["launches_config3_host"] = res3["launches_host"][name]
         own4, own5 = res4["launches"][name], res5["launches"][name]
         own_ill = ress["ill"]["launches"][name]
-        k.update({"launches": own2 + own3 + own1 + own1_b1 + own4 + own5 + own_ill, "launches_config2": own2,
+        own_routes = resp["launches"][name]
+        k.update({"launches": own2 + own3 + own1 + own1_b1 + own4 + own5 + own_ill + sum(own_routes.values()),
+                  "launches_config2": own2,
                   "launches_config3": own3,
                   "launches_config1": own1, "launches_config1_host": res1["host"]["launches"][name],
                   "launches_config1_single_f32": own1_b1, "launches_config4": own4,
@@ -3730,7 +3872,9 @@ def main() -> None:
                   "launches_config1_fused": res1["fused"]["launches"][name],
                   # Phase 10: ill_conditioned_family(64, n=100): the bulk with the
                   # QR split polish.
-                  "launches_ill_conditioned": ress["ill"]["launches"][name], **rec[name]})
+                  "launches_ill_conditioned": ress["ill"]["launches"][name],
+                  # Phase 11: each polish_then_refine route's cold call, after its bulk.
+                  "launches_polish_routes": own_routes, **rec[name]})
         if name in SMALL_KERNELS + ("polyhedron_newton",):
             # Phase 9: the bf16 instantiation's launches on each bf16 path's
             # cold run; the small kernels' check against the bf16 plain

@@ -192,7 +192,8 @@ def test_replay_counts_without_graphs(config2_pair):
 
 def test_unported_fallback_pad_raises(config2_pair):
     # The JAX fallback pads its bucket to a power of two up to fallback_pad;
-    # eager PyTorch pads nothing, so only the default is accepted.
+    # eager PyTorch pads nothing, so only the default is accepted, and any
+    # other value is refused as a deliberate difference.
     _, (bp, th, X0) = config2_pair
-    with pytest.raises(NotImplementedError, match="fallback_pad"):
+    with pytest.raises(ValueError, match="fallback_pad"):
         solve_small_fused(bp, th, X0, SolverOptions(**OPTS), fallback_pad=4)

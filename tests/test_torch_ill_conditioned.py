@@ -98,3 +98,30 @@ def test_split_polish_qr_beats_lu_ill_conditioned(n, least, monkeypatch):
     np.testing.assert_array_equal(qr_on_j, j_qr)
     np.testing.assert_array_equal(f64_on_j, j_f64)
     np.testing.assert_array_equal(qr, j_qr)
+
+
+def test_pipeline_matches_jax_ill_conditioned():
+    # solve_mixed_precision with the host certification (the JAX default's
+    # route: the f32 bulk, the all-f64 polish on the CPU at n < 64, the
+    # re-polish round and the fallback refine) against the JAX default.
+    # The float32 bulks part at this conditioning (up to 0.15 in X), yet
+    # the polish certifies the same lanes, and to the same points; every
+    # lane ends certified with the same status.  The lanes the fallback
+    # refine finishes are not held to JAX's X: its trajectories part at a
+    # Cauchy direction of rounding size (ROADMAP §3).
+    from benlsip_tpu.batch.refine import solve_mixed_precision as j_mixed
+    from benlsip_tpu_torch.batch.refine import solve_mixed_precision
+
+    kw = dict(n=12, d=48, kappa=1e4, seed=9)
+    opts = dict(max_outer_iter=30, max_inner_iter=100)
+    bp_j, th_j, X0_j = j_family(B, **kw)
+    Xj, _, ij = j_mixed(bp_j, th_j, X0_j, JOptions(**opts), chunk=B)
+    bp, th, X0 = ill_conditioned_family(B, **kw, device="cpu")
+    Xt, _, it = solve_mixed_precision(bp, th, X0, SolverOptions(**opts), chunk=B, certify="host")
+    assert Xt.device.type == "cpu" and bool(it.converged.all())
+    np.testing.assert_array_equal(it.converged.numpy(), np.asarray(ij.converged))
+    np.testing.assert_array_equal(it.status.numpy(), np.asarray(ij.status))
+    polished = (it.outer_iters == 0).numpy()
+    np.testing.assert_array_equal(polished, np.asarray(ij.outer_iters) == 0)
+    assert 0 < polished.sum() < B
+    np.testing.assert_allclose(Xt.numpy()[polished], np.asarray(Xj)[polished], rtol=1e-7, atol=1e-9)

@@ -121,7 +121,9 @@ STACKED_ROUTES = [
     ((2, 2032, 16), torch.float32, "narrow_qr_r"),
     ((2, 2033, 16), torch.float32, "linalg"),
     ((4, 23, 17), torch.float32, "blocked_qr_r"),
-    ((64, 1024, 192), torch.float32, "blocked_qr_r"),     # config 3's polish: one stacked panel launch
+    # One stacked panel launch, a full panel and a ragged one; config 3's
+    # (64, 1024 + 192, 192) takes the same route, checked on the card.
+    ((4, 200, 70), torch.float32, "blocked_qr_r"),
     ((3, 23, 17), torch.float32, "linalg"),
     ((4, 32, 3), torch.float64, "linalg"),
 ]
