@@ -36,6 +36,15 @@ plus each graph's top level once a replay.
 On a CPU tensor the same stages run as plain calls in the current loop
 mode: "eager" by default, "all_trips" to compute what the graphs compute
 with no guard skipping (`_loops`).
+
+Spans (`_trace`, while the recorder is on): `load` around the casts and
+the copies into the key's buffers, `bulk` (attribute `rows`) around each
+chunk's copy in, replay and copy out, and `cert` around the certification
+graph's replay, each a device span timed by a pair of CUDA events on the
+current stream; `finish` is `polish.finish_polish`'s.  The set-up spans
+are recorded always, once per cache key: `warmup` around the eager run
+of `_Pipeline.capture`, and `capture` (attribute `stage`) around each
+stage's capture and instantiation, whose two parts `GRAPH_STATS` keeps.
 """
 from __future__ import annotations
 
@@ -46,7 +55,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _loops
+from .. import _loops, _trace
 from .._batched import tree_map
 from ..kernels import batched_linalg as kern
 from ..solver.options import SolverOptions
@@ -126,18 +135,18 @@ class _Stage:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = _loops.captured_counts()
         counters = torch.zeros(_MAX_LOOPS, dtype=torch.int64, device=stream.device)
-        t0 = time.perf_counter()
-        with _loops.log_loops(counters) as (loops, nested), _loops.loop_mode("capture"), \
-                torch.cuda.graph(graph, pool=pool, stream=stream):
-            self.fn()
-        t1 = time.perf_counter()
-        graph.instantiate()
-        torch.cuda.synchronize()
+        with _trace.setup_span("capture", stage=self.name) as sp:
+            with _loops.log_loops(counters) as (loops, nested), _loops.loop_mode("capture"), \
+                    torch.cuda.graph(graph, pool=pool, stream=stream):
+                self.fn()
+            t1 = time.perf_counter_ns()
+            graph.instantiate()
+            torch.cuda.synchronize()
         captured = _loops.captured_counts(since=before)
         self.parts = [(dict(captured - nested), *kern.graph_nodes(graph.raw_cuda_graph()))]
         self.parts += [(r.launches, *kern.graph_nodes(r.body)) for r in loops]
         self.kinds = [r.kind for r in loops]
-        GRAPH_STATS.append({"stage": self.name, "capture_s": t1 - t0, "instantiate_s": time.perf_counter() - t1,
+        GRAPH_STATS.append({"stage": self.name, "capture_s": (t1 - sp.t0) / 1e9, "instantiate_s": (sp.t1 - t1) / 1e9,
                             "captured_launches": {k: v for k, v in captured.items() if k in kern.LAUNCHES},
                             "loops": self.kinds.count("while"), "branches": self.kinds.count("if"),
                             "kernel_nodes": sum(p[1] for p in self.parts)})
@@ -230,10 +239,12 @@ class _Pipeline:
         for start in range(0, self.B, self.chunk):
             sl = slice(start, min(start + self.chunk, self.B))
             bulk = self._bulk(sl.stop - sl.start)
-            bulk.load(self, sl)
-            bulk.stage()
-            self.X32[sl].copy_(bulk.X)
-        self.cert()
+            with _trace.span("bulk", self.device, rows=sl.stop - sl.start):
+                bulk.load(self, sl)
+                bulk.stage()
+                self.X32[sl].copy_(bulk.X)
+        with _trace.span("cert", self.device):
+            self.cert()
         return self.state
 
     def capture(self) -> None:
@@ -243,11 +254,12 @@ class _Pipeline:
         all are captured, so the plain run's writes do no harm."""
         kern.load_library()
         stream = torch.cuda.Stream(device=self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream), _loops.loop_mode("eager"):
-            self.run()
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        torch.cuda.synchronize(self.device)
+        with _trace.setup_span("warmup"):
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream), _loops.loop_mode("eager"):
+                self.run()
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            torch.cuda.synchronize(self.device)
         pool = torch.cuda.graph_pool_handle()
         for stage in [b.stage for b in self.bulks.values()] + [self.cert]:
             stage.capture(pool, stream)
@@ -369,8 +381,9 @@ def solve_small_fused(
            poly_spec, _tree_spec(X0), str(dev), bulk_opts, chunk, polish_kw, graphs)
     pipe = _pipeline(key, lambda: _Pipeline(bp, theta, X0, bulk_opts, chunk, dict(polish_kw)))
 
-    bp64, theta64 = _cast_problem(bp, torch.float64, dev), _cast_tree(theta, torch.float64)
-    pipe.load(bp, theta, X0)
+    with _trace.span("load", dev):
+        bp64, theta64 = _cast_problem(bp, torch.float64, dev), _cast_tree(theta, torch.float64)
+        pipe.load(bp, theta, X0)
     if graphs and not pipe.captured:
         pipe.capture()
     s = pipe.run()

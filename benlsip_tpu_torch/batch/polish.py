@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import _trace
 from .._batched import full, mtv, mv, norm, sel, tree_map, vdot
 from .._loops import host_any, host_count, masked_while
 from ..ops.constraints import Polyhedron
@@ -556,25 +557,28 @@ def finish_polish(bp64, theta64, polished, options: SolverOptions, num_steps: in
     """The polished lanes' (X, Y, SolveInfo) — converged where certified,
     no outer iterations, `num_steps` inner ones, mu at its start — after
     one host sync to ask whether a lane is uncertified; those go to
-    `fallback_full_refine` on `fallback_device`."""
-    X, Y, ok, pix, feas, obj = polished
-    B = X.shape[0]
-    zeros_i = torch.zeros((B,), dtype=torch.int32, device=X.device)
-    info = SolveInfo(
-        converged=ok,
-        status=torch.where(ok, SOLVE_CONVERGED, SOLVE_MAX_OUTER).to(torch.int32),
-        outer_iters=zeros_i,
-        inner_iters=torch.full_like(zeros_i, num_steps),
-        pix=pix,
-        feas=feas,
-        mu=full(B, options.mu0, X),
-        objective=obj,
-        minor_iters=zeros_i.clone(),
-        cg_iters=zeros_i.clone(),
-    )
-    if not host_any(~ok):
-        return X, Y, info
-    return fallback_full_refine(bp64, theta64, X, Y, info, options, chunk=chunk, fallback_device=fallback_device)
+    `fallback_full_refine` on `fallback_device`.  Its span is `finish`
+    (`_trace`), the sync and the fallback inside it."""
+    with _trace.span("finish"):
+        X, Y, ok, pix, feas, obj = polished
+        B = X.shape[0]
+        zeros_i = torch.zeros((B,), dtype=torch.int32, device=X.device)
+        info = SolveInfo(
+            converged=ok,
+            status=torch.where(ok, SOLVE_CONVERGED, SOLVE_MAX_OUTER).to(torch.int32),
+            outer_iters=zeros_i,
+            inner_iters=torch.full_like(zeros_i, num_steps),
+            pix=pix,
+            feas=feas,
+            mu=full(B, options.mu0, X),
+            objective=obj,
+            minor_iters=zeros_i.clone(),
+            cg_iters=zeros_i.clone(),
+        )
+        if not host_any(~ok):
+            return X, Y, info
+        return fallback_full_refine(bp64, theta64, X, Y, info, options, chunk=chunk,
+                                    fallback_device=fallback_device)
 
 
 def fallback_full_refine(bp64, theta64, X: Tensor, Y: Tensor, info: SolveInfo, options, fallback_pad: int = 64,
@@ -585,7 +589,9 @@ def fallback_full_refine(bp64, theta64, X: Tensor, Y: Tensor, info: SolveInfo, o
     left unconverged); results scattered back.  It runs on
     `fallback_device` when given (the data move there, and the results
     come back there), else where X is.  `fallback_pad` is refused at any
-    value but 64 (`_check_fallback_pad`)."""
+    value but 64 (`_check_fallback_pad`).  Its span is `fallback`
+    (attribute `lanes`, `_trace`), from the lanes' gather on, with a
+    `refine` span for each round."""
     from .refine import _cast_problem, refine_f64
 
     _check_fallback_pad("fallback_full_refine", fallback_pad)
@@ -594,19 +600,22 @@ def fallback_full_refine(bp64, theta64, X: Tensor, Y: Tensor, info: SolveInfo, o
         bp64, theta64 = _cast_problem(bp64, torch.float64, to), tree_map(lambda a: a.to(to), theta64)
         X, Y, info = X.to(to), Y.to(to), SolveInfo(*[t.to(to) for t in info])
     idx = _gather_uncertified(info.converged)
-    bp_f, theta_f = _take_batched(bp64, theta64, idx)
-    Xf, Yf, inf_f = refine_f64(bp_f, theta_f, X[idx], options, chunk=chunk)
-    bad = ~inf_f.converged
-    if host_any(bad):
-        sel2 = _gather_uncertified(~bad)
-        bp_r, theta_r = _take_batched(bp_f, theta_f, sel2)
-        Xf2, Yf2, inf_f2 = refine_f64(bp_r, theta_r, Xf[sel2], options, chunk=chunk)
-        Xf[sel2], Yf[sel2] = Xf2, Yf2
+    with _trace.span("fallback", lanes=idx.numel()):
+        bp_f, theta_f = _take_batched(bp64, theta64, idx)
+        with _trace.span("refine", lanes=idx.numel()):
+            Xf, Yf, inf_f = refine_f64(bp_f, theta_f, X[idx], options, chunk=chunk)
+        bad = ~inf_f.converged
+        if host_any(bad):
+            sel2 = _gather_uncertified(~bad)
+            bp_r, theta_r = _take_batched(bp_f, theta_f, sel2)
+            with _trace.span("refine", lanes=sel2.numel()):
+                Xf2, Yf2, inf_f2 = refine_f64(bp_r, theta_r, Xf[sel2], options, chunk=chunk)
+            Xf[sel2], Yf[sel2] = Xf2, Yf2
+            for f in SolveInfo._fields:
+                getattr(inf_f, f)[sel2] = getattr(inf_f2, f)
+        X, Y = X.clone(), Y.clone()
+        X[idx], Y[idx] = Xf, Yf
+        info = SolveInfo(*[getattr(info, f).clone() for f in SolveInfo._fields])
         for f in SolveInfo._fields:
-            getattr(inf_f, f)[sel2] = getattr(inf_f2, f)
-    X, Y = X.clone(), Y.clone()
-    X[idx], Y[idx] = Xf, Yf
-    info = SolveInfo(*[getattr(info, f).clone() for f in SolveInfo._fields])
-    for f in SolveInfo._fields:
-        getattr(info, f)[idx] = getattr(inf_f, f).to(getattr(info, f).dtype)
+            getattr(info, f)[idx] = getattr(inf_f, f).to(getattr(info, f).dtype)
     return X, Y, info

@@ -43,26 +43,32 @@ with TF32 off.  The JAX fused and overlapped dispatches drop both knobs
 silently; here `fuse=True` refuses both, and `pipeline_overlap` refuses
 both because TF32 is a flag of the whole process, which the overlap's
 certification thread shares with the bulk.
+
+Spans (`_trace`, while the recorder is on): every call is a `call` span
+(a new call id, attribute `rows`), opened once the arguments are checked.
+The fused route's stages are `batch/fused_small`'s; the plain route's are
+`bulk` (the whole batch's bulk, by whichever scheduling) and `certify`
+(the polish and its fallback, or the full refine), and the overlapped
+route's a `bulk` for each chunk on the main thread and a `certify` for
+each chunk on the worker, all host spans (attribute `rows`).  Set-up
+spans (the kernel library's load, a pipeline's warm-up and captures) are
+recorded always.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
-import time
 from typing import Optional, Tuple
 
 import torch
 
+from .. import _trace
 from .._batched import cat_batches, tree_map
 from ..solver.options import SolverOptions, allows_tf32
 from ..solver.outer import SolveInfo
 from .vmap_solve import BatchedProblem, map_poly_fields, solve_batched_chunked
 
 Tensor = torch.Tensor
-# Seconds of the last overlapped pipeline: its wall, and its stages summed
-# over the chunks — the bulk on the main thread, the certification on the
-# worker.
-OVERLAP_STAGES: dict = {}
 
 
 def _cast_tree(tree, dtype: torch.dtype):
@@ -193,60 +199,65 @@ def solve_mixed_precision(
     host = certify == "host"
 
     bulk_max_inner = _resolve_bulk_max_inner(bulk_max_inner, X0.shape[-1], polish)
-    if fuse is True and polish and not host:
-        from .fused_small import solve_small_fused
+    with _trace.call(rows=X0.shape[0]):
+        if fuse is True and polish and not host:
+            from .fused_small import solve_small_fused
 
-        return solve_small_fused(
-            bp, theta, X0, options, chunk=chunk, polish_steps=polish_steps,
-            bulk_crit_tol=bulk_crit_tol, bulk_max_inner=bulk_max_inner,
-        )
+            return solve_small_fused(
+                bp, theta, X0, options, chunk=chunk, polish_steps=polish_steps,
+                bulk_crit_tol=bulk_crit_tol, bulk_max_inner=bulk_max_inner,
+            )
 
-    true_f32_matmuls()
-    dev = X0.device
-    theta32 = _cast_tree(theta, torch.float32)
-    bp32 = _cast_problem(bp, torch.float32, dev)
-    X0_32 = X0.to(torch.float32)
+        true_f32_matmuls()
+        dev = X0.device
+        theta32 = _cast_tree(theta, torch.float32)
+        bp32 = _cast_problem(bp, torch.float32, dev)
+        X0_32 = X0.to(torch.float32)
 
-    bulk_opts = options
-    if polish and bulk_crit_tol is not None:
-        bulk_opts = dataclasses.replace(bulk_opts, crit_tol=bulk_crit_tol)
-    if polish and bulk_matmul_precision is not None:
-        # Like bulk_crit_tol and bulk_max_inner, a polish=True knob: with
-        # polish=False the full refine restarts from the bulk's point and
-        # nothing absorbs a degraded bulk.
-        bulk_opts = dataclasses.replace(bulk_opts, matmul_precision=bulk_matmul_precision)
-    if polish and bulk_max_inner is not None:
-        bulk_opts = dataclasses.replace(
-            bulk_opts, max_inner_iter=min(bulk_max_inner, options.max_inner_iter)
-        )
-    if pipeline_overlap:
-        return _overlapped_pipeline(bp, theta, bp32, theta32, X0_32, options, bulk_opts, chunk, polish_steps, host)
-    # The bulk's working set: the float32 copy itself, or a bf16 cast of it
-    # (the float32 copy stays for the polish's factors).
-    bp_b, theta_b, X0_b = bp32, theta32, X0_32
-    if bulk_dtype != torch.float32:
-        bp_b = _cast_problem(bp32, bulk_dtype, dev)
-        theta_b = _cast_tree(theta32, bulk_dtype)
-        X0_b = X0_32.to(bulk_dtype)
-    if bulk_compact is not None:
-        from .compact import solve_batched_compact
+        bulk_opts = options
+        if polish and bulk_crit_tol is not None:
+            bulk_opts = dataclasses.replace(bulk_opts, crit_tol=bulk_crit_tol)
+        if polish and bulk_matmul_precision is not None:
+            # Like bulk_crit_tol and bulk_max_inner, a polish=True knob: with
+            # polish=False the full refine restarts from the bulk's point and
+            # nothing absorbs a degraded bulk.
+            bulk_opts = dataclasses.replace(bulk_opts, matmul_precision=bulk_matmul_precision)
+        if polish and bulk_max_inner is not None:
+            bulk_opts = dataclasses.replace(
+                bulk_opts, max_inner_iter=min(bulk_max_inner, options.max_inner_iter)
+            )
+        if pipeline_overlap:
+            return _overlapped_pipeline(bp, theta, bp32, theta32, X0_32, options, bulk_opts, chunk, polish_steps, host)
+        B = X0.shape[0]
+        with _trace.span("bulk", rows=B):
+            # The bulk's working set: the float32 copy itself, or a bf16 cast of it
+            # (the float32 copy stays for the polish's factors).
+            bp_b, theta_b, X0_b = bp32, theta32, X0_32
+            if bulk_dtype != torch.float32:
+                bp_b = _cast_problem(bp32, bulk_dtype, dev)
+                theta_b = _cast_tree(theta32, bulk_dtype)
+                X0_b = X0_32.to(bulk_dtype)
+            if bulk_compact is not None:
+                from .compact import solve_batched_compact
 
-        Xb, _, _ = solve_batched_compact(bp_b, theta_b, X0_b, bulk_opts, chunk=chunk, stage_outer=bulk_compact)
-    elif sort_by_difficulty:
-        from .buckets import solve_batched_sorted
+                Xb, _, _ = solve_batched_compact(bp_b, theta_b, X0_b, bulk_opts, chunk=chunk,
+                                                 stage_outer=bulk_compact)
+            elif sort_by_difficulty:
+                from .buckets import solve_batched_sorted
 
-        Xb, _, _ = solve_batched_sorted(bp_b, theta_b, X0_b, bulk_opts, chunk=sort_chunk)
-    else:
-        Xb, _, _ = solve_batched_chunked(bp_b, theta_b, X0_b, bulk_opts, chunk=chunk)
-    X32 = Xb.to(torch.float32)
-    if polish:
-        from .polish import polish_then_refine
+                Xb, _, _ = solve_batched_sorted(bp_b, theta_b, X0_b, bulk_opts, chunk=sort_chunk)
+            else:
+                Xb, _, _ = solve_batched_chunked(bp_b, theta_b, X0_b, bulk_opts, chunk=chunk)
+            X32 = Xb.to(torch.float32)
+        with _trace.span("certify", rows=B):
+            if polish:
+                from .polish import polish_then_refine
 
-        return polish_then_refine(
-            bp, theta, X32, options, num_steps=polish_steps, chunk=chunk,
-            device="cpu" if host else None, bp32=bp32, theta32=theta32,
-        )
-    return refine_f64(bp, theta, X32.cpu() if host else X32, options, chunk=chunk)
+                return polish_then_refine(
+                    bp, theta, X32, options, num_steps=polish_steps, chunk=chunk,
+                    device="cpu" if host else None, bp32=bp32, theta32=theta32,
+                )
+            return refine_f64(bp, theta, X32.cpu() if host else X32, options, chunk=chunk)
 
 
 def _overlapped_pipeline(bp, theta, bp32, theta32, X0_32, options, bulk_opts, chunk: int, polish_steps: int,
@@ -268,26 +279,20 @@ def _overlapped_pipeline(bp, theta, bp32, theta32, X0_32, options, bulk_opts, ch
     take = lambda sl: (lambda a: a[sl])
 
     def certify(sl, X32):
-        t0 = time.perf_counter()
-        out = polish_then_refine(
-            map_poly_fields(bp, take(sl)), tree_map(take(sl), theta), X32, options, num_steps=polish_steps,
-            chunk=csz, device="cpu" if host else None,
-            bp32=map_poly_fields(bp32, take(sl)), theta32=tree_map(take(sl), theta32),
-        )
-        return out, time.perf_counter() - t0
+        with _trace.span("certify", rows=sl.stop - sl.start):
+            return polish_then_refine(
+                map_poly_fields(bp, take(sl)), tree_map(take(sl), theta), X32, options, num_steps=polish_steps,
+                chunk=csz, device="cpu" if host else None,
+                bp32=map_poly_fields(bp32, take(sl)), theta32=tree_map(take(sl), theta32),
+            )
 
-    t_start = time.perf_counter()
-    bulk_s = 0.0
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as worker:
         pending = []
         for start in range(0, B, csz):
             sl = slice(start, min(start + csz, B))
-            t0 = time.perf_counter()
-            X32, _, _ = solve_batched_chunked(map_poly_fields(bp32, take(sl)), tree_map(take(sl), theta32),
-                                              X0_32[sl], bulk_opts, chunk=csz)
-            bulk_s += time.perf_counter() - t0
+            with _trace.span("bulk", rows=sl.stop - sl.start):
+                X32, _, _ = solve_batched_chunked(map_poly_fields(bp32, take(sl)), tree_map(take(sl), theta32),
+                                                  X0_32[sl], bulk_opts, chunk=csz)
             pending.append(worker.submit(certify, sl, X32))
         parts = [p.result() for p in pending]
-    OVERLAP_STAGES.update(wall_s=time.perf_counter() - t_start, bulk_s=bulk_s,
-                          certify_s=sum(t for _, t in parts))
-    return cat_batches([out for out, _ in parts])
+    return cat_batches(parts)

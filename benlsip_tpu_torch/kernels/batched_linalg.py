@@ -74,6 +74,7 @@ must be built and loaded before a capture; a first load inside one raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -259,10 +260,25 @@ def build() -> Path:
     return out
 
 
+# The context the first load runs in: the set-up span `library_load` of
+# `_trace`, a module above this one, which registers it when it is
+# imported, so nothing here imports from above `kernels/`.
+_LOAD_SPAN = contextlib.nullcontext
+
+
+def set_load_span(fn) -> None:
+    """Register the context manager factory the first `load_library()`
+    runs in (`_trace`'s set-up span)."""
+    global _LOAD_SPAN
+    _LOAD_SPAN = fn
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library."""
-    lib = ctypes.CDLL(str(build()))
+    """Build (at first use) and load the kernel library, the build and
+    the load inside the registered `set_load_span` context."""
+    with _LOAD_SPAN():
+        lib = ctypes.CDLL(str(build()))
     for base, argtypes in _SIGNATURES.items():
         for suffix in _ENTRY_SUFFIXES.get(base, ("f32", "f64", "bf16")):
             fn = getattr(lib, f"{base}_{suffix}")

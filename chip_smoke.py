@@ -2822,9 +2822,9 @@ def phase_config5(kern, smi: str) -> dict:
     after two chunks and resumed."""
     import tempfile
 
-    from benlsip_tpu_torch import _loops
+    from benlsip_tpu_torch import _loops, _trace
     from benlsip_tpu_torch.baselines.numpy_ref import solve_exp_fit_numpy
-    from benlsip_tpu_torch.batch import compact, fused_small, refine
+    from benlsip_tpu_torch.batch import compact, fused_small
     from benlsip_tpu_torch.batch.refine import solve_mixed_precision
     from benlsip_tpu_torch.harness.sweep import CheckpointedSweep, run_sweep
     from benlsip_tpu_torch.problems.generators import exp_fit_family
@@ -2945,13 +2945,21 @@ def phase_config5(kern, smi: str) -> dict:
              "overlap device": {"pipeline_overlap": True, "certify": "device"}}
     res_b = {}
     for name, kw in other.items():
+        # The overlapped route's stages are its spans: the recorder is on for
+        # that call alone.
+        if "overlap" in name:
+            _trace.enable()
+            _trace.reset()
         (Xo, _, io), wall = _walled(lambda: solve_mixed_precision(bp_b, th_b, X0_b, opts, **kw))
         _check_certified(f"config 5 {name}", Xo, io, Bb, 3)
         d = float((Xo.to(dev) - Xb).abs().max())
         line = (f"config 5 {name} (B={Bb}): certified {int(io.converged.sum())}/{Bb}, wall {wall:.3f} s beside the plain "
                 f"route's {plain_b:.3f} s, max |dX| against it {d:.3e}")
         if "overlap" in name:
-            st = dict(refine.OVERLAP_STAGES)
+            spans = _trace.spans()
+            _trace.disable()
+            seconds = lambda stage: sum(s.t1 - s.t0 for s in spans if s.name == stage) / 1e9
+            st = {"wall_s": seconds("call"), "bulk_s": seconds("bulk"), "certify_s": seconds("certify")}
             line += (f"; its stages: bulk {st['bulk_s']:.3f} s (main thread) + certification {st['certify_s']:.3f} s "
                      f"(worker) = {st['bulk_s'] + st['certify_s']:.3f} s, overlap wall {st['wall_s']:.3f} s")
             res_b[name + " stages"] = st

@@ -5,7 +5,8 @@ equals an uninterrupted one and `solve_fixed_point` bit for bit; a sweep
 stopped after two chunks, or killed by SIGKILL inside a chunk (a worker
 process, tests/torch_sweep_worker.py), resumes to the uninterrupted
 sweep's bits; a step of another geometry, one without geometry and one
-whose buffers do not fit this run are refused; `trace` writes a trace."""
+whose buffers do not fit this run are refused; `trace` writes a trace,
+the span recorder's spans in it."""
 import json
 import os
 import signal
@@ -24,7 +25,8 @@ from benlsip_tpu_torch.batch.vmap_solve import solve_batched
 from benlsip_tpu_torch.harness import checkpoint
 from benlsip_tpu_torch.harness.checkpoint import CheckpointedSolve
 from benlsip_tpu_torch.harness.metrics import MetricsWriter, batch_summary
-from benlsip_tpu_torch.harness.profile import trace
+from benlsip_tpu_torch import _trace
+from benlsip_tpu_torch.harness.profile import DEVICE_TRACK, HOST_TRACK, trace
 from benlsip_tpu_torch.harness.sweep import CheckpointedSweep, run_sweep
 from benlsip_tpu_torch.problems.generators import exp_fit_family, sphere_family
 from benlsip_tpu_torch.solver.options import SolverOptions
@@ -177,8 +179,20 @@ def test_sweep_resumes_after_sigkill_mid_chunk(tmp_path):
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
+    # The recorder's spans of the block go into the same file, on a track
+    # of their own (and a device span on another), on the profiler's clock:
+    # the span holds the profiler's matmul.
+    _trace.disable()
     with trace(str(tmp_path / "tr"), device="cpu") as prof:
-        torch.ones(8) @ torch.ones(8)
+        with _trace.span("probe", torch.device("cpu"), rows=8):
+            torch.ones(8) @ torch.ones(8)
+    assert not _trace.ON
     (name,) = os.listdir(tmp_path / "tr")
-    assert name.endswith(".json") and json.loads((tmp_path / "tr" / name).read_text())["traceEvents"]
+    events = json.loads((tmp_path / "tr" / name).read_text())["traceEvents"]
+    assert name.endswith(".json") and events
     assert len(prof.key_averages()) > 0
+    probes = [e for e in events if e.get("cat") == "span" and e["name"] == "probe"]
+    assert {e["tid"] for e in probes} == {HOST_TRACK, DEVICE_TRACK} and probes[0]["args"]["rows"] == 8
+    (mm,) = [e for e in events if e.get("name") == "aten::matmul"]
+    host = next(e for e in probes if e["tid"] == HOST_TRACK)
+    assert host["ts"] - 1e3 <= mm["ts"] and mm["ts"] + mm["dur"] <= host["ts"] + host["dur"] + 1e3

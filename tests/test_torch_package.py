@@ -31,6 +31,7 @@ PORT_MODULES = [
     "benlsip_tpu_torch",
     "benlsip_tpu_torch._device",
     "benlsip_tpu_torch._loops",
+    "benlsip_tpu_torch._trace",
     "benlsip_tpu_torch.compat",
     "benlsip_tpu_torch.interop",
     "benlsip_tpu_torch.baselines.kkt_oracle",

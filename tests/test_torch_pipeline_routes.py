@@ -7,6 +7,8 @@ plain route does) and against the JAX package's same route (certified X
 within 1e-8); the routes exclude each other and `fuse=True`; "auto" stays
 plain; and the loop-of-solves `solve_sequential` against the batched
 solve and the JAX package's."""
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ from benlsip_tpu.batch import refine as j_refine
 from benlsip_tpu.batch.vmap_solve import solve_sequential as j_sequential
 from benlsip_tpu.problems.generators import exp_fit_family as j_exp_fit
 from benlsip_tpu.solver.options import SolverOptions as JOptions
+from benlsip_tpu_torch import _trace
 from benlsip_tpu_torch.batch import compact, refine
 from benlsip_tpu_torch.batch.refine import solve_mixed_precision
 from benlsip_tpu_torch.batch.vmap_solve import solve_batched, solve_sequential
@@ -99,18 +102,35 @@ def test_auto_compaction_stays_plain(B_, chunk, family, plain):
     assert refine._resolve_bulk_compact(3, B_, chunk, True) == 3
     bp, th, X0 = family
     compact.reset_stats()
-    refine.OVERLAP_STAGES.clear()
-    out = solve_mixed_precision(bp, th, X0, SolverOptions(**OPTS), chunk=CHUNK, bulk_compact="auto", fuse="auto")
-    assert compact.STATS == [] and refine.OVERLAP_STAGES == {}
+    with _recording() as spans:
+        out = solve_mixed_precision(bp, th, X0, SolverOptions(**OPTS), chunk=CHUNK, bulk_compact="auto", fuse="auto")
+    # The plain route: one bulk and one certification of the whole batch.
+    assert compact.STATS == [] and [(s.name, s.attrs) for s in spans() if s.name in ("bulk", "certify")] == [
+        ("bulk", {"rows": B}), ("certify", {"rows": B})]
     _same(out, plain["device"])
 
 
 def test_overlap_records_its_stages(family):
     bp, th, X0 = family
-    refine.OVERLAP_STAGES.clear()
-    solve_mixed_precision(bp, th, X0, SolverOptions(**OPTS), chunk=CHUNK, pipeline_overlap=True)
-    st = refine.OVERLAP_STAGES
-    assert set(st) == {"wall_s", "bulk_s", "certify_s"} and 0 < st["bulk_s"] <= st["wall_s"] and st["certify_s"] > 0
+    with _recording() as spans:
+        solve_mixed_precision(bp, th, X0, SolverOptions(**OPTS), chunk=CHUNK, pipeline_overlap=True)
+    (call,) = [s for s in spans() if s.name == "call"]
+    stages = {name: [s for s in spans() if s.name == name] for name in ("bulk", "certify")}
+    wall = call.t1 - call.t0
+    assert [s.attrs["rows"] for s in stages["bulk"]] == [s.attrs["rows"] for s in stages["certify"]] == [16, 16, 8]
+    assert 0 < sum(s.t1 - s.t0 for s in stages["bulk"]) <= wall and all(s.t1 > s.t0 for s in stages["certify"])
+    assert all(s.parent == call.id and s.call == call.call for s in stages["bulk"] + stages["certify"])
+
+
+@contextlib.contextmanager
+def _recording():
+    """The span recorder on, from empty, for the block; yields `_trace.spans`."""
+    _trace.enable()
+    _trace.reset()
+    try:
+        yield _trace.spans
+    finally:
+        _trace.disable()
 
 
 def test_solve_sequential_matches_batched_and_jax():
