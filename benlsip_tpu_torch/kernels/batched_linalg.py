@@ -35,7 +35,12 @@ and the kernels that redesign them for this card:
   `newton_plan(m, n, dtype)`: one warp per instance with the line search's
   grid points on the lanes (plan 0, n up to `NEWTON_LANES_MAX_N`) or with
   the columns on the lanes (plan 1), or the fused kernels' cluster of S
-  blocks per instance (plan S, from `SPLIT_MIN_N` on).
+  blocks per instance (plan S, from `SPLIT_MIN_N` on);
+* `minor_direction_r`: the whole minor iteration of `solver/inner` on the
+  materialized operator R (RᵀR = H) — the free-variable box, the projected
+  CG to each instance's own exit, the line search — one block an instance
+  with R in shared memory, one launch a minor iteration (it replaces no TPU
+  kernel: the JAX package's CG is `lax.while_loop` code that XLA fuses).
 
 The small kernels (all but the panel QR and the dual Newton) take float32, float64 and bfloat16, as the TPU
 kernels take float32 and bfloat16: a bf16 kernel computes in float32 and
@@ -51,7 +56,9 @@ padding.  On a CUDA tensor it launches its kernel (or raises); on a CPU
 tensor it runs the plain PyTorch version beside it, which computes the
 same algorithm in the same order with batched torch ops (the dual Newton's
 plain version is the masked loop of `ops/polyproject`, registered here by
-`set_newton_plain`).  There is no
+`set_newton_plain`, and the minor iteration's is `solver/inner`'s
+composition of `projected_cg` and `linesearch`, registered by
+`set_minor_plain`).  There is no
 fallback from a failed build or launch to the plain version.
 
 The sources in `csrc/` are compiled with nvcc for sm_90a (one nvcc per
@@ -125,6 +132,12 @@ SPLIT_MIN_N = 512
 # The dual Newton's warp form puts the line search's grid points on the lanes
 # up to this many columns (one column a lane), the columns above it.
 NEWTON_LANES_MAX_N = 32
+# The minor-iteration kernel (csrc/minor_direction_r.cu): one block of
+# MINOR_THREADS threads an instance, one column a thread (n ≤ MINOR_THREADS),
+# R and the shared vectors in dynamic shared memory (`minor_direction_smem`);
+# MINOR_RED_FLOATS floats of it hold the block reductions.
+MINOR_THREADS = 256
+MINOR_RED_FLOATS = 96
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -140,6 +153,7 @@ FMAD_SOURCES = ("blocked_qr.cu",)
 LAUNCHES = {
     "batched_cholesky": 0, "batched_cho_solve": 0, "batched_thin_qr": 0, "narrow_qr_r": 0,
     "masked_aat_cholesky": 0, "project_tangent": 0, "blocked_qr_r": 0, "polyhedron_newton": 0,
+    "minor_direction_r": 0,
 }
 CAPTURED = dict.fromkeys(LAUNCHES, 0)   # launches recorded into CUDA graphs
 # The same launches as LAUNCHES by (kernel, dtype name), e.g.
@@ -211,9 +225,15 @@ _SIGNATURES = {
     # n_section, v, lam, iters, workspace, B, M, n, plan, stream
     "benlsip_polyhedron_newton": [_PTR, ctypes.c_longlong] + [_PTR] * 6 + [ctypes.c_double] * 2 + [_INT] * 3
     + [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    # R, A, its batch stride, L, fixed, x, s, g, xl, its batch stride, xu, its batch
+    # stride, delta, active, kappa2, atol, w, status, iters, B, k, M, n, stream
+    "benlsip_minor_direction_r": [_PTR, _PTR, ctypes.c_longlong] + [_PTR] * 6 + [ctypes.c_longlong, _PTR,
+                                  ctypes.c_longlong] + [_PTR] * 2 + [ctypes.c_double] * 2 + [_PTR] * 3 + [_INT] * 4
+    + [_PTR],
 }
 # The dtypes of each C entry point that has not all three.
-_ENTRY_SUFFIXES = {"benlsip_blocked_qr_r": ("f32", "f64"), "benlsip_polyhedron_newton": ("f32", "bf16")}
+_ENTRY_SUFFIXES = {"benlsip_blocked_qr_r": ("f32", "f64"), "benlsip_polyhedron_newton": ("f32", "bf16"),
+                   "benlsip_minor_direction_r": ("f32",)}
 
 
 def build() -> Path:
@@ -963,3 +983,119 @@ def polyhedron_newton(A: Tensor, b: Tensor, l: Tensor, u: Tensor, x: Tensor, tol
         v.data_ptr(), lam.data_ptr(), iters.data_ptr(), ws.data_ptr(), B, m, n, plan=newton_plan(m, n, x.dtype),
     )
     return v, lam, iters
+
+
+# ---------------------------------------------------------------------------
+# The minor iteration on the materialized operator R
+# ---------------------------------------------------------------------------
+
+
+def minor_direction_smem(k: int, m: int, n: int) -> int:
+    """Bytes of dynamic shared memory of the minor-iteration kernel's block
+    for R (k, n) and m equalities: R, A's rows, L, p, the projected vector
+    and its projection, R p, the reductions and the mask (the C side's
+    `smem_bytes`)."""
+    return 4 * (k * n + m * n + m * m + 3 * n + k + MINOR_RED_FLOATS) + n
+
+
+def minor_direction_fits(k: int, m: int, n: int) -> bool:
+    """Whether the minor-iteration kernel takes R (k, n) with m equalities:
+    0 < m ≤ MAX_DIM, 0 < n ≤ MINOR_THREADS, k > 0 and the block's shared
+    memory (`minor_direction_smem`) within MAX_DYNAMIC_SMEM — at k = n,
+    n ≤ 230 for every m ≤ 16 (n ≤ 235 at m = 6)."""
+    return (0 < m <= MAX_DIM and 0 < n <= MINOR_THREADS and k > 0
+            and minor_direction_smem(k, m, n) <= MAX_DYNAMIC_SMEM)
+
+
+def unit_rows(t: Tensor) -> Tensor:
+    """A (B, n) operand as the minor-iteration kernel reads it: rows of
+    unit stride at any batch stride, so a stride-0 expand of one row (the
+    shared bounds of a batch) stays a view; anything else is copied."""
+    return t if t.shape[-1] == 1 or t.stride(-1) == 1 else t.contiguous()
+
+
+# The minor iteration's plain version is `solver/inner`'s composition of
+# `projected_cg` and `linesearch`, layers above this module; that module
+# registers it here when it is imported (the package imports it), so
+# nothing here imports solver code.
+_MINOR_PLAIN = None
+
+
+def set_minor_plain(fn) -> None:
+    """Register the minor-iteration kernel's plain version, the function the
+    wrapper runs on CPU tensors (`solver/inner.minor_direction_r_plain`)."""
+    global _MINOR_PLAIN
+    _MINOR_PLAIN = fn
+
+
+def _check_minor(R, A, L, fixed, x, s, g, xl, xu, delta, active) -> None:
+    """Refuse, on either device, an operand the minor-iteration kernel does
+    not take: wrong shapes, a dtype other than float32, mixed devices, a
+    layout it cannot read, or a shape outside `minor_direction_fits`."""
+    if R.ndim != 3 or A.ndim != 3:
+        raise ValueError(f"minor_direction_r: expected R (B, k, n) and A (B, m, n), got {tuple(R.shape)}, {tuple(A.shape)}")
+    B, k, n = R.shape
+    m = A.shape[1]
+    want = {"A": (A, (B, m, n)), "L": (L, (B, m, m)), "fixed": (fixed, (B, n)), "x": (x, (B, n)), "s": (s, (B, n)),
+            "g": (g, (B, n)), "xl": (xl, (B, n)), "xu": (xu, (B, n)), "delta": (delta, (B,)),
+            "active": (active, (B,))}
+    for name, (t, shape) in want.items():
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"minor_direction_r: {name} has shape {tuple(t.shape)}, expected {shape}")
+    floats = (R, A, L, x, s, g, xl, xu, delta)
+    if any(t.dtype != torch.float32 for t in floats):
+        raise TypeError(f"minor_direction_r: dtypes {sorted({str(t.dtype) for t in floats})} (the kernel takes float32)")
+    if fixed.dtype != torch.bool or (active is not None and active.dtype != torch.bool):
+        raise TypeError("minor_direction_r: fixed and active must be bool")
+    ts = floats + (fixed,) + ((active,) if active is not None else ())
+    if any(t.device != R.device for t in ts):
+        raise ValueError("minor_direction_r: all tensors must share one device")
+    dense = (R, L, fixed, x, s, g, delta) + ((active,) if active is not None else ())
+    if not all(t.is_contiguous() for t in dense):
+        raise ValueError("minor_direction_r: R, L, fixed, x, s, g, delta and active must be contiguous")
+    if not has_row_major_blocks(A) or any(unit_rows(t) is not t for t in (xl, xu)):
+        raise ValueError(f"minor_direction_r: A needs row-major (m, n) blocks and xl, xu rows of unit stride, got "
+                         f"strides {A.stride()}, {xl.stride()}, {xu.stride()}")
+    if not minor_direction_fits(k, m, n):
+        raise ValueError(f"minor_direction_r: R ({k}, {n}) with m = {m} is outside the kernel "
+                         f"({minor_direction_smem(k, m, n)} B of shared memory, n ≤ {MINOR_THREADS}, 0 < m ≤ {MAX_DIM})")
+
+
+def minor_direction_r(R: Tensor, A: Tensor, L: Tensor, fixed: Tensor, x: Tensor, s: Tensor, g: Tensor, xl: Tensor,
+                      xu: Tensor, delta: Tensor, kappa2: float, active=None):
+    """One minor iteration of `solver/inner.minor_iterate` on the
+    Gauss-Newton operator H = RᵀR, each lane to its own exit: the box of
+    the free variables from x, s, delta and [xl, xu], the projected CG from
+    g (kappa2 its relative tolerance) with the tangent projection of A and
+    its masked factor L, the model line search, and the step scaled unless
+    the CG met negative curvature.  R (B, k, n), A (B, m, n), L (B, m, m),
+    bool fixed (B, n), x, s, g, xl, xu (B, n), delta (B,), bool active (B,)
+    or None (every lane) -> (w (B, n), CG status (B,) int32, CG trips (B,)
+    int32).  A lane not active runs no trip and returns w = 0, its entry
+    status and 0 trips, as the plain version does.  A and the bounds may be
+    shared by the batch (stride 0)."""
+    _check_minor(R, A, L, fixed, x, s, g, xl, xu, delta, active)
+    B, k, n = R.shape
+    m = A.shape[1]
+    if B == 0:
+        empty = torch.zeros((0,), dtype=torch.int32, device=x.device)
+        return torch.zeros_like(x), empty, empty.clone()
+    if _on_cpu(x):
+        if _MINOR_PLAIN is None:
+            raise RuntimeError("minor_direction_r: no plain version registered (import benlsip_tpu_torch.solver.inner)")
+        return _MINOR_PLAIN(R, A, L, fixed, x, s, g, xl, xu, delta, kappa2, active)
+    w = torch.empty_like(x)
+    status = torch.empty((B,), dtype=torch.int32, device=x.device)
+    iters = torch.empty((B,), dtype=torch.int32, device=x.device)
+
+    def batch_stride(t: Tensor) -> int:
+        return t.stride(0) if B > 1 else 0
+
+    _launch(
+        "minor_direction_r", "benlsip_minor_direction_r", x,
+        R.data_ptr(), A.data_ptr(), batch_stride(A), L.data_ptr(), fixed.data_ptr(), x.data_ptr(), s.data_ptr(),
+        g.data_ptr(), xl.data_ptr(), batch_stride(xl), xu.data_ptr(), batch_stride(xu), delta.data_ptr(),
+        None if active is None else active.data_ptr(), float(kappa2), torch.finfo(torch.float32).eps ** 0.5,
+        w.data_ptr(), status.data_ptr(), iters.data_ptr(), B, k, m, n,
+    )
+    return w, status, iters

@@ -34,7 +34,11 @@
 //    loops unroll), in the order of cho_solve.cu and with a division by the
 //    diagonal: a NaN factor gives a NaN row in its own instance only;
 //  * each lane writes its own entries of rz - free * (A^T w).
-// Blocks hold four warps so that B = 64 still spreads over 16 SMs.
+// Blocks hold four warps so that B = 64 still spreads over 16 SMs.  The
+// warp's work is the device function tangent::project_warp of
+// project_tangent.cuh, which the minor-iteration kernel
+// (minor_direction_r.cu) calls on its operands in shared memory: one copy
+// of the arithmetic, the same bits in both kernels.
 //
 // The split form (plan S >= 2; one instance of large n, config 4's
 // (1, 8, 10240), where one warp strode 320 times over the columns in two
@@ -67,7 +71,7 @@
 // The Unmasked variant writes sigma = r - A^T w with the same w (the
 // projection multipliers of `binding_bounds_coupled`): only the input is
 // masked, the output is not.
-#include "common.cuh"
+#include "project_tangent.cuh"
 
 namespace {
 
@@ -77,73 +81,19 @@ using benlsip::kSplitWarps;
 using benlsip::kWarpsPerBlock;
 using benlsip::load;
 using benlsip::store;
-using benlsip::warp_sum;
-
-// w = (L L^T)^{-1} t, the substitutions of cho_solve.cu.
-template <typename T, int M>
-__device__ __forceinline__ void cho_solve(const T* l, const benlsip::compute_t<T> (&t)[M],
-                                          benlsip::compute_t<T> (&w)[M]) {
-  using C = benlsip::compute_t<T>;
-  C y[M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    C acc = t[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) acc = acc - load(l + i * M + k) * y[k];
-    y[i] = acc / load(l + i * M + i);
-  }
-#pragma unroll
-  for (int i = M - 1; i >= 0; --i) {
-    C acc = y[i];
-#pragma unroll
-    for (int k = i + 1; k < M; ++k) acc = acc - load(l + k * M + i) * w[k];
-    w[i] = acc / load(l + i * M + i);
-  }
-}
+using benlsip::tangent::cho_solve;
 
 template <typename T, int M, bool Unmasked>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 project_tangent_kernel(const T* __restrict__ A, long long strideA, const T* __restrict__ L,
                        const unsigned char* __restrict__ fixed, const T* __restrict__ R,
                        T* __restrict__ Out, int B, int n) {
-  using C = benlsip::compute_t<T>;
-  const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (b >= B) return;  // uniform across the warp
-  const T* a = A + static_cast<size_t>(b) * strideA;
-  const T* l = L + static_cast<size_t>(b) * M * M;
-  const unsigned char* fx = fixed + static_cast<size_t>(b) * n;
-  const T* r = R + static_cast<size_t>(b) * n;
-  T* out = Out + static_cast<size_t>(b) * n;
-
-  // t = A Z r: per-lane partial sums over the free columns, then a warp sum.
-  C t[M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) t[i] = C(0);
-  for (int j = lane; j < n; j += 32) {
-    if (fx[j]) continue;
-    const C rj = load(r + j);
-#pragma unroll
-    for (int i = 0; i < M; ++i) t[i] += load(a + static_cast<size_t>(i) * n + j) * rj;
-  }
-#pragma unroll
-  for (int i = 0; i < M; ++i) t[i] = warp_sum(t[i]);
-
-  // w = (L L^T)^{-1} t in every lane.
-  C w[M];
-  cho_solve<T, M>(l, t, w);
-
-  for (int j = lane; j < n; j += 32) {
-    const bool is_fixed = fx[j] != 0;
-    if (!Unmasked && is_fixed) {
-      store(out + j, C(0));
-      continue;
-    }
-    C s = C(0);
-#pragma unroll
-    for (int i = 0; i < M; ++i) s += load(a + static_cast<size_t>(i) * n + j) * w[i];
-    store(out + j, load(r + j) - s);
-  }
+  benlsip::tangent::project_warp<T, M, Unmasked>(
+      A + static_cast<size_t>(b) * strideA, L + static_cast<size_t>(b) * M * M,
+      fixed + static_cast<size_t>(b) * n, R + static_cast<size_t>(b) * n, Out + static_cast<size_t>(b) * n, n,
+      static_cast<int>(threadIdx.x & 31));
 }
 
 // Bytes of A a block may keep in shared memory for its second pass.

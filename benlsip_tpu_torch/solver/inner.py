@@ -6,6 +6,15 @@ activation refreshes the m×m masked factor (`ops/cholesky.py`, the
 Cholesky kernel for float32).  Every function takes an `active` (B,) mask:
 the lanes the enclosing trust-region loop still runs.  Other lanes return
 unspecified values, which the caller selects away.
+
+On the materialized operator R (RᵀR = H, the dense families' CholeskyQR2
+route) in float32 on a CUDA card, whole and without a mesh axis, a minor
+iteration — its box, the projected CG to each lane's own exit and the line
+search — is one launch of `kernels.batched_linalg.minor_direction_r`
+(`minor_on_kernel` decides from the inputs alone).  Every other operator
+form (J, G, row-sharded R or G), dtype, device or size runs the
+composition of `solver/cg` below, which is also the kernel's plain version
+(`minor_direction_r_plain`).
 """
 from __future__ import annotations
 
@@ -16,7 +25,9 @@ import torch
 
 from .._batched import full, norm, sel, vdot
 from .._loops import masked_while
+from ..kernels import batched_linalg as kern
 from ..ops.al import AlHessian, hv, vhv
+from ..ops.cholesky import _row_major_blocks
 from ..ops.constraints import (
     ActiveSet,
     Polyhedron,
@@ -135,12 +146,40 @@ def cauchy_step(
     return c.s, ActiveSet(fixed=c.fixed, chol=c.chol)
 
 
+def minor_on_kernel(device_type: str, H: AlHessian, dtype: torch.dtype, m: int, axis: Optional[str]) -> bool:
+    """Whether a minor iteration of `dtype` on a device of `device_type` runs
+    the minor-iteration kernel: CUDA, float32, no mesh axis, H materialized
+    as R whole (neither R nor G row-sharded) in float32, and R (k, n) with m
+    equalities within the kernel (`kern.minor_direction_fits`: 0 < m ≤ 16,
+    n ≤ 256 and its shared memory; at k = n, n ≤ 230).  A gate on the
+    inputs, not a fallback: the kernel launches or raises."""
+    R = H.R
+    return (device_type == "cuda" and dtype == torch.float32 and axis is None and R is not None
+            and H.R_rows is None and H.G_rows is None and R.dtype == torch.float32
+            and kern.minor_direction_fits(R.shape[-2], m, R.shape[-1]))
+
+
 def minor_iterate(
     x: Tensor, s: Tensor, g_minor: Tensor, H: AlHessian, poly: Polyhedron, aset: ActiveSet,
     delta: Tensor, kappa2: float, active: Optional[Tensor] = None, axis: Optional[str] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """One minor iteration: projected-CG direction + model line search.
-    The remaining trust-region/bound gap constrains the free variables."""
+    The remaining trust-region/bound gap constrains the free variables.
+    One launch of the minor-iteration kernel where `minor_on_kernel` says
+    so, else the composition of `solver/cg`."""
+    if minor_on_kernel(x.device.type, H, x.dtype, poly.A.shape[-2], axis):
+        return kern.minor_direction_r(
+            H.R.contiguous(), _row_major_blocks(poly.A), aset.chol.contiguous(), aset.fixed.contiguous(),
+            x.contiguous(), s.contiguous(), g_minor.contiguous(), kern.unit_rows(poly.xl), kern.unit_rows(poly.xu),
+            delta.contiguous(), kappa2, active=None if active is None else active.contiguous(),
+        )
+    return _minor_composed(x, s, g_minor, H, poly, aset, delta, kappa2, active, axis)
+
+
+def _minor_composed(
+    x: Tensor, s: Tensor, g_minor: Tensor, H: AlHessian, poly: Polyhedron, aset: ActiveSet,
+    delta: Tensor, kappa2: float, active: Optional[Tensor], axis: Optional[str],
+) -> Tuple[Tensor, Tensor, Tensor]:
     free = ~aset.fixed
     dl = delta.unsqueeze(-1)
     w_u = torch.where(free, torch.minimum(poly.xu - x, dl) - s, 0.0)
@@ -152,6 +191,17 @@ def minor_iterate(
     alpha = linesearch(g_minor, H, w, w_l, w_u, aset.fixed, axis=axis)
     w = sel(cg_status != CG_NEGATIVE_CURVATURE, alpha.unsqueeze(-1) * w, w)
     return w, cg_status, cg_iters
+
+
+def minor_direction_r_plain(R: Tensor, A: Tensor, L: Tensor, fixed: Tensor, x: Tensor, s: Tensor, g: Tensor,
+                            xl: Tensor, xu: Tensor, delta: Tensor, kappa2: float,
+                            active: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
+    """The minor-iteration kernel's plain version (`kern.minor_direction_r`
+    on CPU tensors): `minor_iterate`'s composition on H = RᵀR, the
+    polyhedron's A and bounds and the active set (fixed, L)."""
+    H = AlHessian(None, None, None, R=R)
+    poly = Polyhedron(A, None, xl, xu)
+    return _minor_composed(x, s, g, H, poly, ActiveSet(fixed=fixed, chol=L), delta, kappa2, active, None)
 
 
 def cauchy_step_projected(
@@ -295,3 +345,6 @@ def inner_step(
     pred = vdot(g, c.s) + 0.5 * vhv(H, c.s, ax)
     stats = InnerStats(minor_iters=c.j - 1, cg_iters=c.cg_total)
     return c.s, pred, ActiveSet(fixed=c.fixed, chol=c.chol), stats
+
+
+kern.set_minor_plain(minor_direction_r_plain)

@@ -68,6 +68,20 @@ Phases (any failure raises and the script exits non-zero):
    timed at, and its stacked form in turns with the materialized stack;
    the fused kernels' warp forms by device µs a call at config 2's and
    config 3's shapes;
+3c. the minor-iteration kernel `minor_direction_r` (a whole minor
+   iteration of solver/inner on the materialized R operator, one launch)
+   against its plain version (the composition of solver/cg on the card) at
+   config 3's 64×192×192 (m = 6), one lane alone and the gate's corners
+   (the largest square R at m = 6 and 16, one row of R at 256 columns, an
+   R of an odd number of floats): every CG exit and inactive lanes, the
+   same CG status on every lane, w within MINOR_W_RTOL of the lane's
+   ‖w‖∞ where the trip counts agree, a lane alone bitwise its lane in the
+   batch, two calls bitwise equal; then on config 3's real inputs, recorded
+   from an eager float32 bulk; refused operands; then by device µs a call
+   beside its bound, in turns with the same call in a graph, the old site
+   (the plain version captured as the fused bulk captures it: its CG loop a
+   WHILE node) in a graph, with the device operations each replay runs, and
+   the plain version eagerly;
 4. the config-2 path: `solve_mixed_precision` on
    `exp_fit_family(1024, d=32, seed=42)` (float64 master data) on cuda:0,
    with every kernel's launch count read around that run (the dual Newton
@@ -113,7 +127,12 @@ Phases (any failure raises and the script exits non-zero):
    refine; host syncs per warm call, capture and instantiate seconds, the
    IF branches taken and the operator builds the replays ran beside the
    eager stages' builds, 5 warm walls of each route in turns, and with
-   `--profile` one traced warm unfused call's busy share;
+   `--profile` one traced warm unfused call's busy share; then the
+   benchmark cell `densequad-b64-fused`'s `device_ops_per_call` split part
+   by part of the graphs (`phase_bulk_split`: each WHILE and IF body's
+   nodes a trip times its trips a call, by launch name, over the cell's
+   pool), with the minor-iteration kernel's launches a call equal to the
+   trips of its loop; the kernel launches 0 times on configs 2 and 4;
 6. the config-1 path, through the public entry points: `solve` and
    `tralcnllss` on the sphere-regression fixture in float64 on the card
    (analytic and autodiff Jacobians, a warm start from y) against the
@@ -279,6 +298,10 @@ DEVICE_NAMES = {"masked_aat_cholesky": "masked_aat_cholesky_kernel", "project_ta
                 "polyhedron_newton": "polyhedron_newton_kernel", "batched_thin_qr": NARROW_QR_DEVICE,
                 "narrow_qr_r": NARROW_QR_DEVICE}
 CONFIG3_KERNELS = PATH_KERNELS + ("blocked_qr_r",)
+# Config 3's float32 bulk (the materialized R operator) also runs every minor
+# iteration as one launch of the minor-iteration kernel; configs 2 and 4
+# (n = 3; the Gram operator at n = 10,240) never do.
+DENSE_BULK_KERNELS = CONFIG3_KERNELS + ("minor_direction_r",)
 # Device kernels of one warm run before the panel QR kernel (H100 80GB HBM3, 700 W).
 DEVICE_KERNELS_BEFORE = {"config 2": "68,888-68,892", "config 3": "17,405-17,413"}
 # Device kernels of a traced warm run of config 3 before the dual-Newton kernel
@@ -522,7 +545,7 @@ def phase_build(kern) -> float:
             elif "Compiling entry function" in line:
                 entry = line.split("'")[1]
             elif "Used" in line and "registers" in line:
-                family = next((k for k in ("polyhedron_newton_split", "polyhedron_newton",
+                family = next((k for k in ("minor_direction_r", "polyhedron_newton_split", "polyhedron_newton",
                                            "masked_aat_cholesky_split", "project_tangent_split", "masked_aat_cholesky",
                                            "project_tangent", "cholesky", "cho_solve", "narrow_qr_group", "narrow_qr_wide",
                                            "blocked_qr_r")
@@ -609,12 +632,15 @@ def phase_kernels(kern) -> dict:
     _sync()
     rec["polyhedron_newton"]["plans_checked"] = _check_newton(kern, rng, worst)
     _sync()
+    minor_calls = _check_minor(kern, rng, worst)
+    _sync()
     print(f"fused kernels by plan (kernel, blocks per instance) over phase 3's checks: {dict(kern.LAUNCHES_BY_PLAN)}")
     _check_blocked_qr(kern, rng, worst)
     _sync()
     for name in rec:
         print(f"{name}: max abs err {rec[name]['max_abs_err']:.3e} over every checked shape")
     _time_kernels(kern, rng, rec)
+    _time_minor(kern, rng, rec, minor_calls)
     print(f"phase 3 (kernels): {time.perf_counter() - t_phase:.1f} s")
     return rec
 
@@ -1196,6 +1222,254 @@ def _record_newton_shapes(kern) -> None:
         return call(A, b, l, u, x, *args, **kwargs)
 
     kern.polyhedron_newton = recording
+
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: the minor-iteration kernel (`minor_direction_r`)
+# ---------------------------------------------------------------------------
+
+# Kernel against its plain version (the composition of solver/cg on the
+# card): the same CG status on every lane, and w of each lane whose trip
+# count agrees within MINOR_W_RTOL·(‖w‖∞ of the plain lane) + MINOR_W_ATOL.
+# Both run the same float32 CG, but the kernel sums R p, Rᵀu and the dot
+# products in another order (fmaf and a fixed tree against torch's bmm and
+# sum): ~n·eps = 2.3e-5 relative a product at n = 192, which the CG's
+# conditioning (κ(H) ≤ 1e2 on the synthetic inputs, ~6 on config 3's J) can
+# amplify to ~2e-3 over its trips.  A lane whose summed residual lands on the
+# other side of its stopping test runs one trip more or less: at the solver's
+# kappa2 (0.1) at most MINOR_TRIP_FLIPS lanes a check may (each printed); at
+# kappa2 = 1e-3 the test (‖v‖² < 1e-6 ‖v₀‖²) sits near the float32 floor of
+# the residual at κ(H) = 1e2, and the flips are printed, not bounded (up to 8
+# of 64 lanes at 64×96×96 on the H100).  On config 3's real inputs near
+# criticality g is large (‖g‖ ≈ 2) and its projection small (‖w‖ ≈ 1e-3), so
+# every float32 evaluation of the reference algorithm — the plain version's
+# too — is off the float64 answer by up to ~n·eps·‖g‖ amplified by the CG
+# (5e-4 against ‖w‖∞ 1.4e-3 on one lane on the H100): there a lane passes
+# where the kernel is no farther from the plain version run in float64 on
+# the same inputs than MINOR_F64_FACTOR times the plain float32 version is,
+# plus MINOR_W_RTOL of the lane's ‖w‖∞.
+MINOR_W_RTOL = 2e-3
+MINOR_W_ATOL = 1e-6
+MINOR_TRIP_FLIPS = 2
+MINOR_F64_FACTOR = 2.0
+# (B, k, m, n): config 3's shape, one lane alone, a half-size square R, and
+# the gate's corners: the largest square R at m = 6 and at m = 16, one row of
+# R at the most columns (256), and an R of an odd number of floats (the
+# synchronous copy into shared memory).
+MINOR_CHECKS = ((64, 192, 6, 192), (1, 192, 6, 192), (64, 96, 3, 96), (8, 235, 6, 235), (8, 230, 16, 230),
+                (8, 1, 1, 256), (8, 231, 1, 231))
+# Calls of the kernel recorded from an eager config-3 bulk (the real inputs).
+MINOR_RECORDED = 60
+
+
+def _minor_case(rng, B, k, m, n, dev):
+    """The kernel's arguments for one minor iteration: one A of N(0, 1/n)
+    shared by the batch (stride 0), shared bounds ±0.8, x inside them, s a
+    small step, g of N(0, 1), 15% of the columns fixed, and per lane an R of
+    k rows whose singular values spread over one decade (κ(H) = 1e2): lane 3
+    R = 0 (zero curvature at the first trip), every fourth lane a trust
+    radius of 0.02 (bound hits), every seventh not active, and g a fiftieth
+    as long on every other lane (interior solves)."""
+    f32 = torch.float32
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=f32, device=dev)
+    A = t(rng.standard_normal((1, m, n)) / math.sqrt(n)).expand(B, m, n)
+    xl, xu = t(np.full((1, n), -0.8)).expand(B, n), t(np.full((1, n), 0.8)).expand(B, n)
+    x = t(rng.uniform(-0.6, 0.6, (B, n)))
+    s = t(0.01 * rng.standard_normal((B, n)))
+    g = t(rng.standard_normal((B, n)) * np.where(np.arange(B) % 2 == 0, 0.02, 1.0)[:, None])
+    fixed = torch.as_tensor(rng.random((B, n)) < 0.15, device=dev)
+    from benlsip_tpu_torch.ops.cholesky import factor_unfixed_aat
+
+    R = np.zeros((B, k, n))
+    for b in range(B):   # k ≤ n: R (k, n) upper trapezoidal of rank k (0 in lane 3)
+        U, _ = np.linalg.qr(rng.standard_normal((k, k)))
+        V, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        R[b] = np.linalg.qr((U * np.logspace(0, 1, k) * (b != 3)) @ V[:k])[1]
+    delta = t(np.where(np.arange(B) % 4 == 1, 0.02, 2.0))
+    active = torch.as_tensor(np.arange(B) % 7 != 6, device=dev)
+    return (t(R), A, factor_unfixed_aat(A, fixed), fixed, x, s, g, xl, xu, delta), active
+
+
+def _minor_compare(tag: str, got, want, max_flips=MINOR_TRIP_FLIPS, want64=None) -> dict:
+    """The kernel's (w, status, trips) against the plain version's, lane by
+    lane, as MINOR_W_RTOL's note says (at most `max_flips` lanes with other
+    trips, None: no bound; `want64`, the plain version's w in float64 on
+    the same inputs, for the lanes whose float32 w differ by more than
+    MINOR_W_RTOL); returns the worst relative error among the lanes that
+    pass directly, and how many lanes passed against the float64 answer."""
+    (w, st, it), (wp, stp, itp) = got, want
+    _require(torch.equal(st, stp), f"{tag}: CG statuses differ from the plain version's on lanes "
+             f"{torch.nonzero(st != stp).flatten().tolist()} ({st.tolist()} vs {stp.tolist()})")
+    flips = torch.nonzero(it != itp).flatten().tolist()
+    _require(max_flips is None or len(flips) <= max_flips, f"{tag}: CG trips differ on {len(flips)} lanes {flips}")
+    same = it == itp
+    scale = wp.abs().amax(-1, keepdim=True)
+    err = ((w - wp).abs() / (scale + MINOR_W_ATOL / MINOR_W_RTOL)).amax(-1)
+    _require(bool(torch.isfinite(w).all() == torch.isfinite(wp).all()), f"{tag}: non-finite w differs")
+    direct = err <= MINOR_W_RTOL
+    by64 = torch.zeros_like(direct)
+    if want64 is not None:
+        w64 = want64.to(w.dtype)
+        d_k, d_p = (w - w64).abs().amax(-1), (wp - w64).abs().amax(-1)
+        by64 = ~direct & (d_k <= MINOR_F64_FACTOR * d_p + MINOR_W_RTOL * w64.abs().amax(-1) + MINOR_W_ATOL)
+        for i in torch.nonzero(by64).flatten().tolist():
+            print(f"{tag}: lane {i} off the plain float32 w by {float(err[i]):.3e} of |w|_inf; against the float64 "
+                  f"plain version: kernel {float(d_k[i]):.3e}, plain float32 {float(d_p[i]):.3e}")
+    failed = torch.nonzero(same & ~direct & ~by64).flatten().tolist()
+    _require(not failed, f"{tag}: w off the plain version's on lanes {failed} by {err[failed].tolist()} of |w|_inf")
+    worst = float(err[same & direct].max()) if bool((same & direct).any()) else 0.0
+    hist = collections.Counter(st.tolist())
+    print(f"{tag}: statuses equal {dict(sorted(hist.items()))}, trips {int(it.sum())} (plain {int(itp.sum())}), "
+          f"lanes with other trips {[(i, int(it[i]), int(itp[i])) for i in flips]}, worst |dw| / |w|_inf {worst:.3e}"
+          f"{f', {int(by64.sum())} lanes held to the float64 answer' if bool(by64.any()) else ''}")
+    return {"rel_err": worst, "trip_flips": len(flips), "by_f64": int(by64.sum())}
+
+
+def _record_minor_calls(kern, calls: int) -> list:
+    """The arguments of the first `calls` launches of the minor-iteration
+    kernel in an eager float32 bulk of config 3 (`solve_batched` on
+    `dense_quadratic_family(64, n=192, d=1024, m=6, seed=3)`), cloned."""
+    from benlsip_tpu_torch.batch.vmap_solve import solve_batched
+    from benlsip_tpu_torch.problems.generators import dense_quadratic_family
+    from benlsip_tpu_torch.solver.options import SolverOptions
+
+    bp, theta, X0 = dense_quadratic_family(64, n=192, d=1024, m=6, seed=3, dtype=torch.float32,
+                                           device=torch.device("cuda:0"))
+    seen, launch = [], kern.minor_direction_r
+
+    def record(*args, **kw):
+        if len(seen) < calls:
+            seen.append(([a.clone() if isinstance(a, torch.Tensor) else a for a in args],
+                         {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}))
+        return launch(*args, **kw)
+
+    kern.minor_direction_r = record
+    try:
+        solve_batched(bp, theta, X0, SolverOptions(max_outer_iter=4, max_inner_iter=30))
+    finally:
+        kern.minor_direction_r = launch
+    _require(len(seen) > 0, "config 3's eager bulk made no call of the minor-iteration kernel")
+    return seen
+
+
+def _check_minor(kern, rng, worst) -> list:
+    """The minor-iteration kernel against its plain version on the card:
+    synthetic inputs at MINOR_CHECKS's shapes (every CG exit, inactive
+    lanes), each lane alone bitwise equal to the same lane in its batch, two
+    calls bitwise equal; then config 3's real inputs, recorded from an eager
+    bulk; refused operands.  Returns the recorded calls."""
+    dev = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    plain = kern._MINOR_PLAIN
+    for B, k, m, n in MINOR_CHECKS:
+        args, active = _minor_case(rng, B, k, m, n, dev)
+        for kappa2 in (0.1, 1e-3):
+            got = kern.minor_direction_r(*args, kappa2, active=active)
+            want = plain(*args, kappa2, active)
+            r = _minor_compare(f"minor_direction_r {B}x{k}x{m}x{n} kappa2={kappa2:g}", got, want,
+                               MINOR_TRIP_FLIPS if kappa2 == 0.1 else None)
+            worst("minor_direction_r", r["rel_err"])
+            again = kern.minor_direction_r(*args, kappa2, active=active)
+            _require(all(torch.equal(a, b) for a, b in zip(got, again)), "minor_direction_r: two calls differ")
+        if B > 1:
+            lane = B // 2
+            alone = kern.minor_direction_r(*[a[lane:lane + 1] for a in args], 0.1, active=active[lane:lane + 1])
+            batch = kern.minor_direction_r(*args, 0.1, active=active)
+            _require(all(torch.equal(a[0], b[lane]) for a, b in zip(alone, batch)),
+                     f"minor_direction_r {B}x{k}x{m}x{n}: a lane alone differs from the same lane in its batch")
+    calls = _record_minor_calls(kern, MINOR_RECORDED)
+    worst_real, flips, lanes, by64 = 0.0, 0, 0, 0
+    for i, (args, kw) in enumerate(calls):
+        got = kern.minor_direction_r(*args, **kw)
+        want = plain(*args, kw.get("active"))
+        args64 = [a.double() if isinstance(a, torch.Tensor) and a.is_floating_point() else a for a in args]
+        r = _minor_compare(f"minor_direction_r config 3 call {i}", got, want, want64=plain(*args64, kw.get("active"))[0])
+        worst_real, flips, lanes = max(worst_real, r["rel_err"]), flips + r["trip_flips"], lanes + args[0].shape[0]
+        by64 += r["by_f64"]
+    worst("minor_direction_r", worst_real)
+    print(f"minor_direction_r: config 3's {len(calls)} recorded calls ({lanes} lanes): statuses equal, "
+          f"{flips} lanes with other trips, worst |dw| / |w|_inf {worst_real:.3e} where within {MINOR_W_RTOL:g}, "
+          f"{by64} lanes held to the float64 answer instead")
+    args, active = _minor_case(rng, 4, 192, 6, 192, dev)
+    before = kern.LAUNCHES["minor_direction_r"]
+    for bad in ((args[0].double(),) + args[1:], (args[0].mT,) + args[1:],
+                (args[0][:, :, :100],) + args[1:], (torch.zeros(4, 257, 257, device=dev),) + args[1:]):
+        try:
+            kern.minor_direction_r(*bad, 0.1)
+        except (TypeError, ValueError):
+            continue
+        raise AssertionError("minor_direction_r: a refused operand was taken")
+    _require(kern.LAUNCHES["minor_direction_r"] == before, "minor_direction_r: a refused call launched")
+    print(f"minor_direction_r checks: {time.perf_counter() - t0:.1f} s")
+    return calls
+
+
+def _minor_bound(args, trips) -> dict:
+    """The least time of one call: R, A (once if shared), L, the n-vectors
+    and the mask read, w written, at the memory rate; or its flops — R p and
+    Rᵀ(R p), 4kn, a CG trip the call ran, and R w, 2kn, a lane — at the
+    float32 rate; whichever is larger."""
+    R, A, L = args[0], args[1], args[2]
+    B, k, n = R.shape
+    m = A.shape[1]
+    n_bytes = 4 * (B * k * n + (m * n if A.stride(0) == 0 else B * m * n) + B * m * m + 6 * B * n + B) + B * n
+    return _bound(n_bytes, 4 * k * n * int(trips.sum()) + 2 * k * n * B)
+
+
+def _captured_stage(name: str, fn):
+    """fn captured as a stage of the fused pipeline (a CUDA graph whose
+    loops are conditional WHILE nodes), after one plain run; the stage and
+    the device operations one replay runs."""
+    from benlsip_tpu_torch.batch import fused_small
+
+    stage = fused_small._Stage(name, fn)
+    fn()
+    stage.capture(torch.cuda.graph_pool_handle(), torch.cuda.Stream())
+    for _ in range(3):
+        stage()
+    _sync()
+    stage.reset_counts()
+    stage()
+    _, kernels, copies, by_kind = stage.counts()
+    return stage, {"device_kernels": kernels, "device_copies": copies, "while_trips": by_kind["while"]}
+
+
+def _time_minor(kern, rng, rec, calls) -> None:
+    """The minor-iteration kernel at config 3's shape on its real inputs
+    (the recorded call with the most CG trips) and on synthetic ones: device
+    µs a call (torch.profiler), the same call captured into a graph and
+    replayed (CUDA events), the plain version eagerly (host-paced), and the
+    old site — the plain version captured as the fused bulk captures it, its
+    CG loop a WHILE node — replayed, with the device operations a replay
+    runs; beside the bound."""
+    plain = kern._MINOR_PLAIN
+    trips = [int(kern.minor_direction_r(*a, **kw)[2].sum()) for a, kw in calls]
+    best = max(range(len(calls)), key=lambda i: trips[i])
+    synth, active = _minor_case(rng, 64, 192, 6, 192, dev=torch.device("cuda:0"))
+    cases = {"config 3 recorded": calls[best], "synthetic": ([*synth, 0.1], {"active": active})}
+    rec["minor_direction_r"]["times"] = {}
+    for tag, (args, kw) in cases.items():
+        base, kappa2, act = args[:10], args[10], kw.get("active")
+        kernel = lambda: kern.minor_direction_r(*base, kappa2, active=act)
+        old = lambda: plain(*base, kappa2, act)
+        cg_trips = kernel()[2]
+        us = _device_us(kernel)
+        new_stage, new_ops = _captured_stage("minor_kernel", kernel)
+        old_stage, old_ops = _captured_stage("minor_old_site", old)
+        t = _in_turns({"kernel": kernel, "kernel graph": new_stage, "old site graph": old_stage, "plain": old},
+                      reps=20, warm=3)
+        bound = _minor_bound(base, cg_trips)
+        rec["minor_direction_r"]["times"][tag] = {
+            "shape": "x".join(map(str, (*base[0].shape, base[1].shape[1]))), "cg_trips": int(cg_trips.sum()),
+            "device_us": us, "kernel_ms": t["kernel"], "kernel_graph_ms": t["kernel graph"],
+            "old_site_graph_ms": t["old site graph"], "plain_ms": t["plain"], "old_site_ops": old_ops,
+            "kernel_graph_ops": new_ops, **bound}
+        print(f"minor_direction_r {tag} {tuple(base[0].shape)} m={base[1].shape[1]}: {int(cg_trips.sum())} CG trips over "
+              f"the lanes (max {int(cg_trips.max())}); device {us:.2f} us a call (bound {bound['bound_us']:.2f} us by "
+              f"{bound['bound_by']}, {100 * bound['bound_us'] / us:.1f}%); in turns: kernel {t['kernel']:.4f} ms, in a graph "
+              f"{t['kernel graph']:.4f} ms ({new_ops}), old site in a graph {t['old site graph']:.4f} ms ({old_ops}), "
+              f"plain eagerly {t['plain']:.4f} ms")
 
 
 def polish_stack(rng, B, d, n, dev, reg=0.0):
@@ -1808,6 +2082,8 @@ def phase_slice(kern) -> dict:
     if not torch.equal(info2.converged, info.converged) or float((X2 - X).abs().max()) > SMALL_ATOL:
         raise AssertionError("slice: the warm run disagrees with the cold run")
     _check_launched("config 2", launches, POLISH_KERNELS)
+    _require(launches["minor_direction_r"] == 0, f"config 2: the minor-iteration kernel launched "
+             f"{launches['minor_direction_r']} times; n = 3 has no materialized operator")
     _require(launches["batched_cho_solve"] == 0, f"config 2: batched_cho_solve launched {launches['batched_cho_solve']} "
              "times; the dual Newton, its one caller here, is the polyhedron_newton kernel")
     # A traced warm run: device kernels in all and the dual Newton's.
@@ -2039,6 +2315,9 @@ def phase_fused(kern, smi: str, profile: bool) -> dict:
         _require(captured[name] > 0 and executed[name] > 0, f"fused config 2: kernel {name} captured {captured[name]}, run by the replays {executed[name]}")
     _require(all(executed[k] >= eager_launches[k] for k in POLISH_KERNELS),
              f"fused config 2: the replays ran fewer path kernels ({executed}) than the same stages eagerly ({eager_launches})")
+    _require(captured["minor_direction_r"] == executed["minor_direction_r"] == 0,
+             f"fused config 2: the minor-iteration kernel captured {captured['minor_direction_r']}, run "
+             f"{executed['minor_direction_r']} times; n = 3 has no materialized operator")
 
     # The oracle on 128 sampled instances.
     fns = bp.instance_fns(theta)
@@ -2146,7 +2425,7 @@ def phase_config3(kern) -> dict:
     _check_certified("config 3 warm", X2, info2, B, n)
     if not torch.equal(info2.converged, info.converged) or float((X2 - X).abs().max()) > SMALL_ATOL:
         raise AssertionError("config 3: the warm run disagrees with the cold run")
-    _check_launched("config 3", launches, CONFIG3_KERNELS)
+    _check_launched("config 3", launches, DENSE_BULK_KERNELS)
     kernels, newton = _traced_kernels(lambda: run("auto"), "polyhedron_newton")
     print(f"config 3: a traced warm run: {kernels} device kernels (before the dual-Newton kernel "
           f"{DEVICE_KERNELS_BEFORE_NEWTON['config 3']}), {newton} of them polyhedron_newton")
@@ -2155,7 +2434,7 @@ def phase_config3(kern) -> dict:
     kern.reset_launches()
     (Xh, _, info_h), host_cold = _walled(lambda: run("host"))
     launches_host = dict(kern.LAUNCHES)
-    _check_launched("config 3 certify=host", launches_host, CONFIG3_KERNELS)
+    _check_launched("config 3 certify=host", launches_host, DENSE_BULK_KERNELS)
     print(f"config 3: blocked_qr_r launches a run: {launches['blocked_qr_r']} (certify=auto), "
           f"{launches_host['blocked_qr_r']} (certify=host); batch/polish runs a fixed budget of chord steps "
           f"(5 steps: 2 factor, 3 chord) and does not expose how many a lane needed")
@@ -2329,7 +2608,7 @@ def phase_fused_config3(kern, smi: str, res3: dict, profile: bool) -> dict:
     _require(list(builds) == ["cholqr2/float32"] and builds["cholqr2/float32"] > 0,
              f"fused config 3: the replays must build the CholeskyQR2 operator only, built {builds}")
     print(f"fused config 3: path kernels run by the replays {executed}, launched by the same stages run eagerly {eager_launches}")
-    for name in CONFIG3_KERNELS:
+    for name in DENSE_BULK_KERNELS:
         _require(captured[name] > 0 and executed[name] > 0,
                  f"fused config 3: kernel {name} captured {captured[name]}, run by the replays {executed[name]}")
 
@@ -2367,6 +2646,80 @@ def phase_fused_config3(kern, smi: str, res3: dict, profile: bool) -> dict:
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"fused config 3 phase: {res['phase_s']:.1f} s")
     return res
+
+
+
+def _bulk_split(calls: int) -> list:
+    """The device operations of the cached pipelines' replays since the
+    last `reset_replay_counts()`, part by part of each stage's graph — its
+    top level and each captured WHILE or IF body — ÷ `calls`: the part's
+    launches by name (one run or trip, nested parts apart), its kernel and
+    copy nodes, its runs (replays, trips or taken branches) a call, and
+    their product, the part's share of `device_ops_per_call`."""
+    from benlsip_tpu_torch.batch import fused_small
+
+    rows = []
+    for pipe in fused_small._PIPELINES.values():
+        for stage in [b.stage for b in pipe.bulks.values()] + [pipe.cert]:
+            if stage.graph is None:
+                continue
+            runs = [stage.replays] + stage.trips.tolist()
+            for i, ((launches, k, c), n_runs) in enumerate(zip(stage.parts, runs)):
+                rows.append({"stage": stage.name, "part": i, "kind": "top" if i == 0 else stage.kinds[i - 1],
+                             "launches": {str(key): v for key, v in launches.items() if v},
+                             "kernel_nodes": k, "copy_nodes": c, "runs_per_call": n_runs / calls,
+                             "ops_per_call": (k + c) * n_runs / calls})
+    return rows
+
+
+def phase_bulk_split(calls: int = 64, seed: int = 1) -> dict:
+    """`device_ops_per_call` of the benchmark cell `densequad-b64-fused`
+    split part by part (`_bulk_split`): its pool (portbench's densequad
+    family, the cell's configuration and traffic, `seed`), one call to
+    capture, then `calls` calls over the pool with the replays counted.
+    Outside every timed path.  Runs on any checkout of the port that has the
+    fused pipeline (the parent's too: `sys.path` first to its root)."""
+    from benlsip_tpu_torch.batch import fused_small
+    from benlsip_tpu_torch.batch.refine import solve_mixed_precision
+    from benlsip_tpu_torch.solver.options import SolverOptions
+    from portbench.families.densequad import Pool
+
+    cfg = json.loads(open("portbench/configs/densequad-n192-d1024-m6.json").read())
+    mix = json.loads(open("portbench/traffic/cold-b64-fused.json").read())
+    pool = Pool(cfg, mix, seed, torch.device("cuda:0"))
+    opts = SolverOptions(**cfg["options"])
+
+    def call(k: int):
+        bp, theta, X0 = pool.batch(k % pool.size)
+        return solve_mixed_precision(bp, theta, X0, opts, **mix["route"])
+
+    call(0)
+    _sync()
+    fused_small.reset_replay_counts()
+    for k in range(calls):
+        call(k)
+    _sync()
+    replay = fused_small.replay_counts()
+    rows = _bulk_split(calls)
+    total = sum(r["ops_per_call"] for r in rows)
+    by_stage = collections.Counter()
+    for r in rows:
+        by_stage[r["stage"]] += r["ops_per_call"]
+    print(f"bulk split over {calls} calls of densequad-b64-fused (seed {seed}): device ops a call {total:.1f} "
+          f"(replay_counts: {(replay['device_kernels'] + replay['device_copies']) / calls:.1f}), by stage "
+          f"{ {k: round(v, 1) for k, v in by_stage.items()} }, WHILE trips a call {replay['loop_trips'] / calls:.2f}")
+    for r in sorted(rows, key=lambda r: -r["ops_per_call"]):
+        if r["ops_per_call"] >= 1:
+            print(f"bulk split: {r['stage']} part {r['part']:3d} {r['kind']:5s} {r['ops_per_call']:9.1f} ops a call = "
+                  f"({r['kernel_nodes']} kernel + {r['copy_nodes']} copy nodes) x {r['runs_per_call']:.3f} runs; "
+                  f"launches a run {r['launches']}")
+    minor = replay["launches"].get("minor_direction_r", 0) / calls
+    minor_trips = sum(r["runs_per_call"] * r["launches"].get("minor_direction_r", 0) for r in rows)
+    print(f"bulk split: minor_direction_r launches a call {minor:.3f}, the trips of the loops that launch it a call "
+          f"{minor_trips:.3f}")
+    _require(abs(minor - minor_trips) < 1e-9, "bulk split: the minor-iteration kernel's launches are not its loop's trips")
+    return {"rows": rows, "ops_per_call": total, "minor_launches_per_call": minor,
+            "while_trips_per_call": replay["loop_trips"] / calls}
 
 
 def _require(ok: bool, msg: str) -> None:
@@ -2708,6 +3061,8 @@ def phase_config4(kern) -> dict:
     _require(list(builds) == ["normal/float32"] and builds["normal/float32"] > 0,
              f"config 4: the operator must be the Gram matrix in float32 only, built {builds}")
     _check_launched("config 4", launches, CONFIG4_KERNELS, small_n=False)
+    _require(launches["minor_direction_r"] == 0, f"config 4: the minor-iteration kernel launched "
+             f"{launches['minor_direction_r']} times on the Gram operator")
     for name in ("masked_aat_cholesky", "project_tangent", "polyhedron_newton"):
         _require(plan > 1 and by_plan.get(f"{name} S={plan}", 0) > 0,
                  f"config 4: {name} did not run in the split form (plan {plan}): {by_plan}")
@@ -3806,6 +4161,7 @@ def main() -> None:
     resf = phase_fused(kern, smi, "--profile" in sys.argv[1:])
     res3 = phase_config3(kern)
     res3f = phase_fused_config3(kern, smi, res3, "--profile" in sys.argv[1:])
+    res3f["split"] = phase_bulk_split()
     res1 = phase_config1(kern, smi)
     res4 = phase_config4(kern)
     res5 = phase_config5(kern, smi)
@@ -3824,6 +4180,7 @@ def main() -> None:
         "project_tangent": (src + "project_tangent.cu", "benlsip_tpu/kernels/batched_linalg.py:119"),
         "blocked_qr_r": (src + "blocked_qr.cu", "benlsip_tpu/kernels/batched_linalg.py:170"),
         "polyhedron_newton": (src + "polyhedron_newton.cu", "benlsip_tpu/kernels/batched_linalg.py:119"),
+        "minor_direction_r": (src + "minor_direction_r.cu", "none: the JAX package's projected CG is lax.while_loop code"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -3844,6 +4201,10 @@ def main() -> None:
             # the (B, m, n, dtype, plan) the paths called it at, with counts.
             k["sources"] = [source, src + "polyhedron_newton_split.cu", src + "polyhedron_newton.cuh"]
             k["path_shapes"] = {"x".join(map(str, key)): v for key, v in sorted(NEWTON_SEEN.items())}
+        if name == "minor_direction_r":
+            # Its projections run the device function of project_tangent's header.
+            k["sources"] = [source, src + "project_tangent.cuh"]
+            k["launches_bulk_split_per_call"] = res3f["split"]["minor_launches_per_call"]
         if name in ("batched_thin_qr", "narrow_qr_r"):
             # One kernel, two entries (Q and R; R only, of S or of the
             # stacked [JZ; diag(dbot)]); the device code is in the header,
