@@ -138,6 +138,10 @@ NEWTON_LANES_MAX_N = 32
 # MINOR_RED_FLOATS floats of it hold the block reductions.
 MINOR_THREADS = 256
 MINOR_RED_FLOATS = 96
+# Components of the CG direction below this size do not bind the box
+# (`solver/cg.factor_to_boundary`'s atol); the negative-curvature test's
+# tolerance is sqrt(eps) of float32, as `solver/cg.projected_cg`'s.
+MINOR_BOUND_ATOL = 1e-10
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -226,10 +230,11 @@ _SIGNATURES = {
     "benlsip_polyhedron_newton": [_PTR, ctypes.c_longlong] + [_PTR] * 6 + [ctypes.c_double] * 2 + [_INT] * 3
     + [_PTR] * 4 + [_INT] * 4 + [_PTR],
     # R, A, its batch stride, L, fixed, x, s, g, xl, its batch stride, xu, its batch
-    # stride, delta, active, kappa2, atol, w, status, iters, B, k, M, n, stream
+    # stride, delta, active, kappa2, atol, bound_atol, w, status, iters, B, k, M, n,
+    # shared-memory bytes, stream
     "benlsip_minor_direction_r": [_PTR, _PTR, ctypes.c_longlong] + [_PTR] * 6 + [ctypes.c_longlong, _PTR,
-                                  ctypes.c_longlong] + [_PTR] * 2 + [ctypes.c_double] * 2 + [_PTR] * 3 + [_INT] * 4
-    + [_PTR],
+                                  ctypes.c_longlong] + [_PTR] * 2 + [ctypes.c_double] * 3 + [_PTR] * 3 + [_INT] * 4
+    + [ctypes.c_longlong, _PTR],
 }
 # The dtypes of each C entry point that has not all three.
 _ENTRY_SUFFIXES = {"benlsip_blocked_qr_r": ("f32", "f64"), "benlsip_polyhedron_newton": ("f32", "bf16"),
@@ -993,8 +998,9 @@ def polyhedron_newton(A: Tensor, b: Tensor, l: Tensor, u: Tensor, x: Tensor, tol
 def minor_direction_smem(k: int, m: int, n: int) -> int:
     """Bytes of dynamic shared memory of the minor-iteration kernel's block
     for R (k, n) and m equalities: R, A's rows, L, p, the projected vector
-    and its projection, R p, the reductions and the mask (the C side's
-    `smem_bytes`)."""
+    and its projection, R p, the reductions and the mask.  Every launch
+    passes it to the C entry, which refuses it unless it equals its own
+    `smem_bytes`."""
     return 4 * (k * n + m * n + m * m + 3 * n + k + MINOR_RED_FLOATS) + n
 
 
@@ -1096,6 +1102,7 @@ def minor_direction_r(R: Tensor, A: Tensor, L: Tensor, fixed: Tensor, x: Tensor,
         R.data_ptr(), A.data_ptr(), batch_stride(A), L.data_ptr(), fixed.data_ptr(), x.data_ptr(), s.data_ptr(),
         g.data_ptr(), xl.data_ptr(), batch_stride(xl), xu.data_ptr(), batch_stride(xu), delta.data_ptr(),
         None if active is None else active.data_ptr(), float(kappa2), torch.finfo(torch.float32).eps ** 0.5,
-        w.data_ptr(), status.data_ptr(), iters.data_ptr(), B, k, m, n,
+        MINOR_BOUND_ATOL, w.data_ptr(), status.data_ptr(), iters.data_ptr(), B, k, m, n,
+        minor_direction_smem(k, m, n),
     )
     return w, status, iters

@@ -81,7 +81,9 @@ struct Params {
   long long strideXu;
   const float* delta;
   const unsigned char* active;    // null: every instance
-  float kappa2, atol;
+  float kappa2;
+  float atol;                     // the curvature test's (sqrt(eps))
+  float bound_atol;               // factor_to_boundary's: |p_i| below it does not bind
   float* w;
   int* status;
   int* iters;
@@ -245,8 +247,8 @@ __global__ void __launch_bounds__(kThreads) minor_direction_r_kernel(const Param
     const float hp = col ? rt_times(Rs, us, j, k, n) : 0.f;
     float lo = inf(), hi = inf();
     if (col) {   // factor_to_boundary
-      lo = pj <= -p.atol ? (wl - w) / pj : inf();
-      hi = pj >= p.atol ? (wu - w) / pj : inf();
+      lo = pj <= -p.bound_atol ? (wl - w) / pj : inf();
+      hi = pj >= p.bound_atol ? (wu - w) / pj : inf();
     }
     float t3[3] = {pj * hp, pj * pj, nan_min(lo, hi)};
     block_reduce<2>(t3, red + kWarps * 3);
@@ -312,7 +314,8 @@ __global__ void __launch_bounds__(kThreads) minor_direction_r_kernel(const Param
 
 // Dynamic shared memory of one block: R, A, L, p, rn, vn, R p, the
 // reduction sites and the mask (batched_linalg.minor_direction_smem computes
-// the same).
+// the same for the gate, and the entry point refuses a call whose count
+// differs).
 size_t smem_bytes(int k, int M, int n) {
   return sizeof(float) * (static_cast<size_t>(k) * n + static_cast<size_t>(M) * n + M * M + 3 * n + k + kRedFloats) +
          static_cast<size_t>(n);
@@ -335,20 +338,25 @@ cudaError_t launch_m(const Params& p, int B, size_t smem, cudaStream_t s) {
 }  // namespace
 
 // w (B, n), status (B,) int32 and iters (B,) int32 of one minor iteration
-// per instance; active may be null (every instance).
+// per instance; active may be null (every instance).  atol is the
+// negative-curvature test's tolerance, bound_atol factor_to_boundary's, and
+// smem the caller's count of the block's shared memory, refused unless it is
+// this source's (so the two layouts cannot drift apart unseen).
 BENLSIP_API int benlsip_minor_direction_r_f32(const float* R, const float* A, long long strideA, const float* L,
                                               const unsigned char* fixed, const float* x, const float* s,
                                               const float* g, const float* xl, long long strideXl, const float* xu,
                                               long long strideXu, const float* delta, const unsigned char* active,
-                                              double kappa2, double atol, float* w, int* status, int* iters, int B,
-                                              int k, int M, int n, void* stream) {
+                                              double kappa2, double atol, double bound_atol, float* w, int* status,
+                                              int* iters, int B, int k, int M, int n, long long smem_expected,
+                                              void* stream) {
   const size_t smem = smem_bytes(k, M, n);
   if (B <= 0 || k < 1 || M < 1 || M > benlsip::kMaxDim || n < 1 || n > kThreads || strideA < 0 ||
-      strideXl < 0 || strideXu < 0 || smem > kMaxSmem) {
+      strideXl < 0 || strideXu < 0 || smem > kMaxSmem || static_cast<long long>(smem) != smem_expected) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params p{R, A, strideA, L, fixed, x, s, g, xl, strideXl, xu, strideXu, delta, active,
-                 static_cast<float>(kappa2), static_cast<float>(atol), w, status, iters, k, n};
+                 static_cast<float>(kappa2), static_cast<float>(atol), static_cast<float>(bound_atol),
+                 w, status, iters, k, n};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (M) {
 #define BENLSIP_CASE(MM) \

@@ -75,9 +75,13 @@ Phases (any failure raises and the script exits non-zero):
    (the largest square R at m = 6 and 16, one row of R at 256 columns, an
    R of an odd number of floats): every CG exit and inactive lanes, the
    same CG status on every lane, w within MINOR_W_RTOL of the lane's
-   ‖w‖∞ where the trip counts agree, a lane alone bitwise its lane in the
-   batch, two calls bitwise equal; then on config 3's real inputs, recorded
-   from an eager float32 bulk; refused operands; then by device µs a call
+   ‖w‖∞ where the trip counts agree (else against the float64 plain
+   version), a lane alone bitwise its lane in the batch, two calls bitwise
+   equal; directions of ~1e-5 (below the curvature test's sqrt(eps))
+   against a box of 1e-6, where the box still binds; then on config 3's
+   real inputs, the calls of `solve_mixed_precision`'s float32 bulk and the
+   last 30 of a float32 solve run on towards its criticality tolerance; refused
+   operands; then by device µs a call
    beside its bound, in turns with the same call in a graph, the old site
    (the plain version captured as the fused bulk captures it: its CG loop a
    WHILE node) in a graph, with the device operations each replay runs, and
@@ -251,6 +255,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import json
 import math
@@ -1238,20 +1243,24 @@ def _record_newton_shapes(kern) -> None:
 # conditioning (κ(H) ≤ 1e2 on the synthetic inputs, ~6 on config 3's J) can
 # amplify to ~2e-3 over its trips.  A lane whose summed residual lands on the
 # other side of its stopping test runs one trip more or less: at the solver's
-# kappa2 (0.1) at most MINOR_TRIP_FLIPS lanes a check may (each printed); at
-# kappa2 = 1e-3 the test (‖v‖² < 1e-6 ‖v₀‖²) sits near the float32 floor of
-# the residual at κ(H) = 1e2, and the flips are printed, not bounded (up to 8
-# of 64 lanes at 64×96×96 on the H100).  On config 3's real inputs near
-# criticality g is large (‖g‖ ≈ 2) and its projection small (‖w‖ ≈ 1e-3), so
-# every float32 evaluation of the reference algorithm — the plain version's
-# too — is off the float64 answer by up to ~n·eps·‖g‖ amplified by the CG
-# (5e-4 against ‖w‖∞ 1.4e-3 on one lane on the H100): there a lane passes
-# where the kernel is no farther from the plain version run in float64 on
-# the same inputs than MINOR_F64_FACTOR times the plain float32 version is,
-# plus MINOR_W_RTOL of the lane's ‖w‖∞.
+# kappa2 (0.1) at most MINOR_TRIP_FLIPS lanes a check may, at kappa2 = 1e-3
+# (‖v‖² < 1e-6 ‖v₀‖², near the float32 floor of the residual at κ(H) = 1e2)
+# at most a fifth of the lanes (MINOR_FLIP_SHARE; up to 8 of 64 seen at
+# 64×96×96 on the H100), each printed.  Such a lane's w is held to the
+# plain version run in float64 on the same inputs, as below: one trip of a
+# CG at kappa2 = 1e-3 moves w by ~κ·kappa2·‖v₀‖ (up to 6e-4 of ‖w‖∞ in a
+# CPU run with R perturbed by 2e-7), within MINOR_W_RTOL.  On config 3's
+# real inputs near criticality g is large (‖g‖ ≈ 2) and its projection small
+# (‖w‖ ≈ 1e-3), so every float32 evaluation of the reference algorithm — the
+# plain version's too — is off the float64 answer by up to ~n·eps·‖g‖
+# amplified by the CG (5e-4 against ‖w‖∞ 1.4e-3 on one lane on the H100):
+# there, and on every lane with other trips, a lane passes where the kernel
+# is no farther from the plain version run in float64 than MINOR_F64_FACTOR
+# times the plain float32 version is, plus MINOR_W_RTOL of the lane's ‖w‖∞.
 MINOR_W_RTOL = 2e-3
 MINOR_W_ATOL = 1e-6
 MINOR_TRIP_FLIPS = 2
+MINOR_FLIP_SHARE = 0.2
 MINOR_F64_FACTOR = 2.0
 # (B, k, m, n): config 3's shape, one lane alone, a half-size square R, and
 # the gate's corners: the largest square R at m = 6 and at m = 16, one row of
@@ -1259,7 +1268,9 @@ MINOR_F64_FACTOR = 2.0
 # synchronous copy into shared memory).
 MINOR_CHECKS = ((64, 192, 6, 192), (1, 192, 6, 192), (64, 96, 3, 96), (8, 235, 6, 235), (8, 230, 16, 230),
                 (8, 1, 1, 256), (8, 231, 1, 231))
-# Calls of the kernel recorded from an eager config-3 bulk (the real inputs).
+# Calls of the kernel recorded from config 3 (the real inputs): up to
+# MINOR_RECORDED of the pipeline's float32 bulk and the last
+# MINOR_RECORDED // 2 of a float32 solve to convergence.
 MINOR_RECORDED = 60
 
 
@@ -1291,34 +1302,58 @@ def _minor_case(rng, B, k, m, n, dev):
     return (t(R), A, factor_unfixed_aat(A, fixed), fixed, x, s, g, xl, xu, delta), active
 
 
-def _minor_compare(tag: str, got, want, max_flips=MINOR_TRIP_FLIPS, want64=None) -> dict:
+def _minor_small_case(rng, B, k, m, n, dev):
+    """`_minor_case` near criticality: g 1e5 times shorter, so that every
+    component of the CG direction (~1e-5) lies below sqrt(eps) of float32
+    (3.45e-4, the curvature test's tolerance) and above 1e-10 (the box's,
+    factor_to_boundary's), s = 0, and a trust radius of 1e-6 on three lanes
+    of four (the box binds) and 2 on the rest (interior solves)."""
+    (R, A, L, fixed, x, s, g, xl, xu, delta), active = _minor_case(rng, B, k, m, n, dev)
+    delta = torch.where(torch.arange(B, device=dev) % 4 == 0, 2.0, 1e-6).to(delta.dtype)
+    return (R, A, L, fixed, x, torch.zeros_like(s), g * 1e-5, xl, xu, delta), active
+
+
+def _box_at_curvature_tol(plain, args, kappa2, active):
+    """The plain version's statuses with the box's threshold set to the
+    curvature test's sqrt(eps): a kernel that mixed the two up."""
+    from benlsip_tpu_torch.solver import cg
+
+    exact = cg.factor_to_boundary
+    cg.factor_to_boundary = functools.partial(exact, atol=torch.finfo(torch.float32).eps ** 0.5)
+    try:
+        return plain(*args, kappa2, active)[1]
+    finally:
+        cg.factor_to_boundary = exact
+
+
+def _minor_compare(tag: str, got, want, want64, max_flips=MINOR_TRIP_FLIPS) -> dict:
     """The kernel's (w, status, trips) against the plain version's, lane by
-    lane, as MINOR_W_RTOL's note says (at most `max_flips` lanes with other
-    trips, None: no bound; `want64`, the plain version's w in float64 on
-    the same inputs, for the lanes whose float32 w differ by more than
-    MINOR_W_RTOL); returns the worst relative error among the lanes that
-    pass directly, and how many lanes passed against the float64 answer."""
+    lane, as MINOR_W_RTOL's note says: equal statuses; at most `max_flips`
+    lanes with other trips, each held to `want64` (the plain version's w in
+    float64 on the same inputs), as is every lane whose float32 w differ by
+    more than MINOR_W_RTOL.  Returns the worst relative error among the lanes
+    that pass directly, and how many lanes passed against the float64 answer."""
     (w, st, it), (wp, stp, itp) = got, want
     _require(torch.equal(st, stp), f"{tag}: CG statuses differ from the plain version's on lanes "
              f"{torch.nonzero(st != stp).flatten().tolist()} ({st.tolist()} vs {stp.tolist()})")
     flips = torch.nonzero(it != itp).flatten().tolist()
-    _require(max_flips is None or len(flips) <= max_flips, f"{tag}: CG trips differ on {len(flips)} lanes {flips}")
+    _require(len(flips) <= max_flips, f"{tag}: CG trips differ on {len(flips)} lanes {flips} (at most {max_flips})")
     same = it == itp
     scale = wp.abs().amax(-1, keepdim=True)
     err = ((w - wp).abs() / (scale + MINOR_W_ATOL / MINOR_W_RTOL)).amax(-1)
     _require(bool(torch.isfinite(w).all() == torch.isfinite(wp).all()), f"{tag}: non-finite w differs")
-    direct = err <= MINOR_W_RTOL
-    by64 = torch.zeros_like(direct)
-    if want64 is not None:
-        w64 = want64.to(w.dtype)
-        d_k, d_p = (w - w64).abs().amax(-1), (wp - w64).abs().amax(-1)
-        by64 = ~direct & (d_k <= MINOR_F64_FACTOR * d_p + MINOR_W_RTOL * w64.abs().amax(-1) + MINOR_W_ATOL)
-        for i in torch.nonzero(by64).flatten().tolist():
-            print(f"{tag}: lane {i} off the plain float32 w by {float(err[i]):.3e} of |w|_inf; against the float64 "
-                  f"plain version: kernel {float(d_k[i]):.3e}, plain float32 {float(d_p[i]):.3e}")
-    failed = torch.nonzero(same & ~direct & ~by64).flatten().tolist()
-    _require(not failed, f"{tag}: w off the plain version's on lanes {failed} by {err[failed].tolist()} of |w|_inf")
-    worst = float(err[same & direct].max()) if bool((same & direct).any()) else 0.0
+    direct = same & (err <= MINOR_W_RTOL)
+    w64 = want64.to(w.dtype)
+    d_k, d_p = (w - w64).abs().amax(-1), (wp - w64).abs().amax(-1)
+    by64 = ~direct & (d_k <= MINOR_F64_FACTOR * d_p + MINOR_W_RTOL * w64.abs().amax(-1) + MINOR_W_ATOL)
+    for i in torch.nonzero(~direct).flatten().tolist():
+        print(f"{tag}: lane {i} ({int(it[i])} trips, plain {int(itp[i])}) off the plain float32 w by "
+              f"{float(err[i]):.3e} of |w|_inf; against the float64 plain version: kernel {float(d_k[i]):.3e}, "
+              f"plain float32 {float(d_p[i]):.3e}, |w|_inf {float(w64[i].abs().max()):.3e}")
+    failed = torch.nonzero(~direct & ~by64).flatten().tolist()
+    _require(not failed, f"{tag}: w off the plain version's on lanes {failed} by {err[failed].tolist()} of |w|_inf, "
+             f"and off the float64 answer by {d_k[failed].tolist()} (plain float32 {d_p[failed].tolist()})")
+    worst = float(err[direct].max()) if bool(direct.any()) else 0.0
     hist = collections.Counter(st.tolist())
     print(f"{tag}: statuses equal {dict(sorted(hist.items()))}, trips {int(it.sum())} (plain {int(itp.sum())}), "
           f"lanes with other trips {[(i, int(it[i]), int(itp[i])) for i in flips]}, worst |dw| / |w|_inf {worst:.3e}"
@@ -1326,39 +1361,65 @@ def _minor_compare(tag: str, got, want, max_flips=MINOR_TRIP_FLIPS, want64=None)
     return {"rel_err": worst, "trip_flips": len(flips), "by_f64": int(by64.sum())}
 
 
+def _plain64(plain, args, kappa2, active):
+    """The plain version's w in float64 on the same (float32) inputs."""
+    args64 = [a.double() if isinstance(a, torch.Tensor) and a.is_floating_point() else a for a in args]
+    return plain(*args64, kappa2, active)[0]
+
+
 def _record_minor_calls(kern, calls: int) -> list:
-    """The arguments of the first `calls` launches of the minor-iteration
-    kernel in an eager float32 bulk of config 3 (`solve_batched` on
-    `dense_quadratic_family(64, n=192, d=1024, m=6, seed=3)`), cloned."""
+    """Config 3's real inputs to the minor-iteration kernel, cloned, from
+    `dense_quadratic_family(64, n=192, d=1024, m=6, seed=3)`: the first and
+    the last `calls` // 2 launches of `solve_mixed_precision`'s float32 bulk
+    (float64 master data, the eager route: the calls the benchmark's cell
+    makes, ~37 in all), then the last `calls` // 2 of a float32
+    `solve_batched` run on towards its own criticality tolerance (sqrt(eps)
+    of float32, 3.45e-4; 10 outer iterations at most), whose late minor
+    iterations see g large and w small."""
+    from benlsip_tpu_torch.batch.refine import solve_mixed_precision
     from benlsip_tpu_torch.batch.vmap_solve import solve_batched
     from benlsip_tpu_torch.problems.generators import dense_quadratic_family
     from benlsip_tpu_torch.solver.options import SolverOptions
 
-    bp, theta, X0 = dense_quadratic_family(64, n=192, d=1024, m=6, seed=3, dtype=torch.float32,
-                                           device=torch.device("cuda:0"))
-    seen, launch = [], kern.minor_direction_r
+    dev, opts = torch.device("cuda:0"), SolverOptions(max_outer_iter=30, max_inner_iter=100)
+    bp, theta, X0 = dense_quadratic_family(64, n=192, d=1024, m=6, seed=3, dtype=torch.float64, device=dev)
+    bp32, th32, X32 = dense_quadratic_family(64, n=192, d=1024, m=6, seed=3, dtype=torch.float32, device=dev)
+    launch, kept = kern.minor_direction_r, []
+    for tag, solve, head in (("solve_mixed_precision", lambda: solve_mixed_precision(bp, theta, X0, opts, chunk=64),
+                              calls // 2),
+                             ("solve_batched", lambda: solve_batched(bp32, th32, X32, dataclasses.replace(opts, max_outer_iter=10)),
+                              0)):
+        first, last, count = [], collections.deque(maxlen=calls - calls // 2), 0
 
-    def record(*args, **kw):
-        if len(seen) < calls:
-            seen.append(([a.clone() if isinstance(a, torch.Tensor) else a for a in args],
-                         {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}))
-        return launch(*args, **kw)
+        def record(*args, **kw):
+            nonlocal count
+            count += 1
+            seen = ([a.clone() if isinstance(a, torch.Tensor) else a for a in args],
+                    {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in kw.items()})
+            (first if len(first) < head else last).append(seen)
+            return launch(*args, **kw)
 
-    kern.minor_direction_r = record
-    try:
-        solve_batched(bp, theta, X0, SolverOptions(max_outer_iter=4, max_inner_iter=30))
-    finally:
-        kern.minor_direction_r = launch
-    _require(len(seen) > 0, "config 3's eager bulk made no call of the minor-iteration kernel")
-    return seen
+        kern.minor_direction_r = record
+        try:
+            info = solve()[2]
+        finally:
+            kern.minor_direction_r = launch
+        _require(count > 0, f"config 3's {tag} made no call of the minor-iteration kernel")
+        print(f"minor_direction_r: config 3's {tag} ({int(info.converged.sum())}/64 converged) made {count} calls; "
+              f"kept the first {len(first)} and the last {len(last)}")
+        kept += first + list(last)
+    return kept
 
 
 def _check_minor(kern, rng, worst) -> list:
     """The minor-iteration kernel against its plain version on the card:
     synthetic inputs at MINOR_CHECKS's shapes (every CG exit, inactive
     lanes), each lane alone bitwise equal to the same lane in its batch, two
-    calls bitwise equal; then config 3's real inputs, recorded from an eager
-    bulk; refused operands.  Returns the recorded calls."""
+    calls bitwise equal; directions below sqrt(eps) against a tight box
+    (`_minor_small_case`); then config 3's real inputs (`_record_minor_calls`);
+    refused operands.  Returns the recorded calls."""
+    from benlsip_tpu_torch.solver.status import CG_BOUND_HIT
+
     dev = torch.device("cuda:0")
     t0 = time.perf_counter()
     plain = kern._MINOR_PLAIN
@@ -1367,8 +1428,9 @@ def _check_minor(kern, rng, worst) -> list:
         for kappa2 in (0.1, 1e-3):
             got = kern.minor_direction_r(*args, kappa2, active=active)
             want = plain(*args, kappa2, active)
+            flips = MINOR_TRIP_FLIPS if kappa2 == 0.1 else max(MINOR_TRIP_FLIPS, int(MINOR_FLIP_SHARE * B))
             r = _minor_compare(f"minor_direction_r {B}x{k}x{m}x{n} kappa2={kappa2:g}", got, want,
-                               MINOR_TRIP_FLIPS if kappa2 == 0.1 else None)
+                               _plain64(plain, args, kappa2, active), flips)
             worst("minor_direction_r", r["rel_err"])
             again = kern.minor_direction_r(*args, kappa2, active=active)
             _require(all(torch.equal(a, b) for a, b in zip(got, again)), "minor_direction_r: two calls differ")
@@ -1378,13 +1440,31 @@ def _check_minor(kern, rng, worst) -> list:
             batch = kern.minor_direction_r(*args, 0.1, active=active)
             _require(all(torch.equal(a[0], b[lane]) for a, b in zip(alone, batch)),
                      f"minor_direction_r {B}x{k}x{m}x{n}: a lane alone differs from the same lane in its batch")
+    # Directions below the curvature test's tolerance against a tight box:
+    # the box still binds (factor_to_boundary's 1e-10), and the case tells
+    # that from a box at sqrt(eps) (the plain version so altered differs).
+    for B, k, m, n in ((64, 192, 6, 192), (64, 96, 3, 96)):
+        args, active = _minor_small_case(rng, B, k, m, n, dev)
+        for kappa2 in (0.1, 1e-3):
+            tag = f"minor_direction_r small directions {B}x{k}x{m}x{n} kappa2={kappa2:g}"
+            got = kern.minor_direction_r(*args, kappa2, active=active)
+            want = plain(*args, kappa2, active)
+            flips = MINOR_TRIP_FLIPS if kappa2 == 0.1 else max(MINOR_TRIP_FLIPS, int(MINOR_FLIP_SHARE * B))
+            r = _minor_compare(tag, got, want, _plain64(plain, args, kappa2, active), flips)
+            worst("minor_direction_r", r["rel_err"])
+            loose = _box_at_curvature_tol(plain, args, kappa2, active)
+            hits = int((want[1] == CG_BOUND_HIT).sum())
+            print(f"{tag}: |g| max {float(args[6].abs().max()):.2e}, {hits} bound hits; a box at sqrt(eps) "
+                  f"would change {int((loose != want[1]).sum())} statuses")
+            _require(hits > 0 and bool((loose != want[1]).any()),
+                     f"{tag}: the case does not tell the box's threshold from the curvature test's")
     calls = _record_minor_calls(kern, MINOR_RECORDED)
     worst_real, flips, lanes, by64 = 0.0, 0, 0, 0
     for i, (args, kw) in enumerate(calls):
         got = kern.minor_direction_r(*args, **kw)
         want = plain(*args, kw.get("active"))
-        args64 = [a.double() if isinstance(a, torch.Tensor) and a.is_floating_point() else a for a in args]
-        r = _minor_compare(f"minor_direction_r config 3 call {i}", got, want, want64=plain(*args64, kw.get("active"))[0])
+        r = _minor_compare(f"minor_direction_r config 3 call {i}", got, want,
+                           _plain64(plain, args[:10], args[10], kw.get("active")))
         worst_real, flips, lanes = max(worst_real, r["rel_err"]), flips + r["trip_flips"], lanes + args[0].shape[0]
         by64 += r["by_f64"]
     worst("minor_direction_r", worst_real)
@@ -3843,18 +3923,24 @@ def phase_bf16(kern, smi: str) -> dict:
              f"config 3 bf16: the bulk must build the CholeskyQR2 operator in bf16 only, built {builds}")
     _check_launched("config 3 bf16 bulk", launches3, BF16_PATH_KERNELS)
 
-    # Config 3 with bulk_matmul_precision="default": TF32 in the bulk only.
+    # Config 3 with bulk_matmul_precision="default": TF32 in the bulk only,
+    # but not in its minor iterations, which the minor-iteration kernel runs
+    # in float32 FMA whatever TF32 is allowed (they launch in both runs).
     res3 = {}
     for precision in ("highest", "default"):
         kw = {} if precision == "highest" else {"bulk_matmul_precision": precision}
+        kern.reset_launches()
         (Xp, _, ip), wall_p = _walled(lambda: run3(**kw))
+        minor = kern.LAUNCHES["minor_direction_r"]
         _check_certified(f"config 3 bulk_matmul_precision={precision}", Xp, ip, B3, n3)
         _require(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 must be off after the call")
+        _require(minor > 0, f"config 3 bulk_matmul_precision={precision}: the minor-iteration kernel did not launch")
         res3[precision] = {"wall_s": wall_p, "polished": _polished_lanes(ip), "fallback": _fallback_lanes(ip),
-                           "dx_vs_highest": float((Xp - X3f).abs().max())}
+                           "dx_vs_highest": float((Xp - X3f).abs().max()), "minor_launches": minor}
     print(f"config 3 bulk matmul precision on {smi}: " + "; ".join(
         f"{p}: wall {v['wall_s']:.3f} s, lanes certified by the polish {v['polished']}/{B3}, sent to the f64 refine "
-        f"{v['fallback']}, max |dX| vs the highest run {v['dx_vs_highest']:.3e}" for p, v in res3.items()))
+        f"{v['fallback']}, max |dX| vs the highest run {v['dx_vs_highest']:.3e}, minor_direction_r launches "
+        f"{v['minor_launches']}" for p, v in res3.items()))
     out["config3"] = {"launches": launches3, "wall_s": wall3, "builds": builds, "polished": _polished_lanes(i3),
                       "fallback": _fallback_lanes(i3), "tf32": res3}
     print(f"phase 9 (reduced-precision bulk): {time.perf_counter() - t_phase:.1f} s")

@@ -12,9 +12,14 @@ trip cap, and lanes not active), check that the gate sends the R form alone
 to the wrapper and every other form (G, J, row-sharded R, bf16, n over the
 kernel's cap, no equalities) to the composition, that a small
 config-3-shaped bulk is bitwise the same through the wrapper, and the
-wrapper's refusals.  The kernel itself runs on the card only
-(`chip_smoke.py`, phase 3c).
+wrapper's refusals.  Directions below the curvature test's sqrt(eps) still
+hit the box (factor_to_boundary's 1e-10), and a launch hands the C entry
+both thresholds and the block's shared-memory count.  The kernel itself
+runs on the card only (`chip_smoke.py`, phase 3c).
 """
+import functools
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -24,7 +29,7 @@ from benlsip_tpu_torch.kernels import batched_linalg as tk
 from benlsip_tpu_torch.ops.al import AlHessian, with_gram
 from benlsip_tpu_torch.ops.constraints import Polyhedron, make_active_set
 from benlsip_tpu_torch.problems.generators import dense_quadratic_family
-from benlsip_tpu_torch.solver import inner
+from benlsip_tpu_torch.solver import cg, inner
 from benlsip_tpu_torch.solver.cg import linesearch, projected_cg
 from benlsip_tpu_torch.solver.options import SolverOptions
 from benlsip_tpu_torch.solver.status import (
@@ -119,6 +124,57 @@ def test_plain_version_is_the_composition_bitwise(kappa2, inactive):
         assert (status[~active] != CG_NEGATIVE_CURVATURE).all()
 
 
+def _small_cases():
+    """`_cg_cases` near criticality: g a ten-thousandth as long (so every
+    component of the CG direction lies below sqrt(eps) of float32, 3.45e-4),
+    s = 0 and a trust radius of 1e-5 on every lane but lane 0."""
+    poly, aset, x, s, g, delta, R = _cg_cases()
+    delta = torch.full_like(delta, 1e-5)
+    delta[0] = 10.0
+    return poly, aset, x, torch.zeros_like(s), g * 1e-4, delta, R
+
+
+@pytest.mark.parametrize("kappa2", [1e-3, 0.1])
+def test_small_directions_still_bind_the_box(kappa2):
+    # The box binds every component of the direction above
+    # factor_to_boundary's 1e-10, not above the curvature test's sqrt(eps):
+    # with directions of ~1e-4 against a box of 1e-5, lanes 1 and 7 end on
+    # a bound hit, and would run on to a solve with sqrt(eps) at the box.
+    # The kernel passes the same threshold (MINOR_BOUND_ATOL).
+    poly, aset, x, s, g, delta, R = _small_cases()
+    H = AlHessian(None, None, None, R=R)
+    got = tk.minor_direction_r(*_kernel_args(poly, aset, x, s, g, delta, R), kappa2)
+    want = _today(x, s, g, H, poly, aset, delta, kappa2)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    status = got[1]
+    assert (status[[1, 7]] == CG_BOUND_HIT).all()
+    eps_half = torch.finfo(F32).eps ** 0.5
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cg, "factor_to_boundary", functools.partial(cg.factor_to_boundary, atol=eps_half))
+        loose = _today(x, s, g, H, poly, aset, delta, kappa2)[1]
+    assert (loose[[1, 7]] == CG_SOLVED).all()
+    assert tk.MINOR_BOUND_ATOL == inspect.signature(cg.factor_to_boundary).parameters["atol"].default
+
+
+def test_launch_carries_both_tolerances_and_the_block_bytes(monkeypatch):
+    # The arguments the wrapper hands the C entry for a card (the launch
+    # itself spied on): kappa2, the curvature test's sqrt(eps) of float32,
+    # factor_to_boundary's threshold, and the block's shared memory, which
+    # the entry refuses unless it equals its own count.
+    poly, aset, x, s, g, delta, R = _cg_cases(B=4)
+    seen = []
+    monkeypatch.setattr(tk, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(tk, "_launch", lambda name, base, t, *args: seen.append((name, base, args)))
+    tk.minor_direction_r(*_kernel_args(poly, aset, x, s, g, delta, R), 0.1)
+    (name, base, args), = seen
+    assert (name, base) == ("minor_direction_r", "benlsip_minor_direction_r")
+    kappa2, atol, bound_atol = args[14:17]
+    assert kappa2 == 0.1 and atol == torch.finfo(F32).eps ** 0.5 and bound_atol == 1e-10
+    B, k, m, n, smem = args[20:]
+    assert (B, k, m, n) == (4, 12, 2, 12) and smem == tk.minor_direction_smem(12, 2, 12)
+
+
 def _forms(form, B=3, n=24, d=60, m=3, seed=1):
     """(x, s, g, H, poly, aset, delta) with H in `form`."""
     rng = np.random.default_rng(seed)
@@ -172,6 +228,16 @@ def test_gate_needs_a_card_and_no_axis():
     assert not inner.minor_on_kernel("cpu", H, F32, m, None)
     assert not inner.minor_on_kernel("cuda", H, F32, m, "block")
     assert not inner.minor_on_kernel("cuda", H, torch.float64, m, None)
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_gate_ignores_the_tf32_permission(tf32, monkeypatch):
+    # The kernel computes in float32 FMA whatever
+    # torch.backends.cuda.matmul.allow_tf32 says: a bulk run with
+    # bulk_matmul_precision="default" takes it on the R form all the same.
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", tf32)
+    x, s, g, H, poly, aset, delta = _forms("R")
+    assert inner.minor_on_kernel("cuda", H, F32, poly.A.shape[-2], None)
 
 
 @pytest.mark.parametrize("k, m, n, fits", [
