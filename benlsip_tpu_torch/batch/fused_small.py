@@ -13,7 +13,9 @@ each captured at the first call of its key and replayed after:
   outer loop), replayed once per chunk of that size;
 * `cert`: the certification of the whole batch (`polish.FusedPolish`:
   f32 QR factors, f64 chord steps, exact-projection certificate, then at
-  most ⌈B / bucket⌉·(rounds − 1) static straggler passes).
+  most ⌈B / bucket⌉·(rounds − 1) static straggler passes).  With
+  nonlinear constraints (p > 0) the bulk's multipliers Y go to the
+  certification too, for the first factor step's curvature term.
 
 Each graph reads its inputs from, and writes its results to, buffers that
 live as long as its key; a call copies its data in (cast to f32 or f64 in
@@ -59,7 +61,7 @@ from .. import _loops, _trace
 from .._batched import tree_map
 from ..kernels import batched_linalg as kern
 from ..solver.options import SolverOptions
-from ..solver.outer import SolveInfo, default_atol, outer_done, outer_init, outer_loop
+from ..solver.outer import SolveInfo, default_atol, final_multipliers, outer_done, outer_init, outer_loop
 from .polish import FusedPolish, PolishState, _check_fallback_pad, finish_polish
 from .vmap_solve import BatchedProblem, map_poly_fields
 
@@ -178,6 +180,8 @@ class _ChunkBulk:
         self.th = _empty_like_tree(pipe.th32, rows=rows)
         self.X0 = torch.empty((rows, pipe.n), dtype=torch.float32, device=pipe.device)
         self.X = torch.empty_like(self.X0)
+        self.Y = None if pipe.Y32 is None else torch.empty((rows, pipe.Y32.shape[1]), dtype=torch.float32,
+                                                           device=pipe.device)
         self.bp = map_poly_fields(pipe.bp32, lambda a: torch.empty((rows,) + a.shape[1:], dtype=a.dtype, device=a.device))
         opts = pipe.bulk_opts.resolve_tols(torch.float32)
         fns = self.bp.instance_fns(self.th)
@@ -185,7 +189,11 @@ class _ChunkBulk:
 
         def bulk() -> None:
             c = outer_init(fns, poly, self.X0, opts)
-            self.X.copy_(outer_loop(fns, poly, opts, default_atol(torch.float32), c, ~outer_done(c, opts)).x)
+            c = outer_loop(fns, poly, opts, default_atol(torch.float32), c, ~outer_done(c, opts))
+            self.X.copy_(c.x)
+            if self.Y is not None:   # p > 0: the multipliers, and the AL outer iterations counted
+                self.Y.copy_(final_multipliers(c))
+                pipe.counts[0].add_((c.outer - 1).sum())
 
         self.stage = _Stage("bulk", bulk)
 
@@ -208,12 +216,21 @@ class _Pipeline:
         self.bp64 = _problem_buffers(bp, torch.float64)
         self.X0 = torch.empty((self.B, self.n), dtype=torch.float32, device=self.device)
         self.X32 = torch.empty_like(self.X0)
+        p = 0 if bp.nlconstraints is None else bp.instance_fns(theta).nlconstraints(X0).shape[-1]
+        self.Y32 = torch.empty((self.B, p), dtype=torch.float32, device=self.device) if p else None
+        # With p > 0: the bulk's AL outer iterations and the lanes the first
+        # polish round leaves uncertified, added up inside the stages
+        # (`replay_counts()`).
+        self.counts = torch.zeros(2, dtype=torch.int64, device=self.device) if p else None
         self.bulks: dict = {}
         polish = FusedPolish(self.bp32, self.th32, self.bp64, self.th64, **polish_kw)
         self.state: Optional[PolishState] = None
 
         def cert() -> None:
-            s = polish.repolish(polish.first_round(self.X32))
+            s = polish.first_round(self.X32, self.Y32)
+            if self.counts is not None:
+                self.counts[1].add_((~s.ok).sum())
+            s = polish.repolish(s)
             if self.state is None:   # the first, plain call allocates the results
                 self.state = _loops.clone(s)
             _loops.copy_into(self.state, s)
@@ -243,6 +260,8 @@ class _Pipeline:
                 bulk.load(self, sl)
                 bulk.stage()
                 self.X32[sl].copy_(bulk.X)
+                if bulk.Y is not None:
+                    self.Y32[sl].copy_(bulk.Y)
         with _trace.span("cert", self.device):
             self.cert()
         return self.state
@@ -288,6 +307,9 @@ def reset_replay_counts() -> None:
     """Start the counts of `replay_counts()` again from 0."""
     for st in _captured_stages():
         st.reset_counts()
+    for p in _PIPELINES.values():
+        if p.counts is not None:
+            p.counts.zero_()
 
 
 def replay_counts() -> dict:
@@ -299,7 +321,12 @@ def replay_counts() -> dict:
     of every WHILE node, "branches_taken": the taken IF nodes,
     "operator_builds": the materialized-operator builds by
     (factorization, dtype name), the replays' count of what
-    `solver/subproblem.OPERATOR_BUILDS` counts in eager mode}.  Syncs."""
+    `solver/subproblem.OPERATOR_BUILDS` counts in eager mode}; where a
+    cached pipeline has nonlinear constraints (p > 0), also
+    "al_outer_iters", the bulk's outer AL iterations summed over its
+    lanes, and "polish_stragglers", the lanes the certification's first
+    round left to its straggler passes, both counted on the device by the
+    stages however they ran (replayed or as plain calls).  Syncs."""
     launches, kernels, copies, replays = collections.Counter(dict.fromkeys(kern.LAUNCHES, 0)), 0, 0, 0
     kinds = collections.Counter()
     for st in _captured_stages():
@@ -308,9 +335,14 @@ def replay_counts() -> dict:
         kinds.update(by_kind)
         kernels, copies, replays = kernels + k, copies + c, replays + st.replays
     builds = {key[1:]: v for key, v in launches.items() if isinstance(key, tuple) and key[0] == "operator_build" and v}
-    return {"launches": {k: launches[k] for k in kern.LAUNCHES}, "device_kernels": kernels, "device_copies": copies,
-            "replays": replays, "loop_trips": kinds["while"], "branches_taken": kinds["if"],
-            "operator_builds": builds}
+    out = {"launches": {k: launches[k] for k in kern.LAUNCHES}, "device_kernels": kernels, "device_copies": copies,
+           "replays": replays, "loop_trips": kinds["while"], "branches_taken": kinds["if"],
+           "operator_builds": builds}
+    counts = [p.counts for p in _PIPELINES.values() if p.counts is not None]
+    if counts:
+        al_outer, stragglers = torch.stack([c.cpu() for c in counts]).sum(0).tolist()
+        out.update(al_outer_iters=al_outer, polish_stragglers=stragglers)
+    return out
 
 
 def _pipeline(key, make) -> _Pipeline:
@@ -358,7 +390,7 @@ def solve_small_fused(
     `options.verbose` raises (`ValueError`, on either device): a WHILE
     node's body cannot write the log's rows on the host.
     """
-    from .refine import _cast_problem, _cast_tree, true_f32_matmuls
+    from .refine import _cast_problem, _cast_tree, nlcons_bulk_options, true_f32_matmuls
 
     if options.verbose:
         raise ValueError("solve_small_fused: verbose=True writes its rows on the host from eager loops, and this "
@@ -367,17 +399,18 @@ def solve_small_fused(
     B, n = X0.shape
     dev = X0.device
     graphs = dev.type == "cuda" and _USE_GRAPHS
-    bulk_opts = dataclasses.replace(
+    bulk_opts = nlcons_bulk_options(dataclasses.replace(
         options,
         crit_tol=bulk_crit_tol,
         max_inner_iter=options.max_inner_iter if bulk_max_inner is None else min(bulk_max_inner, options.max_inner_iter),
-    )
+    ), bp, bulk_crit_tol)
     true_f32_matmuls()
     chunk = max(min(chunk, B), 1)
     polish_kw = (("options", options), ("num_steps", polish_steps), ("active_tol", active_tol), ("reg", 0.0),
                  ("refactor_steps", refactor_steps), ("rounds", rounds), ("straggler_bucket", straggler_bucket))
     poly_spec = tuple((f, _tree_spec(getattr(bp, f))) for f in _POLY_FIELDS if getattr(bp, f) is not None)
-    key = ((bp.residuals, bp.nlconstraints, bp.jac_res, bp.jac_nlcons, bp.poly_batched), _tree_spec(theta),
+    key = ((bp.residuals, bp.nlconstraints, bp.jac_res, bp.jac_nlcons, bp.poly_batched, bp.lagrangian_curvature),
+           _tree_spec(theta),
            poly_spec, _tree_spec(X0), str(dev), bulk_opts, chunk, polish_kw, graphs)
     pipe = _pipeline(key, lambda: _Pipeline(bp, theta, X0, bulk_opts, chunk, dict(polish_kw)))
 

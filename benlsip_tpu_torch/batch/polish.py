@@ -26,6 +26,19 @@ Every lane is then certified with exact-projection criticality
 ‖P_Ω(x − ∇L) − x‖ and ‖c‖; uncertified lanes get re-polish rounds and
 then the full f64 refine (`fallback_full_refine`).
 
+With nonlinear constraints (p > 0) the H block is the Lagrangian's whole
+Hessian, JᵀJ + W with W = Σⱼ rⱼ∇²rⱼ + Σᵢ yᵢ∇²cᵢ
+(`NLSFunctions.lagrangian_curvature`), at the bulk's multipliers on the
+first factor step when the pipeline hands them over and at the step's
+own ν after it: without W the chord's operator misses a term as large as
+JᵀJ wherever y is of order one (2y·I for a sphere), or wherever the
+residuals' curvature is (`sphere_family`), and the chord contracts
+slowly or not at all.  The LU route adds W to H; the QR route factors
+H + W by Cholesky (`_with_curvature`), shifted by σ(EZ)ᵀ(EZ) on a lane
+where H + W is indefinite.  p = 0 runs the same operations as before,
+Gauss-Newton.  (A deliberate difference: the JAX package's polish is
+Gauss-Newton for every p.)
+
 Three pipelines share these pieces (`polish_then_refine` routes them):
 `sqp_polish_fused` (f32 QR factors and f64 chord on the device the bulk
 ran on), `sqp_polish_split` (f32 factors there, f64 chord on the CPU) and
@@ -42,7 +55,7 @@ import torch
 
 from .. import _trace
 from .._batched import full, mtv, mv, norm, sel, tree_map, vdot
-from .._loops import host_any, host_count, masked_while
+from .._loops import branch_any, host_any, host_count, masked_while
 from ..ops.constraints import Polyhedron
 from ..solver.options import SolverOptions
 from ..solver.outer import SolveInfo
@@ -100,6 +113,21 @@ class _QRFactors(NamedTuple):
         return _trisolve(RJ, t, upper=True), dnu
 
 
+class _ShiftedQRFactors(NamedTuple):
+    """Range-space factors of H + W + σ(EZ)ᵀ(EZ) (`_with_curvature`): RJ,
+    Qw and Tw as `_QRFactors`, and S = σ·EZ (B, q, n), zero on a lane
+    without the shift.  Since E dx = rhs_e, the shifted system with
+    rhs_x + σ(EZ)ᵀrhs_e has the unshifted system's solution."""
+
+    RJ: Tensor
+    Qw: Tensor
+    Tw: Tensor
+    S: Tensor
+
+    def solve(self, rhs_x: Tensor, rhs_e: Tensor):
+        return _QRFactors(*self[:3]).solve(rhs_x + mtv(self.S, rhs_e), rhs_e)
+
+
 class _LUFactors(NamedTuple):
     """LU factors of the assembled KKT matrix, (B, n+q, n+q), and pivots."""
 
@@ -113,25 +141,62 @@ class _LUFactors(NamedTuple):
         return sol[:, :n], sol[:, n:]
 
 
-def _factor_qr(JZ: Tensor, EZ: Tensor, fixed: Tensor, reg: float, dual_reg: float) -> _QRFactors:
+# The shift that `_with_curvature` adds where H + W is not positive
+# definite: σ·(EZ)ᵀ(EZ) with σ = CURVATURE_SHIFT·‖H + W‖_F / ‖EZ‖_F².
+CURVATURE_SHIFT = 1.0
+
+
+def _with_curvature(RJ: Tensor, EZ: Tensor, WZ: Tensor):
+    """(R, S): R the upper Cholesky factor of RJᵀRJ + WZ (H + W on the free
+    coordinates) on each lane where that sum is positive definite; else of
+    the sum plus σ(EZ)ᵀ(EZ), which is positive definite for σ large enough
+    wherever H + W is on E's null space, with S = σ·EZ; else RJ itself,
+    the Gauss-Newton factor.  The shifted factorization runs only when a
+    lane needs it (`_loops.branch_any`: an IF node under capture)."""
+    G = RJ.mT @ RJ + WZ
+    R0, info = torch.linalg.cholesky_ex(G, upper=True)
+    ok = info == 0
+
+    def shifted():
+        sigma = CURVATURE_SHIFT * torch.linalg.matrix_norm(G) / torch.linalg.matrix_norm(EZ).square()
+        S = sigma[:, None, None] * EZ
+        R1, info1 = torch.linalg.cholesky_ex(G + EZ.mT @ S, upper=True)
+        take = ~ok & (info1 == 0)
+        return sel(take, R1, R0), sel(take, S, torch.zeros_like(S)), ok | take
+
+    R, S, ok = branch_any(~ok, shifted, (R0, torch.zeros_like(EZ), ok))
+    return sel(ok, R, RJ), S
+
+
+def _factor_qr(JZ: Tensor, EZ: Tensor, fixed: Tensor, reg: float, dual_reg: float,
+               WZ: Optional[Tensor] = None):
     """RJ = qr_r([JZ; D]) with D = diag(fixed ? 1 : sqrt(reg)), so RJᵀRJ is
     the KKT matrix's H block, and Qw Tw = RJ⁻ᵀ(EZ)ᵀ (`dual_reg` is the LU
-    route's; the range-space solve needs none)."""
+    route's; the range-space solve needs none).  With the curvature
+    WZ = ZWZ the H block is H + W, factored by `_with_curvature`
+    (`_ShiftedQRFactors`)."""
     from ..ops.qr import qr_r_stacked, thin_qr
 
     sreg = torch.sqrt(torch.full((), reg, dtype=JZ.dtype, device=JZ.device))
     dbot = torch.where(fixed, torch.ones((), dtype=JZ.dtype, device=JZ.device), sreg)
     RJ = qr_r_stacked(JZ, dbot)                                       # (B, n, n)
+    S = None
+    if WZ is not None:
+        RJ, S = _with_curvature(RJ, EZ, WZ)
     Wt = torch.linalg.solve_triangular(RJ.mT, EZ.mT, upper=False)    # (B, n, q)
-    return _QRFactors(RJ, *thin_qr(Wt))
+    return _QRFactors(RJ, *thin_qr(Wt)) if S is None else _ShiftedQRFactors(RJ, *thin_qr(Wt), S)
 
 
-def _factor_lu(JZ: Tensor, EZ: Tensor, fixed: Tensor, reg: float, dual_reg: float) -> _LUFactors:
-    """LU of [[JZᵀJZ + diag(fixed) + reg·Z, (EZ)ᵀ], [EZ, -dual_reg·I]]."""
+def _factor_lu(JZ: Tensor, EZ: Tensor, fixed: Tensor, reg: float, dual_reg: float,
+               WZ: Optional[Tensor] = None) -> _LUFactors:
+    """LU of [[JZᵀJZ + WZ + diag(fixed) + reg·Z, (EZ)ᵀ], [EZ, -dual_reg·I]]
+    (WZ = ZWZ, the constraints' curvature, when given)."""
     dtype = JZ.dtype
     q = EZ.shape[-2]
     fx = fixed.to(dtype)
     H = JZ.mT @ JZ + torch.diag_embed(fx + reg * (1.0 - fx))
+    if WZ is not None:
+        H = H + WZ
     dual = (-dual_reg * torch.eye(q, dtype=dtype, device=JZ.device)).expand(EZ.shape[0], q, q)
     K = torch.cat([torch.cat([H, EZ.mT], dim=-1), torch.cat([EZ, dual], dim=-1)], dim=-2)
     # No error check: a singular lane gives non-finite steps and fails its
@@ -143,14 +208,29 @@ def _factor_lu(JZ: Tensor, EZ: Tensor, fixed: Tensor, reg: float, dual_reg: floa
 _FACTOR = {"qr": _factor_qr, "lu": _factor_lu}
 
 
+def _curvature(fns, x: Tensor, y: Optional[Tensor], free: Tensor) -> Optional[Tensor]:
+    """ZWZ with W = Σⱼ rⱼ∇²rⱼ(x) + Σᵢ yᵢ∇²cᵢ(x), or None where there is no
+    such term (p = 0, no multipliers yet, or no `lagrangian_curvature`)."""
+    if y is None or y.shape[-1] == 0 or fns.lagrangian_curvature is None:
+        return None
+    return fns.lagrangian_curvature(x, y) * free.unsqueeze(-1) * free.unsqueeze(-2)
+
+
 def _factor_phase(fns, poly: Polyhedron, x0: Tensor, refactor_steps: int, active_tol: float,
-                  kkt: str, reg: float, dual_reg: float = 1e-14):
+                  kkt: str, reg: float, dual_reg: float = 1e-14, y0: Optional[Tensor] = None):
     """Active-set settling + KKT factorization steps.
 
     Bounds within active_tol (relative) of the warm start are candidates;
     which are fixed is re-decided every step from the sign of the current
-    Lagrangian gradient (the first step fixes every candidate).  Returns
-    (x, nu, factors, free).
+    Lagrangian gradient (the first step fixes every candidate).  With
+    p > 0 the curvature W enters H at the multipliers y0 (B, p) on the
+    first step (none when y0 is None) and at the previous step's ν after
+    it, and a bound that a step was clamped to becomes a candidate too: a
+    Newton step of H + W from the loose bulk can overshoot a bound that
+    belongs to the active set, and a free coordinate clamped back on every
+    step leaves the equalities violated by the overshoot.  (p = 0 keeps
+    the warm start's candidates, the JAX package's rule.)
+    Returns (x, nu, factors, free).
     """
     dtype = x0.dtype
     B, n = x0.shape
@@ -164,6 +244,7 @@ def _factor_phase(fns, poly: Polyhedron, x0: Tensor, refactor_steps: int, active
     at_hi = torch.isfinite(poly.xu) & ((poly.xu - x0) <= active_tol * scale)
     x = torch.where(at_lo, poly.xl, torch.where(at_hi, poly.xu, x0))
     nu = torch.zeros((B, p + m), dtype=dtype, device=x0.device)
+    y = None if y0 is None else y0.to(dtype)
     F = free = None
     for k in range(max(refactor_steps, 1)):
         r = fns.residuals(x)
@@ -171,12 +252,17 @@ def _factor_phase(fns, poly: Polyhedron, x0: Tensor, refactor_steps: int, active
         e = torch.cat([fns.nlconstraints(x), mv(A, x) - b], dim=-1)      # (B, p+m)
         E = torch.cat([fns.jac_nlcons(x), A], dim=-2)                    # (B, p+m, n)
         gL = mtv(J, r) + mtv(E, nu)
+        if k > 0 and p > 0:
+            y = nu[:, :p]
+            at_lo = at_lo | (x <= poly.xl)
+            at_hi = at_hi | (x >= poly.xu)
         keep_lo = at_lo & (gL >= 0)
         keep_hi = at_hi & (gL <= 0)
         fixed = (at_lo | at_hi) if k == 0 else (keep_lo | keep_hi)
         free = (~fixed).to(dtype)
 
-        F = factor(J * free.unsqueeze(-2), E * free.unsqueeze(-2), fixed, reg, dual_reg)
+        F = factor(J * free.unsqueeze(-2), E * free.unsqueeze(-2), fixed, reg, dual_reg,
+                   _curvature(fns, x, y, free))
         dx, dnu = F.solve(-(free * mtv(J, r)), -e)
         x = torch.clamp(x + dx * free, poly.xl, poly.xu)
         nu = dnu
@@ -232,16 +318,18 @@ def _snap_fixed(x64: Tensor, free: Tensor, poly64: Polyhedron) -> Tensor:
 
 def _f32_factor_then_f64_chord(bp32, theta32, X32: Tensor, bp64, theta64, dev, rs: int, chord: int,
                                kkt: str, active_tol: float, reg: float, dual_reg: float,
-                               crit_tol: float, feas_tol: float, promote: bool):
+                               crit_tol: float, feas_tol: float, promote: bool, Y32: Optional[Tensor] = None):
     """The factor phase in float32 on X32's device, then the chord phase and
     certificate in float64 on `dev`, where bp64/theta64 live (the CPU for
     the split polish, X32's own device for the fused one).  `promote`
     casts the factors to float64 (the split polish); otherwise they stay
-    float32."""
+    float32.  Y32: the multipliers of the first factor step's curvature
+    (`_factor_phase`'s y0)."""
     B, n = X32.shape
     poly32 = bp32.polyhedron(n, torch.float32, B, X32.device)
     x, nu, F, free = _factor_phase(
-        bp32.instance_fns(theta32), poly32, X32.to(torch.float32), rs, active_tol, kkt, reg, dual_reg
+        bp32.instance_fns(theta32), poly32, X32.to(torch.float32), rs, active_tol, kkt, reg, dual_reg,
+        None if Y32 is None else Y32.to(device=X32.device, dtype=torch.float32),
     )
     poly64 = bp64.polyhedron(n, torch.float64, B, dev)
     f64 = lambda t: t.to(device=dev, dtype=torch.float64)
@@ -263,9 +351,12 @@ def sqp_polish(
     dual_reg: float = 1e-14,
     refactor_steps: int = 2,
     kkt_factorization: str = "auto",
+    Y0: Optional[Tensor] = None,
 ):
     """Fixed-active-set SQP polish of warm starts X0 (B, n), factors and
-    chord in X0's dtype on X0's device (bp/theta already there).
+    chord in X0's dtype on X0's device (bp/theta already there).  Y0: the
+    warm starts' multipliers (B, p), for the first factor step's
+    constraint curvature (`_factor_phase`).
 
     Returns (X, Y, converged, pix, feas, objective); `converged` is the
     per-lane certification mask.
@@ -276,7 +367,7 @@ def sqp_polish(
     poly = bp.polyhedron(n, X0.dtype, B, X0.device)
     fns = bp.instance_fns(theta)
     kkt = _resolve_kkt(kkt_factorization, X0.dtype)
-    x, nu, F, free = _factor_phase(fns, poly, X0, rs, active_tol, kkt, reg, dual_reg)
+    x, nu, F, free = _factor_phase(fns, poly, X0, rs, active_tol, kkt, reg, dual_reg, Y0)
     return _chord_phase(fns, poly, x, nu, F, free, chord, float(opts.crit_tol), float(opts.feas_tol))
 
 
@@ -293,6 +384,7 @@ def sqp_polish_split(
     dual_reg: float = 1e-14,
     refactor_steps: int = 2,
     kkt_factorization: str = "auto",
+    Y32: Optional[Tensor] = None,
 ):
     """Device-factored polish: the f32 factor phase where X32 lives (the
     card after the bulk), the f64 chord phase and certificate on the CPU
@@ -300,6 +392,7 @@ def sqp_polish_split(
     certification at n ≥ 64.  The O(dn² + n³) factor work stays on the
     device; the CPU pays O(dn + n²) per chord step.  Float32 factors use
     the range-space QR unless `kkt_factorization` says "lu" (`_resolve_kkt`).
+    Y32: the bulk's multipliers (`_factor_phase`'s y0).
 
     bp64/theta64 are the f64 master data (moved to the CPU here).  Returns
     (X, Y, converged, pix, feas, objective) in f64 on the CPU.
@@ -312,7 +405,7 @@ def sqp_polish_split(
     return _f32_factor_then_f64_chord(
         bp32, theta32, X32, _cast_problem(bp64, torch.float64, _CPU), theta_h, _CPU, rs, chord,
         _resolve_kkt(kkt_factorization, X32.dtype), active_tol, reg, dual_reg,
-        float(opts.crit_tol), float(opts.feas_tol), promote=True,
+        float(opts.crit_tol), float(opts.feas_tol), promote=True, Y32=Y32,
     )
 
 
@@ -355,14 +448,16 @@ class FusedPolish:
         self.active_tol, self.reg, self.rounds = active_tol, reg, rounds
         self.K = max(straggler_bucket, 1)
 
-    def _round(self, b32, t32, b64, t64, x64: Tensor):
+    def _round(self, b32, t32, b64, t64, x64: Tensor, y: Optional[Tensor]):
         return _f32_factor_then_f64_chord(
             b32, t32, x64, b64, t64, x64.device, self.rs, self.chord, "qr", self.active_tol, self.reg, 0.0,
-            *self.tols, promote=False,
+            *self.tols, promote=False, Y32=y,
         )
 
-    def first_round(self, X32: Tensor) -> PolishState:
-        out = self._round(*self.data, X32.to(torch.float64))
+    def first_round(self, X32: Tensor, Y32: Optional[Tensor] = None) -> PolishState:
+        """The first polish of every lane; Y32 (B, p), the bulk's
+        multipliers, seeds the first factor step's constraint curvature."""
+        out = self._round(*self.data, X32.to(torch.float64), Y32)
         return PolishState(*out, att=torch.zeros_like(out[2], dtype=torch.int32))
 
     def eligible(self, s: PolishState) -> Tensor:
@@ -378,7 +473,8 @@ class FusedPolish:
 
     def _polish_lanes(self, s: PolishState, idx: Tensor):
         bp32, theta32, bp64, theta64 = self.data
-        return self._round(*_take_batched(bp32, theta32, idx), *_take_batched(bp64, theta64, idx), s.x[idx])
+        y = s.y[idx] if s.y.shape[-1] else None    # the lanes' polished ν: their curvature's multipliers
+        return self._round(*_take_batched(bp32, theta32, idx), *_take_batched(bp64, theta64, idx), s.x[idx], y)
 
     def repolish(self, s: PolishState) -> PolishState:
         """The re-polish passes while a lane is owed one (`_loops.masked_while`),
@@ -429,6 +525,7 @@ def sqp_polish_fused(
     refactor_steps: int = 2,
     rounds: int = 2,
     straggler_bucket: int = 64,
+    Y32: Optional[Tensor] = None,
 ):
     """Device-resident split polish: f32 QR factors + f64 chord +
     certification, then bucketed re-polish passes for uncertified lanes.
@@ -438,12 +535,13 @@ def sqp_polish_fused(
     `rounds - 1` re-polishes, served least-attempted first in buckets of at
     most `straggler_bucket` lanes; unlike the JAX version there is no cap
     on the number of passes, so no straggler is left without its
-    re-polish.  All inputs live on X32's device.  Returns (X, Y, converged,
+    re-polish.  All inputs live on X32's device; Y32 are the bulk's
+    multipliers (`FusedPolish.first_round`).  Returns (X, Y, converged,
     pix, feas, objective) in f64.
     """
     fp = FusedPolish(bp32, theta32, bp64, theta64, options, num_steps, active_tol, reg,
                      refactor_steps, rounds, straggler_bucket)
-    return tuple(fp.repolish_dynamic(fp.first_round(X32))[:6])
+    return tuple(fp.repolish_dynamic(fp.first_round(X32, Y32))[:6])
 
 
 def _gather_uncertified(ok: Tensor) -> Tensor:
@@ -485,6 +583,7 @@ def polish_then_refine(
     kkt_factorization: str = "auto",
     fallback_device=None,
     straggler_bucket: int = 64,
+    Y32: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, SolveInfo]:
     """f64 certification phase: SQP polish, re-polish rounds and the
     full-refine fallback for the lanes still uncertified.
@@ -506,9 +605,11 @@ def polish_then_refine(
     TPU had no f64 LU).  The lanes still uncertified go to
     `fallback_full_refine` on `fallback_device` (None: where the
     certification ran).  `fallback_pad` is refused at any value but 64
-    (`_check_fallback_pad`).  Returns f64 (X, Y, SolveInfo) on the
-    certification's device, or on `fallback_device` when a lane went to
-    the fallback refine.
+    (`_check_fallback_pad`).  Y32 (B, p), the bulk's multipliers where the
+    pipeline has them, seed every polish's first constraint curvature;
+    a re-polish starts from its lanes' polished ν.  Returns f64
+    (X, Y, SolveInfo) on the certification's device, or on
+    `fallback_device` when a lane went to the fallback refine.
     """
     from .refine import _cast_problem, _cast_tree
 
@@ -530,14 +631,15 @@ def polish_then_refine(
     if use_fused:
         X, Y, ok, pix, feas, obj = sqp_polish_fused(
             bp32, theta32, X32, bp64, theta64, options, rounds=rounds,
-            straggler_bucket=straggler_bucket, **kw,
+            straggler_bucket=straggler_bucket, Y32=Y32, **kw,
         )
     else:
         kw["kkt_factorization"] = kkt_factorization
         if use_split:
-            out = sqp_polish_split(bp32, theta32, X32, bp64, theta64, options, **kw)
+            out = sqp_polish_split(bp32, theta32, X32, bp64, theta64, options, Y32=Y32, **kw)
         else:
-            out = sqp_polish(bp64, theta64, X32.to(device=dev, dtype=torch.float64), options, **kw)
+            Y0 = None if Y32 is None else Y32.to(device=dev, dtype=torch.float64)
+            out = sqp_polish(bp64, theta64, X32.to(device=dev, dtype=torch.float64), options, Y0=Y0, **kw)
         X, Y, ok, pix, feas, obj = out
         # Re-polish only the uncertified lanes; the re-polished state is
         # taken certified or not, so a further round starts from it.
@@ -546,7 +648,7 @@ def polish_then_refine(
                 break
             idx = _gather_uncertified(ok)
             bp_r, theta_r = _take_batched(bp64, theta64, idx)
-            new = sqp_polish(bp_r, theta_r, X[idx], options, **kw)
+            new = sqp_polish(bp_r, theta_r, X[idx], options, Y0=Y[idx] if Y.shape[-1] else None, **kw)
             for t, t_new in zip(out, new):
                 t[idx] = t_new
     return finish_polish(bp64, theta64, (X, Y, ok, pix, feas, obj), options, num_steps, chunk, fallback_device)

@@ -112,6 +112,33 @@ def true_f32_matmuls() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+# The f32 bulk of a family with nonlinear constraints (`nlcons_bulk_options`):
+# its criticality target as a multiple of `bulk_crit_tol`, and its outer
+# stall window.
+NLCONS_BULK_CRIT_SCALE = 5.0
+NLCONS_BULK_OUTER_STALL_WINDOW = 1
+
+
+def nlcons_bulk_options(bulk_opts: SolverOptions, bp: BatchedProblem, bulk_crit_tol) -> SolverOptions:
+    """The polished pipeline's f32 bulk options for `bp`.  With nonlinear
+    constraints (p > 0) the bulk stops at 5·`bulk_crit_tol` (5e-2 at the
+    default), or at its first outer iteration that ends at the
+    feasibility floor without bettering its best criticality.  Its
+    subproblems stall at the float32 floor of the augmented Lagrangian:
+    the trust region's acceptance test cannot resolve reductions below
+    its rounding, 10·eps32·|m|, about 9e-5 at an objective of ~70, and on
+    the card the lanes that stall end at criticalities of 2e-3 to 6e-2
+    after 2-30 outer iterations (a call took 1.9 s, `PERF.md` §7); the
+    Newton-SQP polish certifies from there.  p = 0 keeps the options as
+    given."""
+    if bp.nlconstraints is None:
+        return bulk_opts
+    upd = {"outer_stall_window": NLCONS_BULK_OUTER_STALL_WINDOW}
+    if bulk_crit_tol is not None:
+        upd["crit_tol"] = NLCONS_BULK_CRIT_SCALE * bulk_crit_tol
+    return dataclasses.replace(bulk_opts, **upd)
+
+
 def _resolve_bulk_compact(bulk_compact, B: int, chunk: int, polish: bool,
                           sort_by_difficulty: bool = False):
     """"auto": off, as in the JAX package, where the rule was set on a TPU
@@ -226,6 +253,8 @@ def solve_mixed_precision(
             bulk_opts = dataclasses.replace(
                 bulk_opts, max_inner_iter=min(bulk_max_inner, options.max_inner_iter)
             )
+        if polish:
+            bulk_opts = nlcons_bulk_options(bulk_opts, bp, bulk_crit_tol)
         if pipeline_overlap:
             return _overlapped_pipeline(bp, theta, bp32, theta32, X0_32, options, bulk_opts, chunk, polish_steps, host)
         B = X0.shape[0]
@@ -240,14 +269,14 @@ def solve_mixed_precision(
             if bulk_compact is not None:
                 from .compact import solve_batched_compact
 
-                Xb, _, _ = solve_batched_compact(bp_b, theta_b, X0_b, bulk_opts, chunk=chunk,
-                                                 stage_outer=bulk_compact)
+                Xb, Yb, _ = solve_batched_compact(bp_b, theta_b, X0_b, bulk_opts, chunk=chunk,
+                                                  stage_outer=bulk_compact)
             elif sort_by_difficulty:
                 from .buckets import solve_batched_sorted
 
-                Xb, _, _ = solve_batched_sorted(bp_b, theta_b, X0_b, bulk_opts, chunk=sort_chunk)
+                Xb, Yb, _ = solve_batched_sorted(bp_b, theta_b, X0_b, bulk_opts, chunk=sort_chunk)
             else:
-                Xb, _, _ = solve_batched_chunked(bp_b, theta_b, X0_b, bulk_opts, chunk=chunk)
+                Xb, Yb, _ = solve_batched_chunked(bp_b, theta_b, X0_b, bulk_opts, chunk=chunk)
             X32 = Xb.to(torch.float32)
         with _trace.span("certify", rows=B):
             if polish:
@@ -255,7 +284,7 @@ def solve_mixed_precision(
 
                 return polish_then_refine(
                     bp, theta, X32, options, num_steps=polish_steps, chunk=chunk,
-                    device="cpu" if host else None, bp32=bp32, theta32=theta32,
+                    device="cpu" if host else None, bp32=bp32, theta32=theta32, Y32=Yb,
                 )
             return refine_f64(bp, theta, X32.cpu() if host else X32, options, chunk=chunk)
 
@@ -278,12 +307,12 @@ def _overlapped_pipeline(bp, theta, bp32, theta32, X0_32, options, bulk_opts, ch
     csz = max(min(chunk, B), 1)
     take = lambda sl: (lambda a: a[sl])
 
-    def certify(sl, X32):
+    def certify(sl, X32, Y32):
         with _trace.span("certify", rows=sl.stop - sl.start):
             return polish_then_refine(
                 map_poly_fields(bp, take(sl)), tree_map(take(sl), theta), X32, options, num_steps=polish_steps,
                 chunk=csz, device="cpu" if host else None,
-                bp32=map_poly_fields(bp32, take(sl)), theta32=tree_map(take(sl), theta32),
+                bp32=map_poly_fields(bp32, take(sl)), theta32=tree_map(take(sl), theta32), Y32=Y32,
             )
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as worker:
@@ -291,8 +320,8 @@ def _overlapped_pipeline(bp, theta, bp32, theta32, X0_32, options, bulk_opts, ch
         for start in range(0, B, csz):
             sl = slice(start, min(start + csz, B))
             with _trace.span("bulk", rows=sl.stop - sl.start):
-                X32, _, _ = solve_batched_chunked(map_poly_fields(bp32, take(sl)), tree_map(take(sl), theta32),
-                                                  X0_32[sl], bulk_opts, chunk=csz)
-            pending.append(worker.submit(certify, sl, X32))
+                X32, Y32, _ = solve_batched_chunked(map_poly_fields(bp32, take(sl)), tree_map(take(sl), theta32),
+                                                    X0_32[sl], bulk_opts, chunk=csz)
+            pending.append(worker.submit(certify, sl, X32, Y32))
         parts = [p.result() for p in pending]
     return cat_batches(parts)

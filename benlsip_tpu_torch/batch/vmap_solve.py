@@ -33,7 +33,13 @@ class BatchedProblem:
     (x (n,), theta_i), written with torch ops; theta is a dict (or other
     tuple/list tree) of tensors with a leading batch axis.  Constraint
     data may be shared (no batch axis) or per-instance (leading batch
-    axis), declared by `poly_batched`.
+    axis), declared by `poly_batched`.  `lagrangian_curvature(x, y,
+    theta_i)` (n, n) is the second-order part of the Lagrangian's Hessian
+    that Gauss-Newton leaves out, Σⱼ rⱼ∇²rⱼ(x) + Σᵢ yᵢ∇²cᵢ(x) at the
+    multipliers y (p,); the certification's polish adds it to its KKT
+    matrix when p > 0.  Left None it comes from autodiff (the forward-mode
+    Jacobian of Jᵀr + Cᵀy less JᵀJ).  (The JAX package has no such hook:
+    its polish is Gauss-Newton throughout.)
     """
 
     residuals: Callable[[Tensor, Any], Tensor]
@@ -45,6 +51,7 @@ class BatchedProblem:
     xl: Optional[Tensor] = None
     xu: Optional[Tensor] = None
     poly_batched: bool = False
+    lagrangian_curvature: Optional[Callable[[Tensor, Tensor, Any], Tensor]] = None
 
     def instance_fns(self, theta) -> NLSFunctions:
         """Bind the batch's theta into batched callables of X (B, n)."""
@@ -52,12 +59,17 @@ class BatchedProblem:
         res = vmap(self.residuals)
         # A hand-written Jacobian is passed through as given; an autodiff
         # one is cast to x's dtype (`autodiff_jacobian`).
-        jr = vmap(self.jac_res if self.jac_res is not None else autodiff_jacobian(self.residuals))
+        jr_one = self.jac_res if self.jac_res is not None else autodiff_jacobian(self.residuals)
+        jr = vmap(jr_one)
+        curv = None
         if self.nlconstraints is None:
             nlc, jc = empty_nlconstraints, empty_jac_nlcons   # p == 0
         else:
+            jac_one = self.jac_nlcons if self.jac_nlcons is not None else autodiff_jacobian(self.nlconstraints)
             nlc_v = vmap(self.nlconstraints)
-            jc_v = vmap(self.jac_nlcons if self.jac_nlcons is not None else autodiff_jacobian(self.nlconstraints))
+            jc_v = vmap(jac_one)
+            curv_v = vmap(self.lagrangian_curvature if self.lagrangian_curvature is not None
+                          else autodiff_curvature(self.residuals, self.nlconstraints, jr_one))
 
             def nlc(X):
                 return nlc_v(X, theta)
@@ -65,11 +77,15 @@ class BatchedProblem:
             def jc(X):
                 return jc_v(X, theta)
 
+            def curv(X, Y):
+                return curv_v(X, Y, theta)
+
         return NLSFunctions(
             residuals=lambda X: res(X, theta),
             nlconstraints=nlc,
             jac_res=lambda X: jr(X, theta),
             jac_nlcons=jc,
+            lagrangian_curvature=curv,
         )
 
     def polyhedron(self, n: int, dtype: torch.dtype, B: int, device) -> Polyhedron:
@@ -85,6 +101,23 @@ class BatchedProblem:
             f if f.ndim > base else f.expand((B,) + f.shape)
             for f, base in zip(fields, _POLY_BASE_RANK)
         ])
+
+
+def autodiff_curvature(residuals: Callable, nlconstraints: Callable, jac_res: Callable) -> Callable:
+    """x, y, theta_i ↦ Σⱼ rⱼ∇²rⱼ(x) + Σᵢ yᵢ∇²cᵢ(x) of one instance: the
+    Hessian of the Lagrangian ½‖r‖² + yᵀc (forward over reverse mode) less
+    JᵀJ, in x's dtype."""
+    def lagrangian(x, y, th):   # elementwise: forward-mode tangents can come back in float64
+        r = residuals(x, th)
+        return 0.5 * (r * r).sum() + (y * nlconstraints(x, th)).sum()
+
+    hess = autodiff_jacobian(torch.func.grad(lagrangian))
+
+    def curvature(x, y, th):
+        J = jac_res(x, th).to(x.dtype)
+        return hess(x, y, th) - J.mT @ J
+
+    return curvature
 
 
 # Base rank of each Polyhedron field; an extra leading axis marks it as

@@ -37,12 +37,18 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class NLSFunctions:
-    """Batched callables of an NLS problem family (p may be 0)."""
+    """Batched callables of an NLS problem family (p may be 0).
+
+    `lagrangian_curvature(X, Y)` (B, n, n) is, for each lane, the part of
+    the Lagrangian's Hessian that Gauss-Newton leaves out,
+    Σⱼ rⱼ∇²rⱼ + Σᵢ Yᵢ∇²cᵢ at X; the certification's polish adds it to
+    its KKT matrix when p > 0.  None leaves it out."""
 
     residuals: Callable[[Tensor], Tensor]
     nlconstraints: Callable[[Tensor], Tensor]
     jac_res: Callable[[Tensor], Tensor]
     jac_nlcons: Callable[[Tensor], Tensor]
+    lagrangian_curvature: Optional[Callable[[Tensor, Tensor], Tensor]] = None
 
 
 # Forward-mode AD levels are global to the process, not to a thread: two

@@ -186,12 +186,18 @@ def carry_info(out: OuterCarry, opts: SolverOptions, objective: Tensor) -> Solve
     )
 
 
+def final_multipliers(c: OuterCarry) -> Tensor:
+    """The carry's multipliers as a solve returns them: at a critical exit
+    the converged y + mu·c, else y."""
+    return sel(c.critical, first_order_multipliers(c.y, c.cx, c.mu), c.y)
+
+
 def finalize(fns, c: OuterCarry, opts: SolverOptions):
-    """(X, Y, SolveInfo) of a carry: at a critical exit the converged
-    multiplier y + mu·c, and the objective ½‖r(x)‖².  Every driver of the
-    outer loop (`solve_fixed_point`, `batch/compact`,
-    `harness/checkpoint`) ends here."""
-    y_final = sel(c.critical, first_order_multipliers(c.y, c.cx, c.mu), c.y)
+    """(X, Y, SolveInfo) of a carry: `final_multipliers`, and the objective
+    ½‖r(x)‖².  Every caller that runs the outer loop (`solve_fixed_point`,
+    `batch/compact`, `harness/checkpoint`) ends here; `batch/fused_small`'s
+    bulk takes its Y from `final_multipliers`."""
+    y_final = final_multipliers(c)
     rx = fns.residuals(c.x)
     return c.x, y_final, carry_info(c, opts, objective=_psum(0.5 * vdot(rx, rx), opts.spmd_axis))
 

@@ -2930,12 +2930,16 @@ def _sphere_batch(kern, smi: str) -> dict:
         kern.reset_launches()
         fused_small.reset_replay_counts()
         (X2, _, info2), warm = _walled(run)
+        first = ""
         if mode == "fused":
-            launches = {k: v + kern.LAUNCHES[k] for k, v in fused_small.replay_counts()["launches"].items()}
+            counts = fused_small.replay_counts()
+            launches = {k: v + kern.LAUNCHES[k] for k, v in counts["launches"].items()}
+            first = f" (the first round {B - counts['polish_stragglers']}/{B})"
         ok = info.converged
         n_cert = int(ok.sum())
         tag = f"config 1 sphere_family B={B} {'fuse=True' if mode == 'fused' else 'certify=' + mode}"
-        print(f"{tag}: certified {n_cert}/{B}, max pix {float(info.pix[ok].max()):.3e}, max feas {float(info.feas[ok].max()):.3e}, "
+        print(f"{tag}: certified {n_cert}/{B}, by the polish {_polished_lanes(info)}/{B}{first}, "
+              f"max pix {float(info.pix[ok].max()):.3e}, max feas {float(info.feas[ok].max()):.3e}, "
               f"cold {cold:.3f} s, warm {warm:.3f} s on {smi}, launches {launches}")
         _require(X.shape == (B, 3) and Y.shape == (B, 1) and X.dtype == torch.float64 and bool(torch.isfinite(X[ok]).all()),
                  f"{tag}: X (B, 3) and Y (B, 1) must be finite float64")
