@@ -40,7 +40,12 @@ and the kernels that redesign them for this card:
   materialized operator R (RᵀR = H) — the free-variable box, the projected
   CG to each instance's own exit, the line search — one block an instance
   with R in shared memory, one launch a minor iteration (it replaces no TPU
-  kernel: the JAX package's CG is `lax.while_loop` code that XLA fuses).
+  kernel: the JAX package's CG is `lax.while_loop` code that XLA fuses);
+* `minor_loop_r`: the whole minor loop of `solver/inner.inner_step` on the
+  same operator — each trip that minor iteration (the same device code),
+  s and the model gradient updated, the bound masks, the re-factor of the
+  new free set and the two reduced-gradient norms — each instance to its
+  own exit, one launch an inner step (it replaces no TPU kernel either).
 
 The small kernels (all but the panel QR and the dual Newton) take float32, float64 and bfloat16, as the TPU
 kernels take float32 and bfloat16: a bf16 kernel computes in float32 and
@@ -56,9 +61,10 @@ padding.  On a CUDA tensor it launches its kernel (or raises); on a CPU
 tensor it runs the plain PyTorch version beside it, which computes the
 same algorithm in the same order with batched torch ops (the dual Newton's
 plain version is the masked loop of `ops/polyproject`, registered here by
-`set_newton_plain`, and the minor iteration's is `solver/inner`'s
+`set_newton_plain`, the minor iteration's is `solver/inner`'s
 composition of `projected_cg` and `linesearch`, registered by
-`set_minor_plain`).  There is no
+`set_minor_plain`, and the minor loop's is `solver/inner`'s masked loop,
+registered by `set_minor_loop_plain`).  There is no
 fallback from a failed build or launch to the plain version.
 
 The sources in `csrc/` are compiled with nvcc for sm_90a (one nvcc per
@@ -132,10 +138,11 @@ SPLIT_MIN_N = 512
 # The dual Newton's warp form puts the line search's grid points on the lanes
 # up to this many columns (one column a lane), the columns above it.
 NEWTON_LANES_MAX_N = 32
-# The minor-iteration kernel (csrc/minor_direction_r.cu): one block of
-# MINOR_THREADS threads an instance, one column a thread (n ≤ MINOR_THREADS),
-# R and the shared vectors in dynamic shared memory (`minor_direction_smem`);
-# MINOR_RED_FLOATS floats of it hold the block reductions.
+# The minor-iteration kernels (csrc/minor_direction_r.cu, csrc/minor_loop_r.cu,
+# one device code in csrc/minor_iteration.cuh): one block of MINOR_THREADS
+# threads an instance, one column a thread (n ≤ MINOR_THREADS), R and the
+# shared vectors in dynamic shared memory (`minor_direction_smem`, one layout
+# for both); MINOR_RED_FLOATS floats of it hold the block reductions.
 MINOR_THREADS = 256
 MINOR_RED_FLOATS = 96
 # Components of the CG direction below this size do not bind the box
@@ -157,7 +164,7 @@ FMAD_SOURCES = ("blocked_qr.cu",)
 LAUNCHES = {
     "batched_cholesky": 0, "batched_cho_solve": 0, "batched_thin_qr": 0, "narrow_qr_r": 0,
     "masked_aat_cholesky": 0, "project_tangent": 0, "blocked_qr_r": 0, "polyhedron_newton": 0,
-    "minor_direction_r": 0,
+    "minor_direction_r": 0, "minor_loop_r": 0,
 }
 CAPTURED = dict.fromkeys(LAUNCHES, 0)   # launches recorded into CUDA graphs
 # The same launches as LAUNCHES by (kernel, dtype name), e.g.
@@ -235,10 +242,17 @@ _SIGNATURES = {
     "benlsip_minor_direction_r": [_PTR, _PTR, ctypes.c_longlong] + [_PTR] * 6 + [ctypes.c_longlong, _PTR,
                                   ctypes.c_longlong] + [_PTR] * 2 + [ctypes.c_double] * 3 + [_PTR] * 3 + [_INT] * 4
     + [ctypes.c_longlong, _PTR],
+    # R, A, its batch stride, L, fixed, x, s, g, g_minor, xl, its batch stride, xu, its
+    # batch stride, delta, run, max_minor, kappa2, kappa3, atol, bound_atol, fix_atol,
+    # reg, s, g_minor, fixed, L (the outputs), trips, CG trips, status, B, k, M, n,
+    # shared-memory bytes, stream
+    "benlsip_minor_loop_r": [_PTR, _PTR, ctypes.c_longlong] + [_PTR] * 6 + [_PTR, ctypes.c_longlong, _PTR,
+                             ctypes.c_longlong] + [_PTR] * 3 + [ctypes.c_double] * 6 + [_PTR] * 7 + [_INT] * 4
+    + [ctypes.c_longlong, _PTR],
 }
 # The dtypes of each C entry point that has not all three.
 _ENTRY_SUFFIXES = {"benlsip_blocked_qr_r": ("f32", "f64"), "benlsip_polyhedron_newton": ("f32", "bf16"),
-                   "benlsip_minor_direction_r": ("f32",)}
+                   "benlsip_minor_direction_r": ("f32",), "benlsip_minor_loop_r": ("f32",)}
 
 
 def build() -> Path:
@@ -1034,36 +1048,40 @@ def set_minor_plain(fn) -> None:
     _MINOR_PLAIN = fn
 
 
-def _check_minor(R, A, L, fixed, x, s, g, xl, xu, delta, active) -> None:
-    """Refuse, on either device, an operand the minor-iteration kernel does
-    not take: wrong shapes, a dtype other than float32, mixed devices, a
-    layout it cannot read, or a shape outside `minor_direction_fits`."""
+def _check_minor(R, A, L, fixed, x, s, g, xl, xu, delta, active, name="minor_direction_r", g_minor=None,
+                 max_minor=None) -> None:
+    """Refuse, on either device, an operand a minor-iteration kernel (`name`)
+    does not take: wrong shapes, a dtype other than float32 (int32 for
+    `max_minor`), mixed devices, a layout it cannot read, or a shape outside
+    `minor_direction_fits`."""
     if R.ndim != 3 or A.ndim != 3:
-        raise ValueError(f"minor_direction_r: expected R (B, k, n) and A (B, m, n), got {tuple(R.shape)}, {tuple(A.shape)}")
+        raise ValueError(f"{name}: expected R (B, k, n) and A (B, m, n), got {tuple(R.shape)}, {tuple(A.shape)}")
     B, k, n = R.shape
     m = A.shape[1]
     want = {"A": (A, (B, m, n)), "L": (L, (B, m, m)), "fixed": (fixed, (B, n)), "x": (x, (B, n)), "s": (s, (B, n)),
-            "g": (g, (B, n)), "xl": (xl, (B, n)), "xu": (xu, (B, n)), "delta": (delta, (B,)),
-            "active": (active, (B,))}
-    for name, (t, shape) in want.items():
+            "g": (g, (B, n)), "g_minor": (g_minor, (B, n)), "xl": (xl, (B, n)), "xu": (xu, (B, n)),
+            "delta": (delta, (B,)), "active": (active, (B,)), "max_minor": (max_minor, (B,))}
+    for key, (t, shape) in want.items():
         if t is not None and tuple(t.shape) != shape:
-            raise ValueError(f"minor_direction_r: {name} has shape {tuple(t.shape)}, expected {shape}")
-    floats = (R, A, L, x, s, g, xl, xu, delta)
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {shape}")
+    floats = tuple(t for t in (R, A, L, x, s, g, g_minor, xl, xu, delta) if t is not None)
     if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError(f"minor_direction_r: dtypes {sorted({str(t.dtype) for t in floats})} (the kernel takes float32)")
+        raise TypeError(f"{name}: dtypes {sorted({str(t.dtype) for t in floats})} (the kernel takes float32)")
     if fixed.dtype != torch.bool or (active is not None and active.dtype != torch.bool):
-        raise TypeError("minor_direction_r: fixed and active must be bool")
-    ts = floats + (fixed,) + ((active,) if active is not None else ())
-    if any(t.device != R.device for t in ts):
-        raise ValueError("minor_direction_r: all tensors must share one device")
-    dense = (R, L, fixed, x, s, g, delta) + ((active,) if active is not None else ())
+        raise TypeError(f"{name}: fixed and active must be bool")
+    if max_minor is not None and max_minor.dtype != torch.int32:
+        raise TypeError(f"{name}: max_minor must be int32, got {max_minor.dtype}")
+    others = tuple(t for t in (fixed, active, max_minor) if t is not None)
+    if any(t.device != R.device for t in floats + others):
+        raise ValueError(f"{name}: all tensors must share one device")
+    dense = tuple(t for t in (R, L, x, s, g, g_minor, delta) if t is not None) + others
     if not all(t.is_contiguous() for t in dense):
-        raise ValueError("minor_direction_r: R, L, fixed, x, s, g, delta and active must be contiguous")
+        raise ValueError(f"{name}: R, L, fixed, x, s, g, g_minor, delta, active and max_minor must be contiguous")
     if not has_row_major_blocks(A) or any(unit_rows(t) is not t for t in (xl, xu)):
-        raise ValueError(f"minor_direction_r: A needs row-major (m, n) blocks and xl, xu rows of unit stride, got "
+        raise ValueError(f"{name}: A needs row-major (m, n) blocks and xl, xu rows of unit stride, got "
                          f"strides {A.stride()}, {xl.stride()}, {xu.stride()}")
     if not minor_direction_fits(k, m, n):
-        raise ValueError(f"minor_direction_r: R ({k}, {n}) with m = {m} is outside the kernel "
+        raise ValueError(f"{name}: R ({k}, {n}) with m = {m} is outside the kernel "
                          f"({minor_direction_smem(k, m, n)} B of shared memory, n ≤ {MINOR_THREADS}, 0 < m ≤ {MAX_DIM})")
 
 
@@ -1106,3 +1124,64 @@ def minor_direction_r(R: Tensor, A: Tensor, L: Tensor, fixed: Tensor, x: Tensor,
         minor_direction_smem(k, m, n),
     )
     return w, status, iters
+
+
+# The minor loop's plain version is `solver/inner`'s masked loop over
+# `minor_iterate`, registered here when that module is imported.
+_MINOR_LOOP_PLAIN = None
+
+
+def set_minor_loop_plain(fn) -> None:
+    """Register the minor-loop kernel's plain version, the function the
+    wrapper runs on CPU tensors (`solver/inner.minor_loop_r_plain`)."""
+    global _MINOR_LOOP_PLAIN
+    _MINOR_LOOP_PLAIN = fn
+
+
+def minor_loop_r(R: Tensor, A: Tensor, L: Tensor, fixed: Tensor, x: Tensor, s: Tensor, g: Tensor, g_minor: Tensor,
+                 xl: Tensor, xu: Tensor, delta: Tensor, run, max_minor: Tensor, kappa2: float, kappa3: float,
+                 atol: float, reg: float = 0.0):
+    """The minor loop of `solver/inner.inner_step` on the Gauss-Newton
+    operator H = RᵀR, each lane to its own exit (its trips reach
+    `max_minor`, its reduced gradient at s is small enough — kappa3 — or
+    its CG met negative curvature): each trip one minor iteration (as
+    `minor_direction_r`, kappa2 the CG's tolerance), s += w, g_minor =
+    H s + g, the bounds hit (within atol) added to the fixed set — or,
+    where the union leaves no room for the equalities, the bounds active at
+    x + s, and the lane stops — and the set's factor (reg its jitter).
+    R (B, k, n), A (B, m, n), the entry carry L (B, m, m), bool fixed (B, n),
+    s and g_minor (B, n), x, g, xl, xu (B, n), delta (B,), bool run (B,) the
+    lanes that run at entry (None: every lane), int32 max_minor (B,) ->
+    (s, g_minor, bool fixed, L, trips (B,) int32, CG trips (B,) int32, the
+    last trip's CG status (B,) int32, CG_RUNNING where no trip ran).  A lane
+    that does not run returns its entry carry and 0 trips.  A and the bounds
+    may be shared by the batch (stride 0)."""
+    _check_minor(R, A, L, fixed, x, s, g, xl, xu, delta, run, name="minor_loop_r", g_minor=g_minor,
+                 max_minor=max_minor)
+    B, k, n = R.shape
+    m = A.shape[1]
+    if B == 0:
+        empty = torch.zeros((0,), dtype=torch.int32, device=x.device)
+        return s.clone(), g_minor.clone(), fixed.clone(), L.clone(), empty, empty.clone(), empty.clone()
+    if _on_cpu(x):
+        if _MINOR_LOOP_PLAIN is None:
+            raise RuntimeError("minor_loop_r: no plain version registered (import benlsip_tpu_torch.solver.inner)")
+        return _MINOR_LOOP_PLAIN(R, A, L, fixed, x, s, g, g_minor, xl, xu, delta, run, max_minor, kappa2, kappa3,
+                                 atol, reg)
+    s_out, g_minor_out = torch.empty_like(x), torch.empty_like(x)
+    fixed_out, L_out = torch.empty_like(fixed), torch.empty_like(L)
+    iters, cg_iters, status = (torch.empty((B,), dtype=torch.int32, device=x.device) for _ in range(3))
+
+    def batch_stride(t: Tensor) -> int:
+        return t.stride(0) if B > 1 else 0
+
+    _launch(
+        "minor_loop_r", "benlsip_minor_loop_r", x,
+        R.data_ptr(), A.data_ptr(), batch_stride(A), L.data_ptr(), fixed.data_ptr(), x.data_ptr(), s.data_ptr(),
+        g.data_ptr(), g_minor.data_ptr(), xl.data_ptr(), batch_stride(xl), xu.data_ptr(), batch_stride(xu),
+        delta.data_ptr(), None if run is None else run.data_ptr(), max_minor.data_ptr(), float(kappa2),
+        float(kappa3), torch.finfo(torch.float32).eps ** 0.5, MINOR_BOUND_ATOL, float(atol), float(reg),
+        s_out.data_ptr(), g_minor_out.data_ptr(), fixed_out.data_ptr(), L_out.data_ptr(), iters.data_ptr(),
+        cg_iters.data_ptr(), status.data_ptr(), B, k, m, n, minor_direction_smem(k, m, n),
+    )
+    return s_out, g_minor_out, fixed_out, L_out, iters, cg_iters, status

@@ -36,7 +36,11 @@
 //    from that column on, in its own instance only (the library is built
 //    without --use_fast_math);
 //  * the M*M entries of L are written round-robin by the lanes.
-// Blocks hold four warps so that B = 64 still spreads over 16 SMs.
+// Blocks hold four warps so that B = 64 still spreads over 16 SMs.  The
+// warp's work is aat::warp_triangle and aat::factor_and_store of
+// masked_aat.cuh, which the minor-loop kernel (minor_loop_r.cu) calls on its
+// operands in shared memory: one copy of the arithmetic, the same bits in
+// both kernels.
 //
 // The split form (plan S >= 2; one instance of large n, config 4's
 // (1, 8, 10240)).  There one warp on one SM strides 320 times over the
@@ -61,7 +65,7 @@
 //
 // In bf16 the sums, the jitter and the factorisation run in float (reg is
 // rounded to float, as the float kernel rounds it) and L is rounded once.
-#include "common.cuh"
+#include "masked_aat.cuh"
 
 namespace {
 
@@ -70,9 +74,7 @@ using benlsip::kSplitThreads;
 using benlsip::kSplitWarps;
 using benlsip::kWarpsPerBlock;
 using benlsip::load;
-using benlsip::store;
 using benlsip::tri;
-using benlsip::warp_sum;
 
 // Add the masked products of column j of a (row stride n) to the packed
 // lower triangle c.  The loads are unconditional; only the sums are skipped
@@ -94,23 +96,6 @@ __device__ __forceinline__ void add_column(benlsip::compute_t<T> (&c)[M * (M + 1
   }
 }
 
-// reg on the diagonal, then Cholesky-Banachiewicz in place (common.cuh),
-// the order of cholesky.cu; then entry e of L is written by lane e % 32 of
-// the warp.
-template <typename T, int M>
-__device__ __forceinline__ void factor_and_store(benlsip::compute_t<T> (&c)[M * (M + 1) / 2],
-                                                 benlsip::compute_t<T> reg, T* l, int lane) {
-  using C = benlsip::compute_t<T>;
-  benlsip::cholesky_in_place<C, M>(c, reg);
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      if (lane == ((i * M + j) & 31)) store(l + i * M + j, j <= i ? c[tri(i, j)] : C(0));
-    }
-  }
-}
-
 template <typename T, int M>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 masked_aat_cholesky_kernel(const T* __restrict__ A, long long strideA,
@@ -125,23 +110,9 @@ masked_aat_cholesky_kernel(const T* __restrict__ A, long long strideA,
 
   // Lower triangle of A Z A^T, packed: c[tri(i, k)] = sum_j free_j a_ij a_kj.
   C c[M * (M + 1) / 2];
-#pragma unroll
-  for (int e = 0; e < M * (M + 1) / 2; ++e) c[e] = C(0);
-  for (int j = lane; j < n; j += 32) {
-    if (fx[j]) continue;
-    C col[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) col[i] = load(a + static_cast<size_t>(i) * n + j);
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-#pragma unroll
-      for (int k = 0; k <= i; ++k) c[tri(i, k)] += col[i] * col[k];
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < M * (M + 1) / 2; ++e) c[e] = warp_sum(c[e]);
+  benlsip::aat::warp_triangle<T, M>(c, a, fx, n, lane);
   // Every lane holds the same triangle, and so the same factor.
-  factor_and_store<T, M>(c, reg, L + static_cast<size_t>(b) * M * M, lane);
+  benlsip::aat::factor_and_store<T, M>(c, reg, L + static_cast<size_t>(b) * M * M, lane);
 }
 
 template <typename T, int M>
@@ -175,7 +146,7 @@ masked_aat_cholesky_split_kernel(const T* __restrict__ A, long long strideA,
   if (rank != 0 || threadIdx.x >= 32) return;
 #pragma unroll
   for (int e = 0; e < K; ++e) c[e] = scratch[e];
-  factor_and_store<T, M>(c, reg, L + static_cast<size_t>(b) * M * M, static_cast<int>(threadIdx.x));
+  benlsip::aat::factor_and_store<T, M>(c, reg, L + static_cast<size_t>(b) * M * M, static_cast<int>(threadIdx.x));
 }
 
 template <typename T>

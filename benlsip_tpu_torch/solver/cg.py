@@ -8,10 +8,11 @@ carries its own CG state and int32 status; a lane stops updating when its
 status leaves CG_RUNNING.
 
 `projected_cg` and `linesearch` run as written here for every operator
-form but one: inside a minor iteration on the materialized R operator in
-float32 on a CUDA card (`solver/inner.minor_on_kernel`), both are part of
-the one launch of `kernels.batched_linalg.minor_direction_r`, whose plain
-version is `solver/inner`'s composition of these two functions.
+form but one: on the materialized R operator in float32 on a CUDA card
+(`solver/inner.minor_on_kernel`), both are part of one kernel launch — of
+`kernels.batched_linalg.minor_loop_r` for `inner_step`'s whole minor loop,
+of `minor_direction_r` for one `minor_iterate` — whose plain versions are
+`solver/inner`'s masked loop and its composition of these two functions.
 `solver/qp.solve_qp` calls `projected_cg` directly, on every device.
 """
 from __future__ import annotations

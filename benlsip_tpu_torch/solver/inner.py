@@ -8,13 +8,17 @@ the lanes the enclosing trust-region loop still runs.  Other lanes return
 unspecified values, which the caller selects away.
 
 On the materialized operator R (RᵀR = H, the dense families' CholeskyQR2
-route) in float32 on a CUDA card, whole and without a mesh axis, a minor
-iteration — its box, the projected CG to each lane's own exit and the line
-search — is one launch of `kernels.batched_linalg.minor_direction_r`
-(`minor_on_kernel` decides from the inputs alone).  Every other operator
-form (J, G, row-sharded R or G), dtype, device or size runs the
-composition of `solver/cg` below, which is also the kernel's plain version
-(`minor_direction_r_plain`).
+route) in float32 on a CUDA card, whole and without a mesh axis, the whole
+minor loop of an inner step — each trip's box, projected CG and line search,
+the step's gradient, the bound masks, the re-factor and the reduced-gradient
+test, each lane to its own exit — is one launch of
+`kernels.batched_linalg.minor_loop_r` (`minor_on_kernel` decides from the
+inputs alone); a minor iteration alone (`minor_iterate`) is one launch of
+`kernels.batched_linalg.minor_direction_r` there.  Every other operator
+form (J, G, row-sharded R or G), dtype, device or size runs the masked loop
+below over the composition of `solver/cg`; the loop is the loop kernel's
+plain version (`minor_loop_r_plain`), the composition the iteration
+kernel's (`minor_direction_r_plain`).
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ from ..ops.constraints import (
 )
 from ..ops.project import norm_reduced_gradient, project_tangent
 from .cg import linesearch, projected_cg
-from .status import CG_NEGATIVE_CURVATURE
+from .status import CG_NEGATIVE_CURVATURE, CG_RUNNING
 
 Tensor = torch.Tensor
 
@@ -260,7 +264,7 @@ class _MinorCarry(NamedTuple):
     j: Tensor
     cg_total: Tensor
     approx_solved: Tensor
-    cg_stop: Tensor
+    cg_status: Tensor
 
 
 class InnerStats(NamedTuple):
@@ -268,6 +272,68 @@ class InnerStats(NamedTuple):
 
     minor_iters: Tensor
     cg_iters: Tensor
+
+
+def _minor_cond(c: _MinorCarry, max_minor: Tensor) -> Tensor:
+    return (c.j <= max_minor) & (~c.approx_solved) & (c.cg_status != CG_NEGATIVE_CURVATURE)
+
+
+def _minor_loop(
+    x: Tensor, g: Tensor, H: AlHessian, poly: Polyhedron, delta: Tensor, c: _MinorCarry, max_minor: Tensor,
+    run: Tensor, trip_cap: int, kappa2: float, kappa3: float, atol: float, chol_reg: float, axis: Optional[str],
+) -> _MinorCarry:
+    """The active-set refinement loop from carry c, the lanes in `run` at
+    entry, each to its own exit (`_minor_cond`): a minor iteration, the
+    step's model gradient, the bounds it hit added to the fixed set (or,
+    where the union leaves no room for the equalities, the bounds active at
+    x + s, and the lane stops), the set's factor and the reduced-gradient
+    test."""
+    B, n = x.shape
+    m = poly.A.shape[-2]
+
+    def body(c: _MinorCarry, act: Tensor) -> _MinorCarry:
+        aset = ActiveSet(fixed=c.fixed, chol=c.chol)
+        w, cg_status, cg_iters = minor_iterate(
+            x, c.s, c.g_minor, H, poly, aset, delta, kappa2, active=act, axis=axis
+        )
+        s = c.s + w
+        g_minor = hv(H, s, axis) + g
+
+        at_bound = step_active_bounds(poly, x, s, delta, atol)
+        union_fixed = c.fixed | at_bound
+        fits = m + union_fixed.sum(-1) <= n
+        fixed = sel(fits, union_fixed, active_bounds_at(poly, x + s, atol))
+        aset_next = make_active_set(poly, fixed, reg=chol_reg)
+
+        nrg = norm_reduced_gradient(poly, aset_next, g)
+        nrgm = norm_reduced_gradient(poly, aset_next, g_minor)
+        approx_solved = torch.where(fits, nrgm <= kappa3 * nrg, True)
+        return _MinorCarry(
+            s, g_minor, fixed, aset_next.chol, c.j + 1, c.cg_total + cg_iters,
+            approx_solved, cg_status,
+        )
+
+    return masked_while(lambda c: _minor_cond(c, max_minor), body, c, run, trip_cap)
+
+
+def minor_loop_r_plain(R: Tensor, A: Tensor, L: Tensor, fixed: Tensor, x: Tensor, s: Tensor, g: Tensor,
+                       g_minor: Tensor, xl: Tensor, xu: Tensor, delta: Tensor, run: Optional[Tensor],
+                       max_minor: Tensor, kappa2: float, kappa3: float, atol: float, reg: float = 0.0):
+    """The minor-loop kernel's plain version (`kern.minor_loop_r` on CPU
+    tensors): `inner_step`'s masked loop on H = RᵀR, the polyhedron's A and
+    bounds, from the carry (s, g_minor, fixed, L) with the lanes in `run`
+    at entry.  Returns (s, g_minor, fixed, L, trips, CG trips, the last
+    trip's CG status)."""
+    B, n = x.shape
+    H = AlHessian(None, None, None, R=R)
+    poly = Polyhedron(A, None, xl, xu)
+    one = full(B, 1, delta, torch.int32)
+    c = _MinorCarry(s, g_minor, fixed, L, one, one - 1, full(B, False, delta, torch.bool),
+                    full(B, CG_RUNNING, delta, torch.int32))
+    if run is None:
+        run = _all(B, x)
+    c = _minor_loop(x, g, H, poly, delta, c, max_minor, run, n - A.shape[-2], kappa2, kappa3, atol, reg, None)
+    return c.s, c.g_minor, c.fixed, c.chol, c.j - 1, c.cg_total, c.cg_status
 
 
 def inner_step(
@@ -278,7 +344,9 @@ def inner_step(
 
     Returns (s, model_reduction, final_active_set, stats); the model
     reduction pred = gᵀs + 1/2 sᵀHs is negative for improvement.  Every
-    product with H is summed over `opts.spmd_axis`.
+    product with H is summed over `opts.spmd_axis`.  The minor loop is one
+    launch of the minor-loop kernel where `minor_on_kernel` says so, else
+    the masked loop of `_minor_loop`.
     """
     B, n = x.shape
     m = poly.A.shape[-2]
@@ -310,41 +378,26 @@ def inner_step(
         j=full(B, 1, nrg0, torch.int32),
         cg_total=full(B, 0, nrg0, torch.int32),
         approx_solved=nrgm0 <= opts.kappa3 * nrg0,
-        cg_stop=full(B, False, nrg0, torch.bool),
+        cg_status=full(B, CG_RUNNING, nrg0, torch.int32),
     )
-
-    def cond(c: _MinorCarry):
-        return (c.j <= max_minor) & (~c.approx_solved) & (~c.cg_stop)
-
-    def body(c: _MinorCarry, act: Tensor) -> _MinorCarry:
-        aset = ActiveSet(fixed=c.fixed, chol=c.chol)
-        w, cg_status, cg_iters = minor_iterate(
-            x, c.s, c.g_minor, H, poly, aset, delta, opts.kappa2, active=act, axis=ax
-        )
-        cg_stop = cg_status == CG_NEGATIVE_CURVATURE
-        s = c.s + w
-        g_minor = hv(H, s, ax) + g
-
-        at_bound = step_active_bounds(poly, x, s, delta, atol)
-        union_fixed = c.fixed | at_bound
-        fits = m + union_fixed.sum(-1) <= n
-        fixed = sel(fits, union_fixed, active_bounds_at(poly, x + s, atol))
-        aset_next = make_active_set(poly, fixed, reg=chol_reg)
-
-        nrg = norm_reduced_gradient(poly, aset_next, g)
-        nrgm = norm_reduced_gradient(poly, aset_next, g_minor)
-        approx_solved = torch.where(fits, nrgm <= opts.kappa3 * nrg, True)
-        return _MinorCarry(
-            s, g_minor, fixed, aset_next.chol, c.j + 1, c.cg_total + cg_iters,
-            approx_solved, cg_stop,
-        )
-
     # j caps the trips at max_minor ≤ min(max_minor_iter, n - m).
-    if min(opts.max_minor_iter, n - m) > 0:
-        c = masked_while(cond, body, c, active & cond(c), min(opts.max_minor_iter, n - m))
-    pred = vdot(g, c.s) + 0.5 * vhv(H, c.s, ax)
-    stats = InnerStats(minor_iters=c.j - 1, cg_iters=c.cg_total)
-    return c.s, pred, ActiveSet(fixed=c.fixed, chol=c.chol), stats
+    trip_cap = min(opts.max_minor_iter, n - m)
+    if trip_cap > 0 and minor_on_kernel(x.device.type, H, x.dtype, m, ax):
+        s, _, fixed, chol, minor_iters, cg_iters, _ = kern.minor_loop_r(
+            H.R.contiguous(), _row_major_blocks(poly.A), c.chol.contiguous(), c.fixed.contiguous(), x.contiguous(),
+            c.s.contiguous(), g.contiguous(), c.g_minor.contiguous(), kern.unit_rows(poly.xl), kern.unit_rows(poly.xu),
+            delta.contiguous(), active & _minor_cond(c, max_minor), max_minor.contiguous(), opts.kappa2, opts.kappa3,
+            atol, chol_reg,
+        )
+    else:
+        if trip_cap > 0:
+            c = _minor_loop(x, g, H, poly, delta, c, max_minor, active & _minor_cond(c, max_minor), trip_cap,
+                            opts.kappa2, opts.kappa3, atol, chol_reg, ax)
+        s, fixed, chol, minor_iters, cg_iters = c.s, c.fixed, c.chol, c.j - 1, c.cg_total
+    pred = vdot(g, s) + 0.5 * vhv(H, s, ax)
+    stats = InnerStats(minor_iters=minor_iters, cg_iters=cg_iters)
+    return s, pred, ActiveSet(fixed=fixed, chol=chol), stats
 
 
 kern.set_minor_plain(minor_direction_r_plain)
+kern.set_minor_loop_plain(minor_loop_r_plain)

@@ -79,13 +79,27 @@ Phases (any failure raises and the script exits non-zero):
    version), a lane alone bitwise its lane in the batch, two calls bitwise
    equal; directions of ~1e-5 (below the curvature test's sqrt(eps))
    against a box of 1e-6, where the box still binds; then on config 3's
-   real inputs, the calls of `solve_mixed_precision`'s float32 bulk and the
-   last 30 of a float32 solve run on towards its criticality tolerance; refused
-   operands; then by device µs a call
-   beside its bound, in turns with the same call in a graph, the old site
-   (the plain version captured as the fused bulk captures it: its CG loop a
-   WHILE node) in a graph, with the device operations each replay runs, and
-   the plain version eagerly;
+   real inputs, the minor iterations of `solve_mixed_precision`'s float32
+   bulk and the last 30 of a float32 solve run on towards its criticality
+   tolerance (the solves' minor loops run again through the loop's plain
+   version, whose trips launch this kernel); refused operands; then by
+   device µs a call beside its bound, in turns with the same call in a
+   graph, the old site (the plain version captured as the fused bulk
+   captures it: its CG loop a WHILE node) in a graph, with the device
+   operations each replay runs, and the plain version eagerly; then the
+   minor-loop kernel `minor_loop_r` (the whole minor loop of an inner step,
+   one launch) against its plain version (the masked loop, each trip one
+   `minor_direction_r` launch) on both benchmark cells' recorded inputs
+   (`densequad-b64-fused`, `densesphere-b64-fused`: each cell's eager
+   pipeline on its pool's first batch), as recorded and with every other
+   lane held back: the lanes on the plain version's path (trips, CG status,
+   fixed set) with s within MINOR_LOOP_S_RTOL, at most a tenth of them off
+   it and held to the model reduction; L bitwise the masked_aat_cholesky
+   kernel's factor of the returned set, lanes not run bitwise their entry
+   carry, two calls and a lane alone bitwise equal; refused operands; and by
+   device µs a launch at each cell's call with the most trips, beside its
+   bound, in turns with the old site (the plain version in a graph: the
+   minor WHILE node) with the device operations each replay runs;
 4. the config-2 path: `solve_mixed_precision` on
    `exp_fit_family(1024, d=32, seed=42)` (float64 master data) on cuda:0,
    with every kernel's launch count read around that run (the dual Newton
@@ -132,11 +146,13 @@ Phases (any failure raises and the script exits non-zero):
    IF branches taken and the operator builds the replays ran beside the
    eager stages' builds, 5 warm walls of each route in turns, and with
    `--profile` one traced warm unfused call's busy share; then the
-   benchmark cell `densequad-b64-fused`'s `device_ops_per_call` split part
-   by part of the graphs (`phase_bulk_split`: each WHILE and IF body's
-   nodes a trip times its trips a call, by launch name, over the cell's
-   pool), with the minor-iteration kernel's launches a call equal to the
-   trips of its loop; the kernel launches 0 times on configs 2 and 4;
+   benchmark cells' `device_ops_per_call` (`densequad-b64-fused`, then
+   `densesphere-b64-fused`) split part by part of the graphs
+   (`phase_bulk_split(cell)`: each WHILE and IF body's nodes a trip times
+   its trips a call, by launch name, over the cell's pool), with each minor
+   kernel's launches a call equal to the runs of the parts that launch it
+   (`minor_loop_r` once an inner step, `minor_direction_r` 0); neither
+   minor kernel launches on configs 2 and 4;
 6. the config-1 path, through the public entry points: `solve` and
    `tralcnllss` on the sphere-regression fixture in float64 on the card
    (analytic and autodiff Jacobians, a warm start from y) against the
@@ -304,9 +320,11 @@ DEVICE_NAMES = {"masked_aat_cholesky": "masked_aat_cholesky_kernel", "project_ta
                 "narrow_qr_r": NARROW_QR_DEVICE}
 CONFIG3_KERNELS = PATH_KERNELS + ("blocked_qr_r",)
 # Config 3's float32 bulk (the materialized R operator) also runs every minor
-# iteration as one launch of the minor-iteration kernel; configs 2 and 4
-# (n = 3; the Gram operator at n = 10,240) never do.
-DENSE_BULK_KERNELS = CONFIG3_KERNELS + ("minor_direction_r",)
+# loop as one launch of the minor-loop kernel, and so launches the
+# minor-iteration kernel (its first step's device code) 0 times; configs 2
+# and 4 (n = 3; the Gram operator at n = 10,240) launch neither.
+DENSE_BULK_KERNELS = CONFIG3_KERNELS + ("minor_loop_r",)
+MINOR_KERNELS = ("minor_direction_r", "minor_loop_r")
 # Device kernels of one warm run before the panel QR kernel (H100 80GB HBM3, 700 W).
 DEVICE_KERNELS_BEFORE = {"config 2": "68,888-68,892", "config 3": "17,405-17,413"}
 # Device kernels of a traced warm run of config 3 before the dual-Newton kernel
@@ -550,7 +568,7 @@ def phase_build(kern) -> float:
             elif "Compiling entry function" in line:
                 entry = line.split("'")[1]
             elif "Used" in line and "registers" in line:
-                family = next((k for k in ("minor_direction_r", "polyhedron_newton_split", "polyhedron_newton",
+                family = next((k for k in ("minor_direction_r", "minor_loop_r", "polyhedron_newton_split", "polyhedron_newton",
                                            "masked_aat_cholesky_split", "project_tangent_split", "masked_aat_cholesky",
                                            "project_tangent", "cholesky", "cho_solve", "narrow_qr_group", "narrow_qr_wide",
                                            "blocked_qr_r")
@@ -639,6 +657,8 @@ def phase_kernels(kern) -> dict:
     _sync()
     minor_calls = _check_minor(kern, rng, worst)
     _sync()
+    loop_calls = _check_minor_loop(kern, worst)
+    _sync()
     print(f"fused kernels by plan (kernel, blocks per instance) over phase 3's checks: {dict(kern.LAUNCHES_BY_PLAN)}")
     _check_blocked_qr(kern, rng, worst)
     _sync()
@@ -646,6 +666,7 @@ def phase_kernels(kern) -> dict:
         print(f"{name}: max abs err {rec[name]['max_abs_err']:.3e} over every checked shape")
     _time_kernels(kern, rng, rec)
     _time_minor(kern, rng, rec, minor_calls)
+    _time_minor_loop(kern, rec, loop_calls)
     print(f"phase 3 (kernels): {time.perf_counter() - t_phase:.1f} s")
     return rec
 
@@ -1231,7 +1252,8 @@ def _record_newton_shapes(kern) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 3c: the minor-iteration kernel (`minor_direction_r`)
+# Phase 3c: the minor-iteration kernel (`minor_direction_r`), then the
+# minor-loop kernel (`minor_loop_r`)
 # ---------------------------------------------------------------------------
 
 # Kernel against its plain version (the composition of solver/cg on the
@@ -1367,15 +1389,44 @@ def _plain64(plain, args, kappa2, active):
     return plain(*args64, kappa2, active)[0]
 
 
+def _clone_call(args, kw):
+    return ([a.clone() if isinstance(a, torch.Tensor) else a for a in args],
+            {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in kw.items()})
+
+
+def _spied_calls(kern, name: str, run, head: int, tail: int):
+    """Run `run()` with the kernel wrapper `kern.<name>` spied on: the
+    clones of its first `head` and last `tail` calls' arguments, the number
+    of calls, and run's result."""
+    launch, first, last, count = getattr(kern, name), [], collections.deque(maxlen=tail), 0
+
+    def record(*args, **kw):
+        nonlocal count
+        count += 1
+        (first if len(first) < head else last).append(_clone_call(args, kw))
+        return launch(*args, **kw)
+
+    setattr(kern, name, record)
+    try:
+        out = run()
+    finally:
+        setattr(kern, name, launch)
+    return first, list(last), count, out
+
+
 def _record_minor_calls(kern, calls: int) -> list:
     """Config 3's real inputs to the minor-iteration kernel, cloned, from
     `dense_quadratic_family(64, n=192, d=1024, m=6, seed=3)`: the first and
-    the last `calls` // 2 launches of `solve_mixed_precision`'s float32 bulk
-    (float64 master data, the eager route: the calls the benchmark's cell
-    makes, ~37 in all), then the last `calls` // 2 of a float32
+    the last `calls` // 2 minor iterations of `solve_mixed_precision`'s
+    float32 bulk (float64 master data, the eager route: the calls the
+    benchmark's cell makes), then the last `calls` // 2 of a float32
     `solve_batched` run on towards its own criticality tolerance (sqrt(eps)
     of float32, 3.45e-4; 10 outer iterations at most), whose late minor
-    iterations see g large and w small."""
+    iterations see g large and w small.  The solves run each minor loop as
+    one `minor_loop_r` launch; the loops kept (as many as the minor
+    iterations wanted, from each end) are run again through the loop's plain
+    version, whose trips launch `minor_direction_r`, and those launches'
+    inputs are what is kept."""
     from benlsip_tpu_torch.batch.refine import solve_mixed_precision
     from benlsip_tpu_torch.batch.vmap_solve import solve_batched
     from benlsip_tpu_torch.problems.generators import dense_quadratic_family
@@ -1384,30 +1435,22 @@ def _record_minor_calls(kern, calls: int) -> list:
     dev, opts = torch.device("cuda:0"), SolverOptions(max_outer_iter=30, max_inner_iter=100)
     bp, theta, X0 = dense_quadratic_family(64, n=192, d=1024, m=6, seed=3, dtype=torch.float64, device=dev)
     bp32, th32, X32 = dense_quadratic_family(64, n=192, d=1024, m=6, seed=3, dtype=torch.float32, device=dev)
-    launch, kept = kern.minor_direction_r, []
+    kept = []
     for tag, solve, head in (("solve_mixed_precision", lambda: solve_mixed_precision(bp, theta, X0, opts, chunk=64),
                               calls // 2),
                              ("solve_batched", lambda: solve_batched(bp32, th32, X32, dataclasses.replace(opts, max_outer_iter=10)),
                               0)):
-        first, last, count = [], collections.deque(maxlen=calls - calls // 2), 0
-
-        def record(*args, **kw):
-            nonlocal count
-            count += 1
-            seen = ([a.clone() if isinstance(a, torch.Tensor) else a for a in args],
-                    {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in kw.items()})
-            (first if len(first) < head else last).append(seen)
-            return launch(*args, **kw)
-
-        kern.minor_direction_r = record
-        try:
-            info = solve()[2]
-        finally:
-            kern.minor_direction_r = launch
-        _require(count > 0, f"config 3's {tag} made no call of the minor-iteration kernel")
-        print(f"minor_direction_r: config 3's {tag} ({int(info.converged.sum())}/64 converged) made {count} calls; "
-              f"kept the first {len(first)} and the last {len(last)}")
-        kept += first + list(last)
+        tail = calls - calls // 2
+        first_loops, last_loops, loops, out = _spied_calls(kern, "minor_loop_r", solve, head, tail)
+        _require(loops > 0, f"config 3's {tag} made no call of the minor-loop kernel")
+        replay = lambda group: _spied_calls(kern, "minor_direction_r",
+                                            lambda: [kern._MINOR_LOOP_PLAIN(*a, **kw) for a, kw in group], 10 ** 6, 0)[0]
+        first = replay(first_loops)[:head]
+        last = replay(last_loops)[-tail:]
+        _require(len(first) + len(last) > 0, f"config 3's {tag}: the plain loop made no minor iteration")
+        print(f"minor_direction_r: config 3's {tag} ({int(out[2].converged.sum())}/64 converged) made {loops} minor-loop "
+              f"calls; kept the first {len(first)} and the last {len(last)} minor iterations of their plain loops")
+        kept += first + last
     return kept
 
 
@@ -1550,6 +1593,234 @@ def _time_minor(kern, rng, rec, calls) -> None:
               f"{bound['bound_by']}, {100 * bound['bound_us'] / us:.1f}%); in turns: kernel {t['kernel']:.4f} ms, in a graph "
               f"{t['kernel graph']:.4f} ms ({new_ops}), old site in a graph {t['old site graph']:.4f} ms ({old_ops}), "
               f"plain eagerly {t['plain']:.4f} ms")
+
+
+# Phase 3c, continued: the minor-loop kernel (`minor_loop_r`)
+# ---------------------------------------------------------------------------
+
+# The loop kernel against its plain version on the card, the masked loop of
+# solver/inner (today's loop there: each trip one minor_direction_r launch,
+# the product with H by torch's bmm, the norms by torch's reductions), lane by
+# lane on each cell's recorded inputs.  The two sum R s and the norms in
+# another order, so a lane whose approx_solved test, bound mask or CG exit
+# lands on the other side of its threshold takes another path, and from there
+# the two runs part (on densesphere's inputs near criticality, on an H100,
+# one lane of 64 ended after 3 trips where the plain version took 7, with 13
+# other bounds fixed and 20% less model reduction; neither float32 path is
+# the float64 one there).  So at most MINOR_LOOP_FLIP_SHARE
+# of a call's lanes may end with other trips, another CG status or another
+# fixed set (or s off by more than MINOR_LOOP_S_RTOL), each printed with both
+# model reductions, and each held to what the loop guarantees whatever its
+# path: s inside the box and the trust region, A s where it was at entry
+# (every direction lies in A's null space; within MINOR_LOOP_AS_RTOL of
+# ‖A‖·‖s − s0‖), and the model gᵀs + ½‖R s‖² (in float64) no higher than at
+# the entry s0.  Every other lane: equal trips, CG trips within one a trip
+# of the plain version's (a CG's own exit flips as in MINOR_W_RTOL's note),
+# equal status and fixed set, and s within MINOR_LOOP_S_RTOL of its ‖s‖∞.
+# On every lane, bitwise: L is the masked_aat_cholesky kernel's factor of the
+# returned fixed set (the same device code), and a lane not run returns its
+# entry carry; g_minor is Rᵀ(R s) + g within MINOR_LOOP_S_RTOL of ‖g_minor‖∞.
+MINOR_LOOP_S_RTOL = 2e-3
+MINOR_LOOP_AS_RTOL = 1e-4
+MINOR_LOOP_FLIP_SHARE = 0.1
+MINOR_LOOP_BOX_ATOL = 1e-6
+# Calls of the loop kernel recorded from each cell's eager pipeline: the
+# first and the last MINOR_LOOP_RECORDED // 2.
+MINOR_LOOP_RECORDED = 24
+MINOR_LOOP_CELLS = ("densequad-b64-fused", "densesphere-b64-fused")
+
+
+def _cell_pool(cell: str, seed: int, dev):
+    """The benchmark cell's configuration, traffic, pool (portbench's
+    family, `seed`) and solver options."""
+    from benlsip_tpu_torch.solver.options import SolverOptions
+    from portbench.families import densequad, densesphere
+
+    bench = json.loads(open("BENCHMARK.json").read())
+    work = next(w for w in bench["workloads"] if w["name"] == cell)
+    conf = next(c for c in bench["configs"] if c["name"] == work["config"])
+    cfg = json.loads(open(conf["file"]).read())
+    mix = json.loads(open(f"portbench/traffic/{work['traffic']}.json").read())
+    family = {"densequad": densequad, "densesphere": densesphere}[cfg["family"]]
+    return cfg, mix, family.Pool(cfg, mix, seed, dev), SolverOptions(**cfg["options"])
+
+
+def _record_loop_calls(kern, cell: str, calls: int) -> list:
+    """The cell's real inputs to the minor-loop kernel, cloned: the first
+    and the last `calls` // 2 launches of one eager `solve_mixed_precision`
+    (the cell's chunk, unfused) of its pool's first batch (seed 1)."""
+    from benlsip_tpu_torch.batch.refine import solve_mixed_precision
+
+    _, mix, pool, opts = _cell_pool(cell, 1, torch.device("cuda:0"))
+    bp, theta, X0 = pool.batch(0)
+    first, last, count, out = _spied_calls(
+        kern, "minor_loop_r", lambda: solve_mixed_precision(bp, theta, X0, opts, chunk=mix["route"]["chunk"]),
+        calls // 2, calls - calls // 2)
+    _require(count > 0, f"{cell}: the eager pipeline made no call of the minor-loop kernel")
+    print(f"minor_loop_r: {cell}'s eager pipeline ({int(out[2].converged.sum())}/{X0.shape[0]} certified) made "
+          f"{count} calls; kept the first {len(first)} and the last {len(last)}")
+    return first + last
+
+
+def _bits_equal(u: torch.Tensor, v: torch.Tensor) -> bool:
+    """Bitwise equal, NaNs in the same places counting as equal (a lane
+    whose every column is fixed has a NaN factor)."""
+    if u.shape != v.shape or u.dtype != v.dtype:
+        return False
+    if u.is_floating_point():
+        return bool(((u == v) | (torch.isnan(u) & torch.isnan(v))).all())
+    return torch.equal(u, v)
+
+
+def _loop_pred(args, s):
+    """The model reduction gᵀs + ½‖R s‖² of each lane, in float64."""
+    R, g = args[0].double(), args[6].double()
+    Rs = (R @ s.double().unsqueeze(-1)).squeeze(-1)
+    return (g * s.double()).sum(-1) + 0.5 * (Rs * Rs).sum(-1)
+
+
+def _loop_compare(kern, tag: str, args, got, want) -> dict:
+    """The loop kernel's outputs against the plain version's, lane by lane,
+    as MINOR_LOOP_S_RTOL's note says."""
+    R, A, L0, fixed0, x, s0, g, gm0, xl, xu, delta, run, max_minor = args[:13]
+    reg = args[16]
+    s, gm, fixed, L, it, cg, st = got
+    sp, gmp, fixedp, Lp, itp, cgp, stp = want
+    B = s.shape[0]
+    same_path = (it == itp) & (st == stp) & (fixed == fixedp).all(-1)
+    scale = sp.abs().amax(-1)
+    err = (s - sp).abs().amax(-1) / (scale + MINOR_W_ATOL / MINOR_LOOP_S_RTOL)
+    cg_ok = (cg - cgp).abs() <= it
+    direct = same_path & cg_ok & (err <= MINOR_LOOP_S_RTOL)
+    pred, predp, pred0 = _loop_pred(args, s), _loop_pred(args, sp), _loop_pred(args, s0)
+    lo = torch.maximum(xl - x, -delta.unsqueeze(-1))
+    hi = torch.minimum(xu - x, delta.unsqueeze(-1))
+    inside = ((s >= lo - MINOR_LOOP_BOX_ATOL) & (s <= hi + MINOR_LOOP_BOX_ATOL)).all(-1)
+    ds = (s - s0).double()
+    a_move = (A.double() @ ds.unsqueeze(-1)).squeeze(-1).abs().amax(-1)
+    a_tol = MINOR_LOOP_AS_RTOL * A.double().abs().sum(-1).amax(-1) * ds.abs().amax(-1) + 1e-12
+    by_model = ~direct & inside & (a_move <= a_tol) & (pred <= pred0 + 1e-9 * pred0.abs())
+    for i in torch.nonzero(~direct).flatten().tolist():
+        print(f"{tag}: lane {i}: trips {int(it[i])} (plain {int(itp[i])}), CG trips {int(cg[i])} ({int(cgp[i])}), "
+              f"status {int(st[i])} ({int(stp[i])}), fixed sets differ in {int((fixed[i] != fixedp[i]).sum())}, "
+              f"|ds|/|s|_inf {float(err[i]):.3e}; model reduction {float(pred[i]):.6e} (plain {float(predp[i]):.6e}, "
+              f"entry {float(pred0[i]):.6e}), |A (s - s0)|_inf {float(a_move[i]):.3e} (limit {float(a_tol[i]):.3e})")
+    others = int((~direct).sum())
+    _require(others <= max(2, int(MINOR_LOOP_FLIP_SHARE * B)),
+             f"{tag}: {others} of {B} lanes off the plain version's path (at most {MINOR_LOOP_FLIP_SHARE:g} of them)")
+    failed = torch.nonzero(~direct & ~by_model).flatten().tolist()
+    _require(not failed, f"{tag}: lanes {failed} neither follow the plain version nor keep the loop's guarantees "
+             f"(|ds|/|s|_inf {err[failed].tolist()}, reductions {pred[failed].tolist()} vs entry {pred0[failed].tolist()})")
+    # Bitwise: the factor of the returned set, and the carry of a lane not run.
+    _require(_bits_equal(L, kern.masked_aat_cholesky(A, fixed, reg)),
+             f"{tag}: L is not the masked_aat_cholesky kernel's factor of the returned fixed set")
+    idle = ~run
+    for name, out, entry in (("s", s, s0), ("g_minor", gm, gm0), ("fixed", fixed, fixed0), ("L", L, L0)):
+        same = out[idle] == entry[idle]
+        if out.is_floating_point():
+            same |= torch.isnan(out[idle]) & torch.isnan(entry[idle])
+        _require(bool(same.all()), f"{tag}: a lane not run changed its {name}")
+    _require(not bool(it[idle].any()) and not bool(cg[idle].any()), f"{tag}: a lane not run counted trips")
+    gm_ref = (R.mT @ (R @ s.unsqueeze(-1))).squeeze(-1) + g
+    gm_err = float(((gm - gm_ref).abs().amax(-1) / (gm_ref.abs().amax(-1) + 1e-30)).max())
+    _require(gm_err <= MINOR_LOOP_S_RTOL, f"{tag}: g_minor off Rᵀ(R s) + g by {gm_err:.3e} of |g_minor|_inf")
+    worst = float(err[direct].max()) if bool(direct.any()) else 0.0
+    return {"rel_err": worst, "off_path": others, "by_model": int(by_model.sum()), "trips": int(it.sum()),
+            "plain_trips": int(itp.sum()), "cg_trips": int(cg.sum()), "plain_cg_trips": int(cgp.sum()),
+            "max_trips": int(it.max()), "gm_rel_err": gm_err}
+
+
+def _check_minor_loop(kern, worst) -> dict:
+    """The minor-loop kernel against its plain version on the card at both
+    cells' recorded inputs (`_record_loop_calls`): each call as recorded,
+    again with every other lane held back at entry (they return their entry
+    carry), two calls bitwise equal, a lane alone bitwise its lane in the
+    batch; then refused operands.  Returns the recorded calls by cell."""
+    t0 = time.perf_counter()
+    plain = kern._MINOR_LOOP_PLAIN
+    recorded = {}
+    for cell in MINOR_LOOP_CELLS:
+        calls = _record_loop_calls(kern, cell, MINOR_LOOP_RECORDED)
+        recorded[cell] = calls
+        tot = collections.Counter()
+        for i, (args, kw) in enumerate(calls):
+            for held in (False, True):
+                a = list(args)
+                if held:
+                    a[11] = a[11] & (torch.arange(a[11].shape[0], device=a[11].device) % 2 == 0)
+                got = kern.minor_loop_r(*a, **kw)
+                r = _loop_compare(kern, f"minor_loop_r {cell} call {i}{' (odd lanes held)' if held else ''}", a, got,
+                                  plain(*a, **kw))
+                worst("minor_loop_r", r["rel_err"])
+                tot.update({k: v for k, v in r.items() if k not in ("rel_err", "gm_rel_err", "max_trips")})
+                tot["max_trips"] = max(tot["max_trips"], r["max_trips"])
+                tot["calls"] += 1
+            once, again = kern.minor_loop_r(*args, **kw), kern.minor_loop_r(*args, **kw)
+            _require(all(_bits_equal(u, v) for u, v in zip(once, again)), f"minor_loop_r {cell} call {i}: two calls differ")
+            lane = args[0].shape[0] // 2
+            alone = kern.minor_loop_r(*[t[lane:lane + 1] if isinstance(t, torch.Tensor) else t for t in args], **kw)
+            _require(all(_bits_equal(u[0], v[lane]) for u, v in zip(alone, again)),
+                     f"minor_loop_r {cell} call {i}: a lane alone differs from the same lane in its batch")
+        print(f"minor_loop_r {cell}: {tot['calls']} checks of {len(calls)} recorded calls: trips {tot['trips']} (plain "
+              f"{tot['plain_trips']}, most a lane {tot['max_trips']}), CG trips {tot['cg_trips']} (plain "
+              f"{tot['plain_cg_trips']}), {tot['off_path']} lanes off the plain path ({tot['by_model']} held to the model)")
+    args, kw = recorded[MINOR_LOOP_CELLS[0]][0]
+    before = kern.LAUNCHES["minor_loop_r"]
+    for i, bad in ((0, args[0].double()), (0, args[0].mT), (12, args[12].long()), (11, args[11].int()),
+                   (7, args[7][:, :-1])):
+        a = list(args)
+        a[i] = bad
+        try:
+            kern.minor_loop_r(*a, **kw)
+        except (TypeError, ValueError):
+            continue
+        raise AssertionError("minor_loop_r: a refused operand was taken")
+    _require(kern.LAUNCHES["minor_loop_r"] == before, "minor_loop_r: a refused call launched")
+    print(f"minor_loop_r checks: {time.perf_counter() - t0:.1f} s")
+    return recorded
+
+
+def _minor_loop_bound(args, iters, cg_iters) -> dict:
+    """The least time of one loop call: R, A (once if shared), L, the
+    n-vectors and the mask read, the carry written, at the memory rate; or
+    its flops — per trip R w and Rᵀ(R s) (2kn + 4kn) and 4kn a CG trip —
+    at the float32 rate; whichever is larger."""
+    R, A = args[0], args[1]
+    B, k, n = R.shape
+    m = A.shape[1]
+    n_bytes = 4 * (B * k * n + (m * n if A.stride(0) == 0 else B * m * n) + 2 * B * m * m + 10 * B * n + 4 * B) + 2 * B * n
+    return _bound(n_bytes, 6 * k * n * int(iters.sum()) + 4 * k * n * int(cg_iters.sum()))
+
+
+def _time_minor_loop(kern, rec, recorded) -> None:
+    """The minor-loop kernel at each cell's recorded call with the most
+    trips: device µs a launch (torch.profiler), the same call captured into
+    a graph and replayed, and the old site — the plain version captured as
+    the fused bulk captures it (the minor WHILE node, its trips' CG inside
+    minor_direction_r) — replayed, with the device operations a replay runs;
+    beside the bound."""
+    plain = kern._MINOR_LOOP_PLAIN
+    rec["minor_loop_r"]["times"] = {}
+    for cell, calls in recorded.items():
+        trips = [int(kern.minor_loop_r(*a, **kw)[4].max()) for a, kw in calls]
+        args, kw = calls[max(range(len(calls)), key=lambda i: trips[i])]
+        kernel = lambda: kern.minor_loop_r(*args, **kw)
+        old = lambda: plain(*args, **kw)
+        out = kernel()
+        us = _device_us(kernel)
+        new_stage, new_ops = _captured_stage("minor_loop_kernel", kernel)
+        old_stage, old_ops = _captured_stage("minor_loop_old_site", old)
+        t = _in_turns({"kernel graph": new_stage, "old site graph": old_stage}, reps=20, warm=3)
+        bound = _minor_loop_bound(args, out[4], out[5])
+        rec["minor_loop_r"]["times"][cell] = {
+            "shape": "x".join(map(str, (*args[0].shape, args[1].shape[1]))), "trips": int(out[4].sum()),
+            "max_trips": int(out[4].max()), "cg_trips": int(out[5].sum()), "device_us": us,
+            "kernel_graph_ms": t["kernel graph"], "old_site_graph_ms": t["old site graph"], "old_site_ops": old_ops,
+            "kernel_graph_ops": new_ops, **bound}
+        print(f"minor_loop_r {cell} {tuple(args[0].shape)} m={args[1].shape[1]}: {int(out[4].sum())} trips over the "
+              f"lanes (max {int(out[4].max())}), {int(out[5].sum())} CG trips; device {us:.2f} us a launch (bound "
+              f"{bound['bound_us']:.2f} us by {bound['bound_by']}, {100 * bound['bound_us'] / us:.1f}%); in turns: in a "
+              f"graph {t['kernel graph']:.4f} ms ({new_ops}), old site in a graph {t['old site graph']:.4f} ms ({old_ops})")
 
 
 def polish_stack(rng, B, d, n, dev, reg=0.0):
@@ -2162,8 +2433,8 @@ def phase_slice(kern) -> dict:
     if not torch.equal(info2.converged, info.converged) or float((X2 - X).abs().max()) > SMALL_ATOL:
         raise AssertionError("slice: the warm run disagrees with the cold run")
     _check_launched("config 2", launches, POLISH_KERNELS)
-    _require(launches["minor_direction_r"] == 0, f"config 2: the minor-iteration kernel launched "
-             f"{launches['minor_direction_r']} times; n = 3 has no materialized operator")
+    _require(not any(launches[k] for k in MINOR_KERNELS), f"config 2: the minor kernels launched "
+             f"{ {k: launches[k] for k in MINOR_KERNELS} } times; n = 3 has no materialized operator")
     _require(launches["batched_cho_solve"] == 0, f"config 2: batched_cho_solve launched {launches['batched_cho_solve']} "
              "times; the dual Newton, its one caller here, is the polyhedron_newton kernel")
     # A traced warm run: device kernels in all and the dual Newton's.
@@ -2395,9 +2666,9 @@ def phase_fused(kern, smi: str, profile: bool) -> dict:
         _require(captured[name] > 0 and executed[name] > 0, f"fused config 2: kernel {name} captured {captured[name]}, run by the replays {executed[name]}")
     _require(all(executed[k] >= eager_launches[k] for k in POLISH_KERNELS),
              f"fused config 2: the replays ran fewer path kernels ({executed}) than the same stages eagerly ({eager_launches})")
-    _require(captured["minor_direction_r"] == executed["minor_direction_r"] == 0,
-             f"fused config 2: the minor-iteration kernel captured {captured['minor_direction_r']}, run "
-             f"{executed['minor_direction_r']} times; n = 3 has no materialized operator")
+    _require(not any(captured[k] or executed[k] for k in MINOR_KERNELS),
+             f"fused config 2: the minor kernels captured { {k: captured[k] for k in MINOR_KERNELS} }, run "
+             f"{ {k: executed[k] for k in MINOR_KERNELS} } times; n = 3 has no materialized operator")
 
     # The oracle on 128 sampled instances.
     fns = bp.instance_fns(theta)
@@ -2506,6 +2777,8 @@ def phase_config3(kern) -> dict:
     if not torch.equal(info2.converged, info.converged) or float((X2 - X).abs().max()) > SMALL_ATOL:
         raise AssertionError("config 3: the warm run disagrees with the cold run")
     _check_launched("config 3", launches, DENSE_BULK_KERNELS)
+    _require(launches["minor_direction_r"] == 0, f"config 3: the minor-iteration kernel launched "
+             f"{launches['minor_direction_r']} times beside the minor-loop kernel")
     kernels, newton = _traced_kernels(lambda: run("auto"), "polyhedron_newton")
     print(f"config 3: a traced warm run: {kernels} device kernels (before the dual-Newton kernel "
           f"{DEVICE_KERNELS_BEFORE_NEWTON['config 3']}), {newton} of them polyhedron_newton")
@@ -2515,6 +2788,7 @@ def phase_config3(kern) -> dict:
     (Xh, _, info_h), host_cold = _walled(lambda: run("host"))
     launches_host = dict(kern.LAUNCHES)
     _check_launched("config 3 certify=host", launches_host, DENSE_BULK_KERNELS)
+    _require(launches_host["minor_direction_r"] == 0, "config 3 certify=host: the minor-iteration kernel launched")
     print(f"config 3: blocked_qr_r launches a run: {launches['blocked_qr_r']} (certify=auto), "
           f"{launches_host['blocked_qr_r']} (certify=host); batch/polish runs a fixed budget of chord steps "
           f"(5 steps: 2 factor, 3 chord) and does not expose how many a lane needed")
@@ -2691,6 +2965,9 @@ def phase_fused_config3(kern, smi: str, res3: dict, profile: bool) -> dict:
     for name in DENSE_BULK_KERNELS:
         _require(captured[name] > 0 and executed[name] > 0,
                  f"fused config 3: kernel {name} captured {captured[name]}, run by the replays {executed[name]}")
+    _require(captured["minor_direction_r"] == executed["minor_direction_r"] == 0,
+             f"fused config 3: the minor-iteration kernel captured {captured['minor_direction_r']}, run "
+             f"{executed['minor_direction_r']} times beside the minor-loop kernel")
 
     # The oracle on all 64.
     fns = bp.instance_fns(theta)
@@ -2752,22 +3029,19 @@ def _bulk_split(calls: int) -> list:
     return rows
 
 
-def phase_bulk_split(calls: int = 64, seed: int = 1) -> dict:
-    """`device_ops_per_call` of the benchmark cell `densequad-b64-fused`
-    split part by part (`_bulk_split`): its pool (portbench's densequad
-    family, the cell's configuration and traffic, `seed`), one call to
-    capture, then `calls` calls over the pool with the replays counted.
-    Outside every timed path.  Runs on any checkout of the port that has the
-    fused pipeline (the parent's too: `sys.path` first to its root)."""
+def phase_bulk_split(cell: str = "densequad-b64-fused", calls: int = 64, seed: int = 1) -> dict:
+    """`device_ops_per_call` of the benchmark cell `cell` split part by part
+    (`_bulk_split`): its pool (portbench's family, the cell's configuration
+    and traffic, `seed`), one call to capture, then `calls` calls over the
+    pool with the replays counted.  Outside every timed path.  Runs on any
+    checkout of the port that has the fused pipeline and the cell's family
+    (the parent's too: `sys.path` first to its root); the minor-iteration
+    kernels' launches a call are printed with the trips of the loops that
+    launch them."""
     from benlsip_tpu_torch.batch import fused_small
     from benlsip_tpu_torch.batch.refine import solve_mixed_precision
-    from benlsip_tpu_torch.solver.options import SolverOptions
-    from portbench.families.densequad import Pool
 
-    cfg = json.loads(open("portbench/configs/densequad-n192-d1024-m6.json").read())
-    mix = json.loads(open("portbench/traffic/cold-b64-fused.json").read())
-    pool = Pool(cfg, mix, seed, torch.device("cuda:0"))
-    opts = SolverOptions(**cfg["options"])
+    _, mix, pool, opts = _cell_pool(cell, seed, torch.device("cuda:0"))
 
     def call(k: int):
         bp, theta, X0 = pool.batch(k % pool.size)
@@ -2785,7 +3059,7 @@ def phase_bulk_split(calls: int = 64, seed: int = 1) -> dict:
     by_stage = collections.Counter()
     for r in rows:
         by_stage[r["stage"]] += r["ops_per_call"]
-    print(f"bulk split over {calls} calls of densequad-b64-fused (seed {seed}): device ops a call {total:.1f} "
+    print(f"bulk split over {calls} calls of {cell} (seed {seed}): device ops a call {total:.1f} "
           f"(replay_counts: {(replay['device_kernels'] + replay['device_copies']) / calls:.1f}), by stage "
           f"{ {k: round(v, 1) for k, v in by_stage.items()} }, WHILE trips a call {replay['loop_trips'] / calls:.2f}")
     for r in sorted(rows, key=lambda r: -r["ops_per_call"]):
@@ -2793,13 +3067,14 @@ def phase_bulk_split(calls: int = 64, seed: int = 1) -> dict:
             print(f"bulk split: {r['stage']} part {r['part']:3d} {r['kind']:5s} {r['ops_per_call']:9.1f} ops a call = "
                   f"({r['kernel_nodes']} kernel + {r['copy_nodes']} copy nodes) x {r['runs_per_call']:.3f} runs; "
                   f"launches a run {r['launches']}")
-    minor = replay["launches"].get("minor_direction_r", 0) / calls
-    minor_trips = sum(r["runs_per_call"] * r["launches"].get("minor_direction_r", 0) for r in rows)
-    print(f"bulk split: minor_direction_r launches a call {minor:.3f}, the trips of the loops that launch it a call "
-          f"{minor_trips:.3f}")
-    _require(abs(minor - minor_trips) < 1e-9, "bulk split: the minor-iteration kernel's launches are not its loop's trips")
-    return {"rows": rows, "ops_per_call": total, "minor_launches_per_call": minor,
-            "while_trips_per_call": replay["loop_trips"] / calls}
+    out = {"cell": cell, "rows": rows, "ops_per_call": total, "while_trips_per_call": replay["loop_trips"] / calls}
+    for name in ("minor_direction_r", "minor_loop_r"):
+        per_call = replay["launches"].get(name, 0) / calls
+        trips = sum(r["runs_per_call"] * r["launches"].get(name, 0) for r in rows)
+        print(f"bulk split: {name} launches a call {per_call:.3f}, the runs of the parts that launch it a call {trips:.3f}")
+        _require(abs(per_call - trips) < 1e-9, f"bulk split: {name}'s launches are not the runs of its parts")
+        out[f"{name}_launches_per_call"] = per_call
+    return out
 
 
 def _require(ok: bool, msg: str) -> None:
@@ -3145,8 +3420,8 @@ def phase_config4(kern) -> dict:
     _require(list(builds) == ["normal/float32"] and builds["normal/float32"] > 0,
              f"config 4: the operator must be the Gram matrix in float32 only, built {builds}")
     _check_launched("config 4", launches, CONFIG4_KERNELS, small_n=False)
-    _require(launches["minor_direction_r"] == 0, f"config 4: the minor-iteration kernel launched "
-             f"{launches['minor_direction_r']} times on the Gram operator")
+    _require(not any(launches[k] for k in MINOR_KERNELS), f"config 4: the minor kernels launched "
+             f"{ {k: launches[k] for k in MINOR_KERNELS} } times on the Gram operator")
     for name in ("masked_aat_cholesky", "project_tangent", "polyhedron_newton"):
         _require(plan > 1 and by_plan.get(f"{name} S={plan}", 0) > 0,
                  f"config 4: {name} did not run in the split form (plan {plan}): {by_plan}")
@@ -3928,22 +4203,22 @@ def phase_bf16(kern, smi: str) -> dict:
     _check_launched("config 3 bf16 bulk", launches3, BF16_PATH_KERNELS)
 
     # Config 3 with bulk_matmul_precision="default": TF32 in the bulk only,
-    # but not in its minor iterations, which the minor-iteration kernel runs
-    # in float32 FMA whatever TF32 is allowed (they launch in both runs).
+    # but not in its minor loops, which the minor-loop kernel runs in float32
+    # FMA whatever TF32 is allowed (they launch in both runs).
     res3 = {}
     for precision in ("highest", "default"):
         kw = {} if precision == "highest" else {"bulk_matmul_precision": precision}
         kern.reset_launches()
         (Xp, _, ip), wall_p = _walled(lambda: run3(**kw))
-        minor = kern.LAUNCHES["minor_direction_r"]
+        minor = kern.LAUNCHES["minor_loop_r"]
         _check_certified(f"config 3 bulk_matmul_precision={precision}", Xp, ip, B3, n3)
         _require(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 must be off after the call")
-        _require(minor > 0, f"config 3 bulk_matmul_precision={precision}: the minor-iteration kernel did not launch")
+        _require(minor > 0, f"config 3 bulk_matmul_precision={precision}: the minor-loop kernel did not launch")
         res3[precision] = {"wall_s": wall_p, "polished": _polished_lanes(ip), "fallback": _fallback_lanes(ip),
                            "dx_vs_highest": float((Xp - X3f).abs().max()), "minor_launches": minor}
     print(f"config 3 bulk matmul precision on {smi}: " + "; ".join(
         f"{p}: wall {v['wall_s']:.3f} s, lanes certified by the polish {v['polished']}/{B3}, sent to the f64 refine "
-        f"{v['fallback']}, max |dX| vs the highest run {v['dx_vs_highest']:.3e}, minor_direction_r launches "
+        f"{v['fallback']}, max |dX| vs the highest run {v['dx_vs_highest']:.3e}, minor_loop_r launches "
         f"{v['minor_launches']}" for p, v in res3.items()))
     out["config3"] = {"launches": launches3, "wall_s": wall3, "builds": builds, "polished": _polished_lanes(i3),
                       "fallback": _fallback_lanes(i3), "tf32": res3}
@@ -4252,6 +4527,7 @@ def main() -> None:
     res3 = phase_config3(kern)
     res3f = phase_fused_config3(kern, smi, res3, "--profile" in sys.argv[1:])
     res3f["split"] = phase_bulk_split()
+    res3f["split_sphere"] = phase_bulk_split("densesphere-b64-fused")
     res1 = phase_config1(kern, smi)
     res4 = phase_config4(kern)
     res5 = phase_config5(kern, smi)
@@ -4271,6 +4547,7 @@ def main() -> None:
         "blocked_qr_r": (src + "blocked_qr.cu", "benlsip_tpu/kernels/batched_linalg.py:170"),
         "polyhedron_newton": (src + "polyhedron_newton.cu", "benlsip_tpu/kernels/batched_linalg.py:119"),
         "minor_direction_r": (src + "minor_direction_r.cu", "none: the JAX package's projected CG is lax.while_loop code"),
+        "minor_loop_r": (src + "minor_loop_r.cu", "none: the JAX package's minor loop is lax.while_loop code"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -4291,10 +4568,14 @@ def main() -> None:
             # the (B, m, n, dtype, plan) the paths called it at, with counts.
             k["sources"] = [source, src + "polyhedron_newton_split.cu", src + "polyhedron_newton.cuh"]
             k["path_shapes"] = {"x".join(map(str, key)): v for key, v in sorted(NEWTON_SEEN.items())}
-        if name == "minor_direction_r":
-            # Its projections run the device function of project_tangent's header.
-            k["sources"] = [source, src + "project_tangent.cuh"]
-            k["launches_bulk_split_per_call"] = res3f["split"]["minor_launches_per_call"]
+        if name in MINOR_KERNELS:
+            # One device code of the minor iteration; the projections run the
+            # device function of project_tangent's header, the loop's factor
+            # masked_aat_cholesky's.
+            k["sources"] = [source, src + "minor_iteration.cuh", src + "project_tangent.cuh"] + (
+                [src + "masked_aat.cuh"] if name == "minor_loop_r" else [])
+            k["launches_bulk_split_per_call"] = {split["cell"]: split[f"{name}_launches_per_call"]
+                                                 for split in (res3f["split"], res3f["split_sphere"])}
         if name in ("batched_thin_qr", "narrow_qr_r"):
             # One kernel, two entries (Q and R; R only, of S or of the
             # stacked [JZ; diag(dbot)]); the device code is in the header,

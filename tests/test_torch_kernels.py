@@ -175,7 +175,7 @@ def test_build_is_keyed_on_sources():
     assert {s.name for s in tk.CSRC.glob("*.cu")} == {
         "cholesky.cu", "cho_solve.cu", "thin_qr.cu", "thin_qr_bf16.cu", "thin_qr_f64.cu", "masked_aat_cholesky.cu",
         "project_tangent.cu", "blocked_qr.cu", "graph_conditional.cu", "polyhedron_newton.cu",
-        "polyhedron_newton_split.cu", "minor_direction_r.cu",
+        "polyhedron_newton_split.cu", "minor_direction_r.cu", "minor_loop_r.cu",
     }
     assert "--use_fast_math" not in tk.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in tk.NVCC_FLAGS
     # Separately rounded products everywhere but in the panel QR, and the
@@ -362,7 +362,7 @@ def test_fused_dispatch_gate(rng):
         tk.masked_aat_cholesky(A_pi.to("meta"), fx.to("meta"))
     assert sum(tk.LAUNCHES.values()) == 0 and set(tk.LAUNCHES) == {
         "batched_cholesky", "batched_cho_solve", "batched_thin_qr", "narrow_qr_r", "masked_aat_cholesky",
-        "project_tangent", "blocked_qr_r", "polyhedron_newton", "minor_direction_r",
+        "project_tangent", "blocked_qr_r", "polyhedron_newton", "minor_direction_r", "minor_loop_r",
     }
 
 

@@ -93,7 +93,7 @@ def test_cpu_calls_count_no_launch_by_plan():
     tchol.masked_projection(A, L, fixed, torch.from_numpy(rng.standard_normal((2, CONFIG4[1])).astype(np.float32)))
     assert set(tk.LAUNCHES) == {
         "batched_cholesky", "batched_cho_solve", "batched_thin_qr", "narrow_qr_r", "masked_aat_cholesky",
-        "project_tangent", "blocked_qr_r", "polyhedron_newton", "minor_direction_r",
+        "project_tangent", "blocked_qr_r", "polyhedron_newton", "minor_direction_r", "minor_loop_r",
     }
     assert sum(tk.LAUNCHES.values()) == 0 and not tk.LAUNCHES_BY_PLAN and not tk.LAUNCHES_BY_DTYPE
     tk.LAUNCHES_BY_PLAN["project_tangent", 16] += 1
